@@ -9,5 +9,10 @@ on the device named by ``DSSParams.device`` through two hand-written CUDA
 kernels (``repro_torch.kernels``). Results leave the data plane as host
 ``numpy`` arrays or ``bytes``.
 
+And the serving path of the dense LM family (``repro_torch.models``,
+``repro_torch.train.steps``, ``repro_torch.launch.serve``): prefill, whose
+attention is the hand-written flash-attention kernel, and greedy decode
+over a KV cache.
+
 It depends on torch and numpy alone, and imports nothing of ``repro``.
 """
