@@ -8,8 +8,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (one ``nvcc`` per source, all at once) and print the build time;
 3. kernels: hold each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it and at ragged, seam, windowed,
-   top-left-causal and extreme-logit shapes, and time both (and, where one
-   PyTorch call computes the same function, that call);
+   top-left-causal and extreme-logit shapes (bf16 and f32 for attention),
+   and time both (and, where one PyTorch call computes the same function,
+   that call; the flash kernel's share of its bound and its ratio to that
+   call);
 4. storage path: drive the CoARESECF storage path of the paper's Emulab
    deployment (n=11, k=6, EC-DAPopt, fragmented, indexed; 512 KiB min/avg
    and 1 MiB max blocks; one file of ``--size-mib`` MiB made from ``--seed``)
@@ -40,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -96,9 +99,28 @@ def build(out_dir: Path) -> None:
     log(f"build: {len(logs)} kernel libraries in {dt:.3f} s "
         f"({', '.join(_build.library_path(n).name for n in logs)})")
     for name, text in logs.items():
+        entry = ""
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"build: {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = _kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log(f"build: {name}: {entry}: {line.removeprefix('ptxas info    :').strip()}")
+
+
+def _kernel_name(mangled: str) -> str:
+    """``name<args>`` of a mangled kernel name: its last name component and
+    its integer template arguments."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    parts = []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        parts.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    targs = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    args = re.findall(r"\d+", targs.group(1)) if targs else []
+    return (parts[-1] if parts else mangled) + (f"<{', '.join(args)}>" if args else "")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -219,6 +241,13 @@ FLASH_CASES = (
     ("sliding window", 1, 4, 1, 2048, 2048, 256, True, 512, torch.bfloat16, 1.0),
     ("f32 Sq<Sk top-left causal", 2, 4, 2, 320, 1111, 128, True, 0, torch.float32, 1.0),
     ("extreme logits x30", 1, 2, 2, 256, 256, 32, True, 0, torch.float32, 30.0),
+    # the bf16 (tensor-core) form where it is most fragile
+    ("bf16 Sq<Sk top-left causal", 2, 4, 2, 320, 1111, 128, True, 0, torch.bfloat16, 1.0),
+    ("bf16 extreme logits x30", 1, 2, 2, 256, 256, 32, True, 0, torch.bfloat16, 30.0),
+    ("bf16 rows with no key", 1, 2, 2, 200, 50, 64, True, 16, torch.bfloat16, 1.0),
+    ("bf16 non-causal ragged Sk", 1, 2, 2, 65, 2049, 64, False, 0, torch.bfloat16, 1.0),
+    ("bf16 Sq=1", 2, 14, 2, 1, 77, 64, True, 0, torch.bfloat16, 1.0),
+    ("bf16 hd 16 GQA", 2, 4, 2, 333, 333, 16, False, 0, torch.bfloat16, 1.0),
 )
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 
@@ -262,18 +291,19 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
                for shape in ((B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
     ke, ve = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), 2)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True), 20)
     flops = 4 * hd * _causal_pairs(Sq, Sk) * B * H
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
     flop_ms, byte_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True), 20)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), 2)
     log(f"kernels: flash_attention path q{tuple(q.shape)} k/v{tuple(k.shape)} bf16 causal: "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}: {flops} flops at 989 TFLOP/s = {flop_ms:.4f} ms, "
-        f"{nbytes} bytes at 3.35 TB/s = {byte_ms:.4f} ms); {flops / ms / 1e9:.1f} TFLOP/s "
-        f"({card})")
+        f"{nbytes} bytes at 3.35 TB/s = {byte_ms:.4f} ms); {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{100 * bound_ms / ms:.2f} % of its bound, {ms / library_ms:.3f}x the time of "
+        f"scaled_dot_product_attention ({card})")
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:67",

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exports a plain C launcher and is compiled on first
 use, by ``nvcc`` alone (no PyTorch headers, so a build takes seconds), into
 ``build/kernels/<name>-<hash>.so`` at the root of the checkout, keyed by a
-hash of the source and the flags. The library is loaded with ``ctypes``.
+hash of the source, of every file it ``#include "..."``s (transitively),
+and of its flags. The library is loaded with ``ctypes``.
 A missing ``nvcc`` or a failed build raises: there is no fallback.
 
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all of
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -26,6 +28,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# flags that one source adds to NVCC_FLAGS (an -I for a header library, say)
+EXTRA_FLAGS: dict[str, tuple[str, ...]] = {}
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -49,10 +54,41 @@ def nvcc_path() -> str:
     )
 
 
+def nvcc_flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
+def sources_of(name: str, csrc: Path = CSRC) -> list[Path]:
+    """``csrc/<name>.cu`` and every file that it includes with
+    ``#include "..."``, transitively, each once. An include that does not
+    resolve beside its includer (a header of an ``-I`` path) is left out:
+    the flags name it."""
+    found: list[Path] = []
+    todo = [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0).resolve()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.is_file():
+                todo.append(dep)
+    return found
+
+
+def build_key(name: str, csrc: Path = CSRC) -> str:
+    """Hash of the source, the files it includes and its flags: any change
+    to one of them gives another library file, so nothing stale loads."""
+    digest = hashlib.sha256()
+    for path in sources_of(name, csrc):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    digest.update(" ".join(nvcc_flags(name)).encode())
+    return digest.hexdigest()[:16]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    return BUILD_DIR / f"{name}-{build_key(name)}.so"
 
 
 def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
@@ -64,7 +100,7 @@ def _start(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     # (or load) a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

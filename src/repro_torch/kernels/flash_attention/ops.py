@@ -2,9 +2,10 @@
 
 ``flash_attention(q, k, v, causal=..., window=...)`` computes fused
 attention where the tensors lie: the CUDA kernel for CUDA tensors (one
-launch, counted in ``launches``), the plain PyTorch version
-(``ref.flash_attention_ref``) for CPU tensors. There is no fallback from one
-to the other, and anything the kernel does not take raises on both.
+launch, counted in ``launches``; bf16 runs on the tensor cores, f32 on the
+CUDA cores), the plain PyTorch version (``ref.flash_attention_ref``) for
+CPU tensors. There is no fallback from one to the other, and anything the
+kernel does not take raises on both.
 """
 from __future__ import annotations
 
@@ -52,6 +53,9 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     global launches
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:  # the tensor maps of the TMA loads need 16-byte aligned bases
+        q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     fn = _build.load("flash_attention").flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -59,7 +63,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk,
-                 hd, int(q.dtype == torch.bfloat16), int(causal), window, stream)
+                 hd, int(bf16), int(causal), window, stream)
     _build.check(err, "flash_attention")
     launches += 1
     return out

@@ -114,6 +114,22 @@ FLASH_CASES = [
     (1, 2, 2, 200, 50, 64, True, 16, torch.float32),   # rows with no key at all
     (1, 2, 2, 300, 300, 64, False, 40, torch.float32),
     (2, 14, 2, 256, 256, 64, True, 0, torch.bfloat16),  # qwen2-0.5b heads
+    # bf16 twins of the cases above that ran in f32 only: the tensor-core form
+    (1, 2, 2, 128, 128, 32, True, 0, torch.bfloat16),
+    (2, 4, 4, 256, 256, 64, True, 0, torch.bfloat16),
+    (1, 2, 2, 256, 256, 64, False, 0, torch.bfloat16),   # non-causal
+    (1, 2, 2, 256, 256, 64, True, 64, torch.bfloat16),   # sliding window
+    (1, 1, 1, 128, 512, 64, True, 0, torch.bfloat16),
+    (2, 3, 3, 1, 1, 64, True, 0, torch.bfloat16),        # Sq = Sk = 1
+    (1, 2, 2, 1, 63, 64, True, 0, torch.bfloat16),       # Sq = 1
+    (1, 2, 2, 65, 2049, 32, False, 0, torch.bfloat16),   # ragged Sk
+    (1, 2, 2, 77, 77, 64, True, 0, torch.bfloat16),      # ragged Sq and Sk
+    (1, 2, 2, 200, 50, 64, True, 16, torch.bfloat16),    # rows with no key at all
+    (1, 2, 2, 300, 300, 64, False, 40, torch.bfloat16),
+    (2, 4, 2, 320, 1111, 128, True, 0, torch.bfloat16),  # top-left causal, Sq < Sk
+    (2, 4, 2, 333, 333, 16, False, 0, torch.bfloat16),   # hd 16 under GQA
+    (1, 4, 2, 100, 700, 256, True, 0, torch.bfloat16),   # hd 256 under GQA, Sq < Sk
+    (1, 4, 1, 700, 700, 256, False, 300, torch.bfloat16),
 ]
 
 
@@ -146,6 +162,39 @@ def test_flash_kernel_extreme_logits(cuda):
     got = fa_ops.flash_attention(q, k, v)
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got, flash_attention_ref(q, k, v), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_extreme_logits_bf16(cuda):
+    """The bf16 (tensor-core) form with q and k x30, so that the f32 scores
+    reach ~+-1e3, and rows whose first key tiles are all masked."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    shape = (1, 2, 256, 32)
+    q, k = (torch.from_numpy(rng.standard_normal(shape) * 30).to(cuda, torch.bfloat16)
+            for _ in range(2))
+    v = torch.from_numpy(rng.standard_normal(shape)).to(cuda, torch.bfloat16)
+    for window in (0, 100):
+        got = fa_ops.flash_attention(q, k, v, window=window)
+        want = flash_attention_ref(q, k, v, window=window)
+        assert float((q[0, 0].float() @ k[0, 0].float().T).abs().max()) / 32**0.5 > 500
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_takes_unaligned_bf16(cuda):
+    """A contiguous bf16 view whose base is not 16-byte aligned (the TMA
+    needs one) still gives the plain version's result."""
+    rng = np.random.default_rng(3)
+    n = 2 * 2 * 96 * 64
+    flat = torch.from_numpy(rng.standard_normal(3 * n + 1, dtype=np.float32))
+    flat = flat.to(cuda, torch.bfloat16)
+    q, k, v = (flat[1 + i * n: 1 + (i + 1) * n].view(2, 2, 96, 64) for i in range(3))
+    assert q.data_ptr() % 16 != 0 and q.is_contiguous()
+    got = fa_ops.flash_attention(q, k, v)
+    torch.testing.assert_close(got.float(), flash_attention_ref(q, k, v).float(),
+                               rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.cuda

@@ -124,3 +124,81 @@ def test_plain_version_is_the_oracle_on_cpu():
                for _ in range(3))
     assert torch.equal(ops.flash_attention(q, k, v, window=8),
                        flash_attention_ref(q, k, v, window=8))
+
+
+LOG2E = 1.4426950408889634
+
+
+def _tensor_core_numerics(q, k, v, *, causal, window, bk):
+    """The bf16 kernel's arithmetic in plain torch, key tile by key tile:
+    bf16 Q and K, f32 scores Q K^T (masked ones -2^100, finite like the
+    reference's -1e30, and exact when scaled; keys past Sk absent),
+    in the log2 domain with c = log2(e) / sqrt(hd) rounded to f32 once: the
+    running max m = max(m, c rowmax S), weights exp2(c S - m) (one FMA in the
+    kernel), the row sum of f32 P, P rounded to bf16 before P V, an f32
+    accumulator, the output in bf16."""
+    H, Sq, hd = q.shape[1], q.shape[2], q.shape[3]
+    Sk = k.shape[2]
+    k = k.repeat_interleave(H // k.shape[1], dim=1).float()
+    v = v.repeat_interleave(H // v.shape[1], dim=1).float()
+    qf = q.float()
+    c = torch.tensor(LOG2E / hd**0.5, dtype=torch.float32)
+    m = torch.full(q.shape[:3], -1e30)
+    l = torch.zeros(q.shape[:3])
+    acc = torch.zeros(qf.shape)
+    q_pos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Sk, bk):
+        kt, vt = k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk]
+        s = qf @ kt.transpose(-1, -2)
+        k_pos = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        ok = torch.ones((Sq, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            ok &= k_pos <= q_pos
+        if window > 0:
+            ok &= (q_pos - k_pos) < window
+        s = torch.where(ok, s, -2.0**100)
+        m_new = torch.maximum(m, s.amax(-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + p.bfloat16().float() @ vt
+        m = m_new
+    return (acc / l[..., None]).bfloat16()
+
+
+# reduced versions of the card's bf16 shapes: (B, H, Hkv, Sq, Sk, hd, causal,
+# window, input scale, key tile)
+BUDGET_CASES = [
+    (1, 14, 2, 256, 256, 64, True, 0, 1.0, 128),     # the prefill's heads
+    (1, 14, 2, 256, 256, 64, True, 0, 1.0, 64),
+    (1, 2, 2, 128, 128, 64, False, 0, 1.0, 128),     # non-causal
+    (1, 4, 1, 300, 300, 256, True, 128, 1.0, 64),    # sliding window, hd 256, GQA
+    (1, 2, 2, 200, 50, 64, True, 16, 1.0, 128),      # rows with no key at all
+    (1, 4, 2, 80, 277, 128, True, 0, 1.0, 128),      # top-left causal, Sq < Sk
+    (1, 2, 2, 1, 77, 64, True, 0, 1.0, 128),         # Sq = 1, ragged Sk
+    (1, 4, 2, 100, 100, 16, False, 0, 1.0, 128),     # hd 16 under GQA
+    (1, 2, 2, 256, 256, 32, True, 0, 30.0, 128),     # extreme logits: scores ~+-1e3
+    (1, 2, 2, 256, 256, 32, True, 100, 30.0, 128),   # ... with masked first tiles
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,hd,causal,window,scale,bk", BUDGET_CASES)
+def test_tensor_core_rounding_fits_the_bf16_tolerance(B, H, Hkv, Sq, Sk, hd, causal, window,
+                                                      scale, bk):
+    """The bf16 kernel rounds P to bf16 before P V. Its emulation stays within
+    the card checks' 2e-2 of the plain version and of the reference's oracle."""
+    rng = np.random.default_rng(Sq * 31 + Sk + hd)
+    arrs = [(rng.standard_normal(s) * f).astype(np.float32)
+            for s, f in (((B, H, Sq, hd), scale), ((B, Hkv, Sk, hd), scale), ((B, Hkv, Sk, hd), 1))]
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrs)
+    got = _tensor_core_numerics(q, k, v, causal=causal, window=window, bk=bk)
+    assert torch.isfinite(got.float()).all()
+    if scale > 1:
+        s = q[0, 0].float() @ k[0, 0].float().T / hd**0.5
+        assert float(s.abs().max()) > 500
+    _close(got, flash_attention_ref(q, k, v, causal=causal, window=window).float().numpy(), 2e-2)
+    G = H // Hkv
+    jq, jk, jv = (jnp.asarray(t.float().numpy(), jnp.bfloat16) for t in (q, k, v))
+    want = jax_ref(jq, jnp.repeat(jk, G, axis=1), jnp.repeat(jv, G, axis=1), causal=causal,
+                   window=window)
+    _close(got, want, 2e-2)
