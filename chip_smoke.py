@@ -8,10 +8,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (one ``nvcc`` per source, all at once) and print the build time;
 3. kernels: hold each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it and at ragged, seam, windowed,
-   top-left-causal and extreme-logit shapes (bf16 and f32 for attention),
-   and time both (and, where one PyTorch call computes the same function,
-   that call; the flash kernel's share of its bound and its ratio to that
-   call);
+   top-left-causal and extreme-logit shapes (bf16 and f32 for attention;
+   every row offset mod 16 for the GF(256) product; both forms of the gear
+   hash), and time both (and, where one PyTorch call computes the same
+   function, that call; each kernel's share of its bound, the GF(256)
+   decode and the bitmap-only gear hash beside the path's forms);
 4. storage path: drive the CoARESECF storage path of the paper's Emulab
    deployment (n=11, k=6, EC-DAPopt, fragmented, indexed; 512 KiB min/avg
    and 1 MiB max blocks; one file of ``--size-mib`` MiB made from ``--seed``)
@@ -118,7 +119,7 @@ def _kernel_name(mangled: str) -> str:
             j += 1
         parts.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
-    targs = re.match(r"I((?:Li\d+E)+)E", mangled[i:])
+    targs = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[i:])
     args = re.findall(r"\d+", targs.group(1)) if targs else []
     return (parts[-1] if parts else mangled) + (f"<{', '.join(args)}>" if args else "")
 
@@ -151,13 +152,30 @@ def check_gf256(path_L: int, rng: np.random.Generator, card: str) -> dict:
     for L in (1, 7, 15, 16, 17, 4095, 4096, 4097, 1_000_003):   # ragged and misaligned
         cases.append((enc, L))
     cases.append((rng.integers(0, 256, (16, 16), dtype=np.uint8), 65_537))
-    cases.append((rng.integers(0, 256, (256, 256), dtype=np.uint8), 4_099))  # > 48 KiB of A logs
+    cases.append((rng.integers(0, 256, (256, 256), dtype=np.uint8), 4_099))  # 32 x 32 tiles
     special = np.array([[0, 1, 2, 255], [128, 0, 3, 1]], dtype=np.uint8)       # edge values
     cases.append((special, 33))
-    for A, L in cases:
+    # 0s and 1s beside full entries, with an input row of units alone
+    mixed = rng.integers(0, 256, (7, 6), dtype=np.uint8)
+    mixed[rng.integers(0, 3, (7, 6)) == 0] = 0
+    mixed[rng.integers(0, 3, (7, 6)) == 0] = 1
+    mixed[:, 0] = 1
+    block = 8 * 31 * 16  # a block's columns: 8 warps of 31 strips of 16
+    for rem in range(1, 16):  # multi-block rows with every L % 16: every row offset
+        L = 5 * block + 17 * rem
+        cases += [(enc, L), (dec, L), (mixed, L)]
+    for L in (495, 496, 497, block - 1, block, block + 1):  # warp and block seams
+        cases.append((mixed, L))
+    unaligned = len(cases)  # from here on, B's base is not 16-byte aligned
+    cases += [(enc, 100_003), (dec, 4_097)]
+    for n, (A, L) in enumerate(cases):
         B = torch.from_numpy(rng.integers(0, 256, (A.shape[1], L), dtype=np.uint8)).to(dev)
         if A is special:
             B[:, :8] = torch.tensor([0, 1, 2, 255, 128, 254, 0, 3], dtype=torch.uint8)
+        if n >= unaligned:
+            flat = torch.empty(B.numel() + 5, dtype=torch.uint8, device=dev)
+            flat[5:] = B.reshape(-1)
+            B = flat[5:].view(B.shape)
         got = gf.gf256_matmul(A, B)
         torch.cuda.synchronize()
         want = gf256_matmul_ref(torch.from_numpy(A), B)
@@ -174,7 +192,8 @@ def check_gf256(path_L: int, rng: np.random.Generator, card: str) -> dict:
     if gf.launches != before:
         raise AssertionError("a degenerate gf256_matmul launched the kernel")
     log(f"kernels: gf256_matmul byte-identical (tolerance 0) to the plain version on "
-        f"{len(cases)} shapes (encode and decode at L={path_L}) and 3 degenerate ones")
+        f"{len(cases)} shapes (encode and decode at L={path_L}; every L % 16 over several "
+        f"blocks; 0/1/full coefficients; warp and block seams; unaligned B) and 3 degenerate ones")
 
     timings = {}
     for label, A in (("encode", enc), ("decode", dec)):
@@ -184,8 +203,10 @@ def check_gf256(path_L: int, rng: np.random.Generator, card: str) -> dict:
         plain_ms = cuda_ms(lambda: gf256_matmul_ref(At, B), 2)
         bound_ms = (A.shape[0] + A.shape[1]) * path_L / HBM_BYTES_PER_S * 1e3
         timings[label] = (ms, plain_ms, bound_ms)
-        log(f"kernels: gf256_matmul {label} {A.shape} x (6, {path_L}): {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes) ({card})")
+        log(f"kernels: gf256_matmul {label} {A.shape} x (6, {path_L}) "
+            f"({int((A == 0).sum())} zero, {int((A == 1).sum())} unit coefficients): {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms (bytes), "
+            f"{100 * bound_ms / ms:.2f} % of its bound ({card})")
         del B
     ms, plain_ms, bound_ms = timings["encode"]
     return {"name": "gf256_matmul", "route": "cuda",
@@ -202,31 +223,43 @@ def check_gearhash(data: np.ndarray, rng: np.random.Generator, card: str) -> dic
     dev = torch.device("cuda")
     path_mask = cdc._mask_for_avg(AVG_BLOCK)
     worst = 0
-    seam = np.zeros(3 * 2048 + 77, dtype=np.uint8)       # zeros across tile seams
-    seam[2040:2060] = rng.integers(0, 256, 20, dtype=np.uint8)
+    span = 8192  # a warp's span: 16 steps of 512 positions
+    seam = np.zeros(3 * span + 77, dtype=np.uint8)       # zeros across span seams
+    seam[span - 8:span + 12] = rng.integers(0, 256, 20, dtype=np.uint8)
     cases = [(data, path_mask), (data[: 64 << 20], 0xFFFF), (seam, 0xFFFF), (seam, 0),
              (seam, 0xFFFFFFFF)]
-    for L in (1, 31, 32, 33, 2047, 2048, 2049, 4127):
+    for L in (1, 31, 32, 33, 511, 512, 513, 2047, 2048, 2049, 4127,
+              span - 1, span, span + 1, 2 * span + 1):
         cases.append((rng.integers(0, 256, L, dtype=np.uint8), 0xFF))
-    for arr, mask in cases:
+    unaligned = len(cases)  # from here on, the stream's base is not 16-byte aligned
+    cases += [(rng.integers(0, 256, 100_003, dtype=np.uint8), 0xFF)]
+    for n, (arr, mask) in enumerate(cases):
         x = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+        if n >= unaligned:
+            x = torch.cat([x[:3], x])[3:]
         h, b = cdc.gearhash(x, mask=mask)
+        b_only = cdc.gearhash_bitmap(x, mask=mask)
         torch.cuda.synchronize()
         hr, br = gearhash_ref(x, mask=mask)
-        err = max(_u32_err(h, hr), _u8_err(b, br))
+        err = max(_u32_err(h, hr), _u8_err(b, br), _u8_err(b_only, br))
         if err:
             raise AssertionError(
                 f"gearhash at L={x.shape[0]} mask={mask:#x} differs from the plain version")
         worst = max(worst, err)
-        del x, h, b, hr, br
-    log(f"kernels: gearhash hash and bitmap byte-identical (tolerance 0) to the plain version on "
-        f"{len(cases)} inputs (the path's {data.size} bytes, position 0, tile seams)")
+        del x, h, b, b_only, hr, br
+    log(f"kernels: gearhash hash and bitmap, and the bitmap-only form, byte-identical (tolerance "
+        f"0) to the plain version on {len(cases)} inputs (the path's {data.size} bytes, position "
+        f"0, step and span seams, masks 0 and 0xFFFFFFFF, an unaligned stream)")
     x = torch.from_numpy(data).to(dev)
     ms = cuda_ms(lambda: cdc.gearhash(x, mask=path_mask), 20)
+    bitmap_ms = cuda_ms(lambda: cdc.gearhash_bitmap(x, mask=path_mask), 20)
     plain_ms = cuda_ms(lambda: gearhash_ref(x, mask=path_mask), 2)
     bound_ms = 6 * data.size / HBM_BYTES_PER_S * 1e3  # 1 byte in, 4 + 1 out
-    log(f"kernels: gearhash L={data.size}: {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms (bytes) ({card})")
+    bitmap_bound_ms = 2 * data.size / HBM_BYTES_PER_S * 1e3  # 1 byte in, 1 out
+    log(f"kernels: gearhash L={data.size}: hash + bitmap {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms (bytes), {100 * bound_ms / ms:.2f} % of its bound; bitmap only "
+        f"{bitmap_ms:.4f} ms, bound {bitmap_bound_ms:.4f} ms (bytes), "
+        f"{100 * bitmap_bound_ms / bitmap_ms:.2f} % of its bound ({card})")
     return {"name": "cdc_gearhash", "route": "cuda",
             "source": "src/repro_torch/csrc/cdc_gearhash.cu",
             "replaces": "src/repro/kernels/cdc_gearhash/kernel.py:58",

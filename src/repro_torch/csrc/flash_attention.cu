@@ -59,7 +59,9 @@
 // of the f32 checks, and no model path attends in f32 (the model is bf16).
 // One CTA of 128 threads per 64-row q tile; 64-key tiles of K (transposed)
 // and V staged in shared memory in f32 with padded strides; a thread owns
-// rows ty + 16 i and key columns tx + 8 c; products are f32 FMAs.
+// rows ty + 16 i and key columns tx + 8 c; products are f32 FMAs, summed
+// in d order and then scaled, as the plain version does: with q scaled
+// first, scores near 1e3 (the x30 check) came out up to 4e-4 off it.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -128,7 +130,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int e = t; e < BQ * HD; e += THREADS) {
     const int r = e / HD, d = e % HD;
-    qT[d * QS + r] = r < rows ? qb[e] * scale : 0.f;
+    qT[d * QS + r] = r < rows ? qb[e] : 0.f;
   }
 
   int j_begin, j_end;
@@ -187,6 +189,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
           s[i][c] = -INFINITY;  // no such key: weight exactly 0
           continue;
         }
+        s[i][c] *= scale;  // after the sum, as the plain version scales its scores
         bool ok = !causal || kp <= qp;
         if (window > 0) ok = ok && qp - kp < window;
         if (!ok) s[i][c] = NEG;

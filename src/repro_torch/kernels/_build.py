@@ -146,6 +146,31 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def build_variants(name: str, sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
+    """Ablation builds: one library per named text of ``csrc/<name>.cu``,
+    each in its own directory under ``build/kernels/ablate/`` beside copies
+    of the headers the source includes, one ``nvcc`` each, all started
+    together, with the source's own flags."""
+    procs = {}
+    for label, text in sources.items():
+        out = BUILD_DIR / "ablate" / name / re.sub(r"[^A-Za-z0-9]+", "_", label)
+        out.mkdir(parents=True, exist_ok=True)
+        for path in sources_of(name)[1:]:
+            (out / path.name).write_bytes(path.read_bytes())
+        (out / f"{name}.cu").write_text(text)
+        lib = out / f"{name}.so"
+        cmd = [nvcc_path(), *nvcc_flags(name), "-o", str(lib), str(out / f"{name}.cu")]
+        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                         text=True), lib)
+    libs = {}
+    for label, (proc, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed on the {label!r} build of {name}.cu:\n{log}")
+        libs[label] = ctypes.CDLL(str(lib))
+    return libs
+
+
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C launcher."""
     if err != 0:

@@ -3,7 +3,9 @@
 ``gearhash`` computes where its input lies: the CUDA kernel
 (``csrc/cdc_gearhash.cu``, one launch counted in ``launches``) for a CUDA
 tensor, the plain PyTorch version (``ref.gearhash_ref``) for a CPU tensor.
-Host bytes or numpy input are first put on ``device``.
+Host bytes or numpy input are first put on ``device``. ``gearhash_bitmap``
+is the same with the bitmap alone: on the card, the kernel's bitmap-only
+form, which is what the chunker launches.
 
 ``split_chunks`` is what the Fragmentation Module calls: device-computed
 boundary candidates (only their indices, about L/avg of them, come back to
@@ -20,9 +22,10 @@ from repro_torch.device import host_tensor, resolve_device
 from repro_torch.kernels import _build
 from repro_torch.kernels.cdc_gearhash.ref import WINDOW, gearhash_ref
 
-__all__ = ["WINDOW", "boundary_bitmap", "gearhash", "split_chunks"]
+__all__ = ["WINDOW", "boundary_bitmap", "gearhash", "gearhash_bitmap", "split_chunks"]
 
-# Kernel launches made by ``gearhash`` since the count was last reset.
+# Kernel launches made by ``gearhash`` and ``gearhash_bitmap`` since the count
+# was last reset.
 launches = 0
 
 
@@ -32,22 +35,40 @@ def _mask_for_avg(avg_size: int) -> int:
     return (1 << bits) - 1
 
 
-def _launch(data: torch.Tensor, mask: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _launch(data: torch.Tensor, mask: int, *,
+            with_hash: bool) -> tuple[torch.Tensor | None, torch.Tensor]:
     global launches
     L = data.shape[0]
     dev = data.device
+    if data.data_ptr() % 16:  # the kernel reads the stream in aligned 16-byte words
+        data = data.clone()
     fn = _build.load("cdc_gearhash").gearhash_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_uint32, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    h = torch.empty(L, dtype=torch.uint32, device=dev)
+    h = torch.empty(L, dtype=torch.uint32, device=dev) if with_hash else None
     b = torch.empty(L, dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(data.data_ptr(), h.data_ptr(), b.data_ptr(), L, mask, stream)
+        err = fn(data.data_ptr(), None if h is None else h.data_ptr(), b.data_ptr(), L, mask,
+                 stream)
     _build.check(err, "cdc_gearhash")
     launches += 1
     return h, b
+
+
+def _stream(data, mask: int, device: str) -> torch.Tensor:
+    """``data`` as a contiguous 1-D uint8 tensor: a tensor stays where it
+    lies; ``bytes`` or a numpy array are first copied to ``device``."""
+    if not 0 <= mask <= 0xFFFFFFFF:
+        raise ValueError(f"mask {mask:#x} does not fit in 32 bits")
+    if not isinstance(data, torch.Tensor):
+        data = host_tensor(data).to(resolve_device(device))
+    if data.dtype != torch.uint8 or data.ndim != 1:
+        raise ValueError(f"data must be a 1-D uint8 stream, got {data.dtype} {tuple(data.shape)}")
+    if data.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {data.device}")
+    return data.contiguous()
 
 
 def gearhash(
@@ -58,25 +79,31 @@ def gearhash(
     A tensor is hashed where it lies; ``bytes`` or a numpy array are first
     copied to ``device``. Returns ``(hash (L,) uint32, bitmap (L,) uint8)``
     on that device."""
-    if not 0 <= mask <= 0xFFFFFFFF:
-        raise ValueError(f"mask {mask:#x} does not fit in 32 bits")
-    if not isinstance(data, torch.Tensor):
-        data = host_tensor(data).to(resolve_device(device))
-    if data.dtype != torch.uint8 or data.ndim != 1:
-        raise ValueError(f"data must be a 1-D uint8 stream, got {data.dtype} {tuple(data.shape)}")
+    data = _stream(data, mask, device)
     if data.device.type == "cpu":
         return gearhash_ref(data, mask=mask)
-    if data.device.type != "cuda":
-        raise ValueError(f"unsupported device {data.device}")
     if data.shape[0] == 0:
         return (torch.empty(0, dtype=torch.uint32, device=data.device),
                 torch.empty(0, dtype=torch.uint8, device=data.device))
-    return _launch(data.contiguous(), mask)
+    return _launch(data, mask, with_hash=True)
+
+
+def gearhash_bitmap(
+    data: torch.Tensor | np.ndarray | bytes, *, mask: int = 0xFFFF, device: str = "cuda"
+) -> torch.Tensor:
+    """The bitmap of ``gearhash`` alone, (L,) uint8 on the stream's device.
+    On the card it launches the kernel's bitmap-only form, which writes no
+    hash."""
+    data = _stream(data, mask, device)
+    if data.device.type == "cpu":
+        return gearhash_ref(data, mask=mask)[1]
+    if data.shape[0] == 0:
+        return torch.empty(0, dtype=torch.uint8, device=data.device)
+    return _launch(data, mask, with_hash=False)[1]
 
 
 def boundary_bitmap(data, avg_size: int, **kw) -> np.ndarray:
-    _h, b = gearhash(data, mask=_mask_for_avg(avg_size), **kw)
-    return b.cpu().numpy()
+    return gearhash_bitmap(data, mask=_mask_for_avg(avg_size), **kw).cpu().numpy()
 
 
 def split_chunks(
@@ -95,7 +122,7 @@ def split_chunks(
     """
     if not data:
         return [b""]
-    _h, bitmap = gearhash(data, mask=_mask_for_avg(avg_size), device=device)
+    bitmap = gearhash_bitmap(data, mask=_mask_for_avg(avg_size), device=device)
     cand = torch.nonzero(bitmap).flatten().cpu().numpy()
     chunks: list[bytes] = []
     start = 0

@@ -3,10 +3,11 @@
 Each variant is ``csrc/flash_attention.cu`` with one text edit (no softmax,
 no exp2, no products in the main loop, fewer warpgroups per CTA, narrower
 key tiles), built by ``nvcc`` into its own library under
-``build/kernels/ablate/`` (all builds at once), and timed in turns (each
-variant, then all again in reverse order) on one bf16 input, beside
-``scaled_dot_product_attention`` as a yardstick. A variant without a part
-computes a wrong result: its time only says what that part costs.
+``build/kernels/ablate/flash_attention/`` (all builds at once), and timed
+in turns (each variant, then all again in reverse order) on one bf16
+input, beside ``scaled_dot_product_attention`` as a yardstick. A variant
+without a part computes a wrong result: its time only says what that part
+costs.
 
     python -m repro_torch.kernels.flash_attention.ablate [--shape B,H,Hkv,S,hd] [--non-causal]
 """
@@ -50,29 +51,6 @@ def variants(src: str) -> dict[str, str]:
     }
 
 
-def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    """One library per named source, one ``nvcc`` each, all started together."""
-    procs = {}
-    for name, text in sources.items():
-        out = _build.BUILD_DIR / "ablate" / name.replace(" ", "_").replace("<=", "le")
-        out.mkdir(parents=True, exist_ok=True)
-        for path in _build.sources_of("flash_attention")[1:]:  # the headers it includes
-            (out / path.name).write_bytes(path.read_bytes())
-        (out / "flash_attention.cu").write_text(text)
-        lib = out / "flash_attention.so"
-        cmd = [_build.nvcc_path(), *_build.nvcc_flags("flash_attention"), "-o", str(lib),
-               str(out / "flash_attention.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), lib)
-    libs = {}
-    for name, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"ablate: nvcc failed on {name!r}:\n{log}")
-        libs[name] = ctypes.CDLL(str(lib))
-    return libs
-
-
 def launcher(lib: ctypes.CDLL, q, k, v, causal: bool):
     fn = lib.flash_attention_launch
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
@@ -108,7 +86,8 @@ def main(argv: list[str] | None = None) -> int:
         return 1
     B, H, Hkv, S, hd = (int(x) for x in args.shape.split(","))
     causal = not args.non_causal
-    libs = build(variants((_build.CSRC / "flash_attention.cu").read_text()))
+    libs = _build.build_variants("flash_attention",
+                                 variants((_build.CSRC / "flash_attention.cu").read_text()))
     gen = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = (torch.randn(shape, device="cuda", generator=gen).bfloat16()
                for shape in ((B, H, S, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))

@@ -21,15 +21,11 @@ import numpy as np
 import torch
 
 from repro_torch.device import host_tensor, resolve_device
-from repro_torch.erasure.gf import EXP_TABLE, LOG_TABLE
 from repro_torch.kernels import _build
 from repro_torch.kernels.gf256_matmul.ref import gf256_matmul_ref
 
 # Kernel launches made by ``gf256_matmul`` since the count was last reset.
 launches = 0
-
-_ZERO_LOG = 511  # log of 0 in the kernel's tables: every sum with it hits EXP's zero half
-_tables: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def kernel_is_native() -> bool:
@@ -53,18 +49,6 @@ def _validate_shapes(A: np.ndarray, B) -> None:
         )
 
 
-def _device_tables(dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's antilog table (1024 bytes, zero from index 509 on) and
-    log table (256 x 16 bits, log(0) = 511), resident on ``dev``."""
-    if dev not in _tables:
-        exp = np.zeros(1024, dtype=np.uint8)
-        exp[:509] = EXP_TABLE[:509]
-        log = LOG_TABLE.astype(np.int16)
-        log[0] = _ZERO_LOG
-        _tables[dev] = (torch.from_numpy(exp).to(dev), torch.from_numpy(log).to(dev))
-    return _tables[dev]
-
-
 def _launch(A: np.ndarray, B: torch.Tensor) -> torch.Tensor:
     global launches
     if B.dtype != torch.uint8:
@@ -77,16 +61,13 @@ def _launch(A: np.ndarray, B: torch.Tensor) -> torch.Tensor:
     lib = _build.load("gf256_matmul")
     fn = lib.gf256_matmul_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p]
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    exp, log = _device_tables(dev)
-    a = host_tensor(A).to(dev)
+    a = np.ascontiguousarray(A)  # read on the host: the kernel takes A as launch parameters
     out = torch.empty((m, L), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(a.data_ptr(), B.data_ptr(), out.data_ptr(), m, k, L,
-                 exp.data_ptr(), log.data_ptr(), stream)
+        err = fn(a.ctypes.data, B.data_ptr(), out.data_ptr(), m, k, L, stream)
     _build.check(err, "gf256_matmul")
     launches += 1
     return out

@@ -67,3 +67,18 @@ def test_extra_flags_of_a_source_change_its_key(csrc, monkeypatch):
     assert _build.nvcc_flags("flash_attention")[-1] == "-I/usr/local/cutlass/include"
     assert _build.build_key("flash_attention", csrc) != before
     assert _build.build_key("gf256_matmul", csrc) == other
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "gf256_matmul", "cdc_gearhash"])
+def test_ablation_edits_still_apply_to_the_sources(name):
+    """The ablation scripts edit the kernel sources by text; each edit must
+    still find its place and change the source."""
+    from repro_torch.kernels import storage_ablate
+    from repro_torch.kernels.flash_attention import ablate
+
+    make = {"flash_attention": ablate.variants, "gf256_matmul": storage_ablate.gf_variants,
+            "cdc_gearhash": storage_ablate.gear_variants}[name]
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    variants = make(src)
+    assert variants.pop("kernel") == src and variants
+    assert all(text != src for text in variants.values())

@@ -102,6 +102,17 @@ def test_boundary_bitmap_and_mask():
         assert port_ops._mask_for_avg(avg) == _mask_for_avg(avg)
 
 
+def test_bitmap_only_form_on_the_cpu():
+    """``gearhash_bitmap`` is ``gearhash``'s bitmap, with no launch on the CPU."""
+    data = np.random.default_rng(12).integers(0, 256, 9000, dtype=np.uint8)
+    before = port_ops.launches
+    for mask in (0, 0xFF, 0xFFFFFFFF):
+        bm = port_ops.gearhash_bitmap(data, mask=mask, device="cpu")
+        np.testing.assert_array_equal(bm.numpy(), _port_hash(data, mask)[1])
+    assert port_ops.gearhash_bitmap(b"", device="cpu").shape == (0,)
+    assert port_ops.launches == before
+
+
 def test_empty_and_tiny_inputs():
     kw = dict(min_size=4, avg_size=8, max_size=16, device="cpu")
     assert port_ops.split_chunks(b"", **kw) == [b""]

@@ -44,6 +44,43 @@ def test_gf256_kernel_matches_plain(cuda, m, k, L):
     assert torch.equal(got, gf256_matmul_ref(torch.from_numpy(A), B))
 
 
+GF_BLOCK_COLUMNS = 8 * 31 * 16  # a block's columns: 8 warps of 31 strips of 16
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rem", range(1, 16))
+def test_gf256_kernel_every_row_offset(cuda, rem):
+    """Multi-block rows with every L % 16 in 1..15 (so every row offset of
+    the funnel shifts and of the realigned stores), for the path's encode
+    and decode matrices and an A of 0s and 1s beside full entries."""
+    from repro_torch.erasure.rs import _decoder_cached, _parity_cached
+
+    rng = np.random.default_rng(rem)
+    L = 5 * GF_BLOCK_COLUMNS + 16 * rem + rem
+    mixed = rng.integers(0, 256, (7, 6), dtype=np.uint8)
+    mixed[rng.integers(0, 3, (7, 6)) == 0] = 0
+    mixed[rng.integers(0, 3, (7, 6)) == 0] = 1
+    mixed[:, 0] = 1  # an input row of units alone
+    B = torch.from_numpy(rng.integers(0, 256, (6, L), dtype=np.uint8)).to(cuda)
+    for A in (_parity_cached(11, 6), _decoder_cached(11, 6, (1, 2, 3, 4, 5, 6)), mixed):
+        got = gf_ops.gf256_matmul(A, B)
+        assert torch.equal(got, gf256_matmul_ref(torch.from_numpy(A), B))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [GF_BLOCK_COLUMNS - 1, GF_BLOCK_COLUMNS, GF_BLOCK_COLUMNS + 1,
+                               495, 497])
+def test_gf256_kernel_takes_unaligned_rows(cuda, L):
+    """A contiguous B whose base is not 16-byte aligned, at block and warp
+    seams +-1."""
+    rng = np.random.default_rng(L)
+    A = rng.integers(0, 256, (5, 6), dtype=np.uint8)
+    flat = torch.from_numpy(rng.integers(0, 256, 6 * L + 3, dtype=np.uint8)).to(cuda)
+    B = flat[3:].view(6, L)
+    assert B.data_ptr() % 16 != 0
+    assert torch.equal(gf_ops.gf256_matmul(A, B), gf256_matmul_ref(torch.from_numpy(A), B))
+
+
 @pytest.mark.cuda
 def test_gf256_degenerate_shapes_do_not_launch(cuda):
     before = gf_ops.launches
@@ -55,7 +92,8 @@ def test_gf256_degenerate_shapes_do_not_launch(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L", [1, 31, 33, 2047, 2048, 2049, 1 << 20])
+@pytest.mark.parametrize("L", [1, 31, 33, 2047, 2048, 2049, 1 << 20,
+                               511, 512, 513, 8191, 8192, 8193, 16385])
 @pytest.mark.parametrize("mask", [0, 0xFF, 0xFFFFFFFF])
 def test_gearhash_kernel_matches_plain(cuda, L, mask):
     x = torch.from_numpy(np.random.default_rng(L).integers(0, 256, L, dtype=np.uint8)).to(cuda)
@@ -65,6 +103,31 @@ def test_gearhash_kernel_matches_plain(cuda, L, mask):
     hr, br = gearhash_ref(x, mask=mask)
     assert torch.equal(h.view(torch.int32), hr.view(torch.int32))
     assert torch.equal(b, br)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 17, 8191, 8192, 8193, (1 << 20) + 5])
+def test_gearhash_bitmap_only_matches_full(cuda, L):
+    """The bitmap-only form (no hash written) gives the full form's bitmap,
+    one launch each, at the span size (8192) +-1."""
+    x = torch.from_numpy(np.random.default_rng(L + 1).integers(0, 256, L, dtype=np.uint8)).to(cuda)
+    before = cdc_ops.launches
+    b_only = cdc_ops.gearhash_bitmap(x, mask=0xFF)
+    _h, b = cdc_ops.gearhash(x, mask=0xFF)
+    assert cdc_ops.launches == before + 2
+    assert torch.equal(b_only, b)
+    assert torch.equal(b_only, gearhash_ref(x, mask=0xFF)[1])
+
+
+@pytest.mark.cuda
+def test_gearhash_kernel_takes_unaligned_stream(cuda):
+    flat = torch.from_numpy(np.random.default_rng(5).integers(0, 256, 20003, dtype=np.uint8))
+    x = flat.to(cuda)[3:]
+    assert x.data_ptr() % 16 != 0
+    h, b = cdc_ops.gearhash(x, mask=0xF)
+    hr, br = gearhash_ref(x, mask=0xF)
+    assert torch.equal(h.view(torch.int32), hr.view(torch.int32)) and torch.equal(b, br)
+    assert torch.equal(cdc_ops.gearhash_bitmap(x, mask=0xF), br)
 
 
 @pytest.mark.cuda
