@@ -31,7 +31,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    per layer), then ``repro_torch.launch.serve`` with ``--full --batch 4
    --cache-len 2048 --tokens 32``. Logits must be finite. The same prefill
    at full width, 2 layers and 256 tokens, and one decode step from one
-   cache, must agree between the card (kernel) and the CPU (plain versions).
+   cache, must agree between the card (kernel) and the CPU (plain versions);
+6. the store's users, each path with the kernels' counts set to 0 before it
+   and read after it, under ``torch.profiler`` (wall time, launches, the
+   device's busy share), on the same Emulab deployment and blocks:
+   (a) YCSB core workload B (95/5, zipfian 0.99, 2 ops a session) from 256
+   sessions over 64 files of 4 MiB, all through one ``dss.gateway()``: clean
+   (no op stuck or failed), then under a crash storm of 2 of 11 servers
+   with retries (``storm_retry``; availability after recovery at least
+   0.99; host profile in ``--out``), after which a fresh gateway reads every
+   file with a data server down (written bytes back, decodes on the card);
+   (b) the same through the sanitizer and race tracker, 64 sessions over 16
+   files of 1 MiB (every recorded register op linearized); the spec of (a)
+   at 32 sessions over 8 files of 3 MiB gives the same report on the card
+   as on the CPU; (c) qwen2-0.5b's state dict (full width and depth, random
+   weights from the seed) through ``ECCheckpointStore(device="cuda")`` on
+   8 hosts with 2 parity: save, restore, an incremental save after one
+   layer changes (few blocks rewritten), a restore with the fault budget's
+   hosts down, and a recon to 11 fresh hosts with 5 parity (restored with
+   every old host down), every restore bit for bit on the card. The storage
+   kernels are first held against their plain versions, and timed, at a
+   4 MiB file's and at the checkpoint's shapes.
 
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
@@ -518,6 +538,404 @@ def profile_path(data: bytes, out_dir: Path, seed: int) -> None:
             f"{Path(file).name}:{line} {fn}")
 
 
+# ---------------------------------------------------------------- phase 6
+# (a) YCSB core workload B (95 % reads, 5 % updates, zipfian 0.99) over the
+# paper's 4 MB files (§VII), every session attached to one gateway
+YCSB_B = dict(sessions=256, files=64, file_size=4 << 20, read_fraction=0.95, zipf_s=0.99,
+              ops_per_session=2)
+STORM = dict(at=0.05, frac=0.25, duration=0.05)  # capped at n - quorum = 2 of 11 crashes
+# (b) the sanitized, race-checked run; and the card-vs-CPU check of (a)'s spec
+SANITIZED = dict(YCSB_B, sessions=64, files=16, file_size=1 << 20)
+SMALL_YCSB = dict(YCSB_B, sessions=32, files=8, file_size=3 << 20)
+
+
+def storm_retry(spec_kw: dict):
+    """The storm's ``RetryPolicy``: its first deadline is twice the transfer of
+    the workload's largest RPC, the pre-population batch (every file, n/k
+    coded, over the client's link). ``RetryPolicy()``'s 10 ms deadline is
+    shorter than one batch of 4 MiB files at the Emulab bandwidth: that batch
+    then fails typed, which ``WorkloadGen.run`` does not check, and the files
+    read back empty (``tests/test_torch_workload.py``, ROADMAP C)."""
+    from repro_torch.configs.paper_store import EMULAB
+    from repro_torch.core import RetryPolicy
+
+    n, k = EMULAB.n_servers, EMULAB.n_servers - EMULAB.parity_m
+    transfer = spec_kw["files"] * spec_kw["file_size"] * n / k / EMULAB.bandwidth
+    return RetryPolicy(rpc_timeout=2 * transfer)
+
+
+def run_workload(spec_kw: dict, *, device: str, seed: int, storm: bool = False,
+                 sanitize: bool = False):
+    """``WorkloadGen(spec, seed).run`` on the Emulab deployment, every session
+    attached through one ``dss.gateway()``; a tolerable crash storm under
+    ``storm_retry`` with ``storm``, the sanitizer and race tracker with
+    ``sanitize``. Returns the store, the report and the network's counters."""
+    from repro_torch.configs.paper_store import EMULAB, make_dss
+    from repro_torch.core import CrashStorm, WorkloadGen, WorkloadSpec
+
+    dss = make_dss(EMULAB, seed=seed, indexed=True, coding_backend="kernel", device=device,
+                   min_block=MIN_BLOCK, avg_block=AVG_BLOCK, max_block=MAX_BLOCK,
+                   retry=storm_retry(spec_kw) if storm else None, sanitize=sanitize,
+                   racecheck=sanitize)
+    spec = WorkloadSpec(**spec_kw, storms=(CrashStorm(**STORM),) if storm else ())
+    gw = dss.gateway()
+    report = WorkloadGen(spec, seed=seed).run(dss, via=gw)
+    gw.stop()
+    dss.net.run()
+    n = dss.net
+    return dss, report, (n.now, n.events_processed, n.rpc_rounds, n.msg_count, n.bytes_sent,
+                         n.client_counters)
+
+
+def counted_phase(tag: str, fn, out_dir: Path, card: str, totals: dict):
+    """``fn()`` under ``torch.profiler``, with the storage kernels' counts set
+    to 0 just before it and read just after: fails if either kernel was not
+    launched, adds the counts to ``totals``, and prints the wall time and the
+    device's busy share (trace in ``out_dir``). Returns ``(fn(), wall)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.cdc_gearhash import ops as cdc
+    from repro_torch.kernels.gf256_matmul import ops as gf
+
+    torch.cuda.synchronize()
+    cdc.launches = 0
+    gf.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = {"cdc_gearhash": cdc.launches, "gf256_matmul": gf.launches}
+    for name, c in counts.items():
+        if not c:
+            raise AssertionError(f"{tag}: the path never launched {name}")
+        totals[name] = totals.get(name, 0) + c
+    log(f"{tag}: {wall:.3f} s wall under the profiler, launches cdc_gearhash {counts['cdc_gearhash']} "
+        f"gf256_matmul {counts['gf256_matmul']} ({card})")
+    device_busy(prof, out_dir / f"{tag.replace(' ', '_')}_trace.json", wall, f"profile {tag}:")
+    return out, wall
+
+
+class decode_launches:
+    """Counts the ``gf256_matmul`` launches made inside ``RSCode._decode_flats``
+    (the decodes of reads, repair and recon) while the block runs."""
+
+    def __enter__(self):
+        from repro_torch.erasure.rs import RSCode
+        from repro_torch.kernels.gf256_matmul import ops as gf
+
+        self.count, self._orig, self._cls = 0, RSCode._decode_flats, RSCode
+        orig = self._orig
+
+        def counted(code, jobs):
+            before = gf.launches
+            try:
+                return orig(code, jobs)
+            finally:
+                self.count += gf.launches - before
+
+        RSCode._decode_flats = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._decode_flats = self._orig
+
+
+def _ycsb_report_line(tag: str, rep: dict, wall: float, card: str) -> None:
+    ops = rep["ops"]
+    log(f"{tag}: {ops} ops ({rep['ops_done']} done, {rep['ops_failed']} failed, "
+        f"{rep['ops_stuck']} stuck), {ops / wall:.2f} ops/s of host wall, availability "
+        f"{rep['availability']}, virtual makespan {rep['virtual_makespan']:.6f} s, "
+        f"read p50/p99 {rep.get('read_p50', 0.0):.6f}/{rep.get('read_p99', 0.0):.6f} s virtual, "
+        f"{rep['rpc_rounds']} rounds, {rep['bytes_sent']} wire bytes, retries {rep['retries']}"
+        + (f", availability after recovery {rep['availability_after_recovery']} of "
+           f"{rep['ops_after_recovery']} ops" if "availability_after_recovery" in rep else "")
+        + f" ({card})")
+
+
+def drive_ycsb(seed: int, out_dir: Path, card: str, totals: dict) -> None:
+    """Phase (a): YCSB-B through the gateway on the Emulab deployment, clean
+    and then under a tolerable crash storm with retries (also under
+    ``cProfile``: ``ycsb_host_profile.txt``)."""
+    import cProfile
+    import io
+    import pstats
+
+    from repro_torch.core import WorkloadGen, WorkloadSpec, gather
+
+    (_, rep, _), wall = counted_phase("ycsb clean", lambda: run_workload(
+        YCSB_B, device="cuda", seed=seed), out_dir, card, totals)
+    _ycsb_report_line("ycsb clean", rep, wall, card)
+    if rep["ops_stuck"] or rep["stuck_rpcs"] or rep["availability"] != 1.0:
+        raise AssertionError(f"ycsb clean: stuck or failed ops: {rep}")
+
+    gen = WorkloadGen(WorkloadSpec(**YCSB_B), seed=seed)
+    payloads = set(gen.payloads(gen.plan()["payloads_seed"]))
+    host = cProfile.Profile()
+    walls = {}
+    with decode_launches() as dec:
+        def storm_run():
+            host.enable()
+            try:
+                dss, rep, _ = run_workload(YCSB_B, device="cuda", seed=seed, storm=True)
+            finally:
+                host.disable()
+            # Under one gateway the storm's reads rarely decode: the gateway's
+            # client keeps the newest (tag, value) of every file it has read
+            # or written (EC-DAPopt), so only its first read of a file fetches
+            # fragments. A fresh gateway holds no copy: its riders read every
+            # file with data server s0 down, and each of those reads decodes.
+            t0 = time.perf_counter()
+            dss.crash_servers(["s0"])
+            gw = dss.gateway("gw-fresh")
+            got = gather(*[gw.session(f"r{i}").read(f"f{i}") for i in range(YCSB_B["files"])])
+            gw.stop()
+            dss.recover_servers(["s0"])
+            dss.net.run()
+            torch.cuda.synchronize()
+            walls["degraded"] = time.perf_counter() - t0
+            return dss, rep, got
+
+        (dss, rep, got), wall = counted_phase("ycsb storm", storm_run, out_dir, card, totals)
+    _ycsb_report_line("ycsb storm (storm run under cProfile)", rep, wall - walls["degraded"], card)
+    log(f"ycsb storm: then {len(got)} degraded reads (s0 down) through a fresh gateway in "
+        f"{walls['degraded']:.3f} s; {dec.count} gf256_matmul launches were decodes")
+    if rep["ops_stuck"] or rep["stuck_rpcs"] or dss.net.stuck_ops():
+        raise AssertionError(f"ycsb storm: stuck ops: {rep}")
+    if rep["availability_after_recovery"] < 0.99:
+        raise AssertionError(f"ycsb storm: availability after recovery "
+                             f"{rep['availability_after_recovery']} < 0.99")
+    if any(value not in payloads for value in got):
+        raise AssertionError("ycsb storm: a degraded read returned bytes no writer wrote")
+    if not dec.count:
+        raise AssertionError("ycsb storm: the degraded reads launched no gf256_matmul decode")
+    text = io.StringIO()
+    stats = pstats.Stats(host, stream=text)
+    stats.sort_stats("tottime").print_stats(40)
+    (out_dir / "ycsb_host_profile.txt").write_text(text.getvalue())
+    for (file, line, fn), row in sorted(stats.stats.items(), key=lambda kv: -kv[1][2])[:10]:
+        log(f"profile ycsb storm: host {row[2]:.3f} s self, {row[3]:.3f} s cumulative, "
+            f"{row[1]} calls: {Path(file).name}:{line} {fn}")
+
+
+def drive_sanitized(seed: int, out_dir: Path, card: str, totals: dict) -> None:
+    """Phase (b): the sanitized, race-checked workload. Every register op the
+    store recorded must have been linearized, strictly."""
+    (dss, rep, _), wall = counted_phase("sanitized", lambda: run_workload(
+        SANITIZED, device="cuda", seed=seed, sanitize=True), out_dir, card, totals)
+    _ycsb_report_line("sanitized", rep, wall, card)
+    san, races = rep["sanitizer"], rep["races"]
+    recorded = sum(1 for r in dss.history if r.kind in ("read", "write") and r.tag is not None)
+    log(f"sanitized: sanitizer {san}, races {races}; {recorded} register ops recorded")
+    if san["linearized_ops"] != recorded or not san["strict_reads"] or rep["ops_done"] != rep["ops"]:
+        raise AssertionError(f"sanitized: {san['linearized_ops']} ops linearized of {recorded} "
+                             f"recorded (strict {san['strict_reads']}), {rep['ops_done']} of "
+                             f"{rep['ops']} ops done")
+    if not races["checks"] or dss.net.stuck_ops():
+        raise AssertionError(f"sanitized: race tracker idle or stuck ops: {races}")
+
+
+def ycsb_card_vs_cpu(seed: int) -> None:
+    """(a)'s spec at a small size gives the same report and trace on the card
+    as with the plain versions on the CPU."""
+    seen = {dev: run_workload(SMALL_YCSB, device=dev, seed=seed)[1:] for dev in ("cuda", "cpu")}
+    if seen["cuda"] != seen["cpu"]:
+        raise AssertionError(f"small YCSB run differs between the card and the CPU: "
+                             f"{seen['cuda']!r} != {seen['cpu']!r}")
+    log(f"ycsb: {SMALL_YCSB['sessions']} sessions over {SMALL_YCSB['files']} files of "
+        f"{SMALL_YCSB['file_size']} bytes give the same report and trace on the card as on "
+        f"the CPU (virtual makespan {seen['cpu'][0]['virtual_makespan']})")
+
+
+def _leaves(tree, prefix: str = ""):
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            yield from _leaves(value, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", value
+
+
+def _same_state(got, want, tag: str) -> None:
+    got, want = dict(_leaves(got)), dict(_leaves(want))
+    if got.keys() != want.keys():
+        raise AssertionError(f"{tag}: restored leaves differ from the saved ones")
+    for name, value in want.items():
+        back = got[name]
+        if back.device != value.device or back.dtype != value.dtype or not torch.equal(back, value):
+            raise AssertionError(f"{tag}: {name} is not restored bit for bit on the card")
+
+
+def _bitmap_ref(data: torch.Tensor, mask: int) -> torch.Tensor:
+    """The plain gear-hash bitmap of ``data``, in slices of 128 MiB, each with
+    the window's 31 bytes before it (the memory of one slice, the bytes of
+    the whole)."""
+    from repro_torch.kernels.cdc_gearhash.ref import gearhash_ref
+
+    span, out = 1 << 27, []
+    for s in range(0, data.numel(), span):
+        lo = max(0, s - 31)
+        out.append(gearhash_ref(data[lo:s + span], mask=mask)[1][s - lo:])
+    return torch.cat(out)
+
+
+def check_storage_kernels_at(label: str, data: torch.Tensor, n_servers: tuple[int, ...],
+                             card: str, worst: dict) -> None:
+    """The storage kernels at one of this slice's shapes, against their plain
+    versions (tolerance 0), and timed beside them: the gear hash's
+    bitmap-only form over ``data`` (what the chunker launches), then the
+    encode for each of ``n_servers`` (k = 6) and the decode without s0 of the
+    first, all at the width of the file's one batch, the sum over its blocks
+    of ceil(block / k)."""
+    from repro_torch.erasure.rs import _decoder_cached, _parity_cached
+    from repro_torch.kernels.cdc_gearhash import ops as cdc
+    from repro_torch.kernels.gf256_matmul import ops as gf
+    from repro_torch.kernels.gf256_matmul.ref import gf256_matmul_ref
+
+    mask = cdc._mask_for_avg(AVG_BLOCK)
+    got = cdc.gearhash_bitmap(data, mask=mask)
+    torch.cuda.synchronize()
+    err = _u8_err(got, _bitmap_ref(data, mask))
+    worst["cdc_gearhash"] = max(worst["cdc_gearhash"], err)
+    if err:
+        raise AssertionError(f"gearhash bitmap at {label} differs from the plain version")
+    cand = torch.nonzero(got).flatten().cpu().numpy()
+    del got
+    k = 6
+    blocks, start, L, n = 0, 0, int(data.numel()), 0
+    ci = 0
+    while start < L:  # the chunker's min/max pass over the candidates
+        lo, hi = start + MIN_BLOCK, start + MAX_BLOCK
+        while ci < len(cand) and cand[ci] < lo:
+            ci += 1
+        if ci < len(cand) and cand[ci] < hi and cand[ci] + 1 < L:
+            end = int(cand[ci]) + 1
+            ci += 1
+        else:
+            end = min(hi, L)
+        n += (end - start + k - 1) // k
+        blocks += 1
+        start = end
+    ms = cuda_ms(lambda: cdc.gearhash_bitmap(data, mask=mask), 10)
+    plain_ms = cuda_ms(lambda: _bitmap_ref(data, mask), 1)
+    log(f"kernels: at {label}: gearhash bitmap only L={L} ({blocks} blocks): {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {2 * L / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes); byte-identical "
+        f"to the plain version ({card})")
+    B = torch.empty((k, n), dtype=torch.uint8, device=data.device)
+    B.view(-1)[:L] = data
+    B.view(-1)[L:] = 0
+    mats = [(f"encode n={m}", _parity_cached(m, k)) for m in n_servers]
+    mats.append((f"decode n={n_servers[0]} without s0",
+                 _decoder_cached(n_servers[0], k, tuple(range(1, k + 1)))))
+    for name, A in mats:
+        C = gf.gf256_matmul(A, B)
+        torch.cuda.synchronize()
+        At = torch.from_numpy(np.array(A))
+        err = _u8_err(C, gf256_matmul_ref(At, B))
+        worst["gf256_matmul"] = max(worst["gf256_matmul"], err)
+        if err:
+            raise AssertionError(f"gf256_matmul {name} at {label} differs from the plain version")
+        del C
+        ms = cuda_ms(lambda: gf.gf256_matmul(A, B), 10)
+        plain_ms = cuda_ms(lambda: gf256_matmul_ref(At, B), 1)
+        bound = (A.shape[0] + k) * n / HBM_BYTES_PER_S * 1e3
+        log(f"kernels: at {label}: gf256_matmul {name} {A.shape} x (6, {n}): {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes), {100 * bound / ms:.2f} % of its "
+            f"bound; byte-identical to the plain version ({card})")
+    del B
+    torch.cuda.empty_cache()
+
+
+def drive_checkpoint(seed: int, out_dir: Path, card: str, totals: dict, worst: dict) -> None:
+    """Phase (c): qwen2-0.5b's state dict (random weights from the seed, on the
+    card) through ``ECCheckpointStore`` on the card: save, restore, an
+    incremental save after one layer changes, crashes within the fault
+    budget, and a recon to 11 fresh hosts with 5 parity (then every old host
+    down), restoring bit for bit after each."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.checkpoint import ECCheckpointStore, serialize_tree
+
+    cfg = get_arch(MODEL)
+    t0 = time.perf_counter()
+    model = build_model(cfg, max_pos=PREFILL_S, device="cuda")
+    params = model.load_params(model.init_params(torch.Generator().manual_seed(seed)))
+    torch.cuda.synchronize()
+    blob = serialize_tree({"state": params, "step": 1})
+    log(f"checkpoint: {cfg.name} {model.n_params()} parameters ({cfg.n_layers} layers, full "
+        f"width), serialized {len(blob)} bytes, made in {time.perf_counter() - t0:.3f} s")
+    from repro_torch.device import host_tensor
+
+    data = host_tensor(blob).to("cuda")
+    del blob
+    check_storage_kernels_at(f"the checkpoint ({data.numel()} bytes)", data, (8, 11), card,
+                             worst)
+    del data
+    torch.cuda.empty_cache()
+
+    steps: dict[str, float] = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        steps[name] = time.perf_counter() - t
+        return out
+
+    def sequence():
+        store = ECCheckpointStore(n_hosts=8, parity=2, seed=seed, device="cuda",
+                                  coding_backend="kernel", min_block=MIN_BLOCK,
+                                  avg_block=AVG_BLOCK, max_block=MAX_BLOCK)
+        st1 = timed("save step 1", lambda: store.save(1, params))
+        step, got = timed("restore", store.restore)
+        _same_state(got, params, "restore after step 1")
+        del got
+        with torch.no_grad():
+            params["layers"]["wq"][cfg.n_layers // 2].mul_(-1.0)  # one layer's q projection
+        st2 = timed("save step 2 (one layer changed)", lambda: store.save(2, params))
+        if not (st1.success and st2.success) or st2.blocks_written * 10 > st2.blocks_total:
+            raise AssertionError(f"checkpoint saves: {st1}, {st2}")
+        budget = store.fault_budget()
+        store.crash_hosts([f"s{i}" for i in range(budget)])
+        step2, got = timed(f"restore with {budget} hosts down", store.restore)
+        _same_state(got, params, "restore after crashes")
+        del got
+        moved = timed("recon to 11 fresh hosts, parity 5",
+                      lambda: store.reconfigure(n_hosts=11, parity=5, fresh=True))
+        store.dss.net.run()
+        store.crash_hosts([f"s{i}" for i in range(8)])  # every old host: the data moved
+        step3, got = timed("restore after recon, old hosts down", store.restore)
+        _same_state(got, params, "restore after recon")
+        del got
+        if (step, step2, step3) != (1, 2, 2) or store.dss.net.stuck_ops():
+            raise AssertionError(f"checkpoint: restored steps {(step, step2, step3)}, stuck "
+                                 f"{store.dss.net.stuck_ops()}")
+        return st1, st2, budget, moved
+
+    (st1, st2, budget, moved), wall = counted_phase("checkpoint", sequence, out_dir, card, totals)
+    gb = st1.bytes_written / 1e9
+    for name, sec in steps.items():
+        log(f"checkpoint: {name}: {sec:.3f} s wall under the profiler, {gb / sec:.4f} GB/s "
+            f"of the {st1.bytes_written}-byte checkpoint ({card})")
+    log(f"checkpoint: step 1 wrote {st1.blocks_written}/{st1.blocks_total} blocks; step 2 "
+        f"rewrote {st2.blocks_written}/{st2.blocks_total} blocks "
+        f"({100 * st2.blocks_written / st2.blocks_total:.3f} %); {budget} host(s) crashed; "
+        f"recon moved {moved} blocks, then the 8 old hosts went down; every restore bit for bit "
+        f"on the card")
+    del model, params
+    torch.cuda.empty_cache()
+
+
+def check_ycsb_shapes(seed: int, card: str, worst: dict) -> None:
+    """The storage kernels at (a)'s shapes: one 4 MiB file of the workload."""
+    from repro_torch.core import WorkloadGen, WorkloadSpec
+
+    gen = WorkloadGen(WorkloadSpec(**YCSB_B), seed=seed)
+    payload = gen.payloads(gen.plan()["payloads_seed"])[0]
+    data = torch.from_numpy(np.frombuffer(payload, dtype=np.uint8).copy()).to("cuda")
+    check_storage_kernels_at(f"one YCSB file ({data.numel()} bytes)", data, (11,), card, worst)
+
+
 # ---------------------------------------------------------------- phase 5
 MODEL = "qwen2_0_5b"
 SERVE_ARGS = ["--arch", MODEL, "--full", "--batch", "4", "--cache-len", "2048", "--tokens", "32"]
@@ -693,6 +1111,11 @@ def main() -> int:
         f"ec_opt indexed coding_backend=kernel device=cuda blocks min={MIN_BLOCK} "
         f"avg={AVG_BLOCK} max={MAX_BLOCK} file={size} bytes seed={args.seed}; "
         f"cuts: {'none' if args.size_mib >= 512 else f'file {args.size_mib} MiB of 512'}")
+    log(f"config: YCSB-B {YCSB_B} through one gateway, "
+        f"storm {STORM} under RetryPolicy(rpc_timeout="
+        f"{storm_retry(dict(YCSB_B)).rpc_timeout:.4f}); sanitized {SANITIZED}; checkpoint of {MODEL} on "
+        f"ECCheckpointStore(n_hosts=8, parity=2, device=cuda, coding_backend=kernel), the same "
+        f"blocks, the model at full width and depth; cuts: none")
     # phase 2
     build(args.out)
     # phase 3
@@ -737,9 +1160,17 @@ def main() -> int:
     counts["flash_attention"] = drive_model(args.seed, card, args.out)
     torch.cuda.empty_cache()
     card_vs_cpu(args.seed)
+    # phase 6: the store's users, each path counted from zero inside counted_phase
+    worst = {"gf256_matmul": 0, "cdc_gearhash": 0}
+    check_ycsb_shapes(args.seed, card, worst)
+    drive_ycsb(args.seed, args.out, card, counts)
+    drive_sanitized(args.seed, args.out, card, counts)
+    ycsb_card_vs_cpu(args.seed)
+    drive_checkpoint(args.seed, args.out, card, counts, worst)
 
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]
+        entry["max_abs_err"] = max(entry["max_abs_err"], worst.get(entry["name"], 0))
     log(f"total: {time.perf_counter() - t_start:.3f} s ({card})")
     order = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,12 +1,9 @@
 """The paper's contribution: CoARES, CoARESF, EC-DAP/EC-DAPopt (+ checkers),
 plus the beyond-paper self-healing repair subsystem (``repro_torch.core.repair``)
-and the Session/future client API (``repro_torch.core.api``).
-
-Exports what the port has: the reference's gateway tier (``Gateway``,
-``GossipListener``) and workload harness (``WorkloadGen``, ``WorkloadSpec``,
-``CrashStorm``) are not ported yet (ROADMAP A6)."""
+and the Session/future client API (``repro_torch.core.api``)."""
 from repro_torch.core.api import OpStats, Session, Workload, gather
 from repro_torch.core.coares import CoAresClient, StaticCoverableClient
+from repro_torch.core.gateway import Gateway, GossipListener
 from repro_torch.core.fragment import (
     FragmentationModule,
     decode_block_value,
@@ -19,6 +16,7 @@ from repro_torch.core.repair import ObjectHealth, RepairController, RepairDaemon
 from repro_torch.core.server import StorageServer
 from repro_torch.core.store import ALGORITHMS, DSS, ClientHandle, DSSParams
 from repro_torch.core.tags import TAG0, Config, CSeqEntry, OpRecord, Tag, next_tag
+from repro_torch.core.workload import CrashStorm, WorkloadGen, WorkloadSpec
 from repro_torch.net.sim import (
     DeadlineExceeded,
     FaultEvent,
@@ -30,6 +28,11 @@ from repro_torch.net.sim import (
 
 __all__ = [
     "Session",
+    "WorkloadGen",
+    "WorkloadSpec",
+    "CrashStorm",
+    "Gateway",
+    "GossipListener",
     "Workload",
     "OpStats",
     "gather",

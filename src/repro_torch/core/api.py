@@ -198,7 +198,7 @@ class Session:
     still coalesces ops submitted back-to-back from ordinary Python code
     (virtual time only advances inside ``net.run``/``step``).
 
-    ``via`` attaches the session to a :class:`repro.core.gateway.Gateway`
+    ``via`` attaches the session to a :class:`repro_torch.core.gateway.Gateway`
     (ISSUE 4): convenience ops are then forwarded to the gateway, which
     coalesces them with in-flight intents from OTHER clients and issues one
     merged storage round on everyone's behalf (same-file reads from C

@@ -113,7 +113,7 @@ class _StateMap(dict):
 
 
 class StorageServer(Server):
-    # Runtime-sanitizer hook (repro.analysis.sanitizer): when set, every
+    # Runtime-sanitizer hook (repro_torch.analysis.sanitizer): when set, every
     # per-object invalidation that fires OUTSIDE ``handle`` — i.e. direct
     # state surgery by tests/fault injection through the tracked maps — is
     # reported as ``_mut_observer(sid, obj)`` so the sanitizer can drop its
@@ -121,7 +121,7 @@ class StorageServer(Server):
     # injected loss as a protocol bug. None (the default) costs one
     # attribute read per handle() call and nothing per mutation.
     _mut_observer = None
-    # Happens-before race-tracker hook (repro.analysis.races): when set,
+    # Happens-before race-tracker hook (repro_torch.analysis.races): when set,
     # EVERY per-object invalidation is reported as
     # ``_race_observer(sid, obj, in_handle)`` — in-handle mutations are the
     # writes the vector-clock tracker orders and checks; out-of-handle ones

@@ -11,6 +11,7 @@
 from __future__ import annotations
 
 import itertools
+import os
 from dataclasses import dataclass, field as dc_field
 from typing import Generator
 
@@ -62,11 +63,17 @@ class DSSParams:
     # ISSUE 7 — vectorised one-event-per-fan-out network engine (trace-
     # identical to the per-destination legacy path; False = ablation).
     fast_net: bool = True
-    # ISSUE 8 — runtime protocol sanitizer, and ISSUE 9 — happens-before race
-    # tracker: pure observers in the reference (repro.analysis.sanitizer and
-    # .races). Not ported yet (ROADMAP A7): True raises NotImplementedError.
-    # The port does not read REPRO_SANITIZE / REPRO_RACECHECK.
+    # ISSUE 8 — runtime protocol sanitizer (repro_torch.analysis.sanitizer): live
+    # quorum-intersection + per-server tag-monotonicity + wire-vocabulary
+    # checks on every fan-out/reply. Also enabled by REPRO_SANITIZE=1 in the
+    # environment (how CI runs a sanitized tier-1 pass). Pure observer —
+    # sanitized traces are bit-identical to unsanitized ones.
     sanitize: bool = False
+    # ISSUE 9 — vector-clock happens-before race tracker
+    # (repro_torch.analysis.races): orders every in-handle mutation of per-object
+    # server state against the issuing operations' vector clocks and fails
+    # the run on a conflicting unordered regression. Also enabled by
+    # REPRO_RACECHECK=1. Pure observer like the sanitizer.
     racecheck: bool = False
     # ISSUE 10 — failure-survival layer: per-RPC deadlines with retransmit /
     # backoff / optional hedging at the network tier, plus phase-level retry
@@ -262,11 +269,6 @@ class DSS:
                 f"unknown coding backend {p.coding_backend!r}; "
                 f"expected one of {CODING_BACKENDS}"
             )
-        if p.sanitize or p.racecheck:
-            raise NotImplementedError(
-                "sanitize/racecheck need the analysis stack, not ported to "
-                "repro_torch yet (ROADMAP A7)"
-            )
         resolve_device(p.device)
         self.net = Network(seed=p.seed, latency=p.latency, fast=p.fast_net)
         # ambient store-wide coding backend and device: every RSCode (and
@@ -288,6 +290,19 @@ class DSS:
         # (e.g. the auto-retargeting RepairDaemon); every CoAresClient this
         # store hands out notifies them via ``_notify_recon``.
         self._recon_subs: list = []
+        if p.sanitize or os.environ.get("REPRO_SANITIZE") == "1":
+            from repro_torch.analysis.sanitizer import ProtocolSanitizer
+
+            san = ProtocolSanitizer().attach(self.net)
+            san.register_config(self.c0)
+            # decided recon targets keep the EC-quorum registry complete
+            self._recon_subs.append(
+                lambda cfg, idx, objs: san.register_config(cfg)
+            )
+        if p.racecheck or os.environ.get("REPRO_RACECHECK") == "1":
+            from repro_torch.analysis.races import RaceTracker
+
+            RaceTracker().attach(self.net)
 
     def _notify_recon(self, config: Config, cfg_idx: int, objs) -> None:
         for sub in list(self._recon_subs):
@@ -310,12 +325,16 @@ class DSS:
 
         return Session(self, cid, **kw)
 
-    def gateway(self, gid: str = "gw", **kw):
-        """The cross-client aggregation gateway of the reference (ISSUE 4)
-        is not ported yet (ROADMAP A6)."""
-        raise NotImplementedError(
-            "the gateway tier is not ported to repro_torch yet (ROADMAP A6)"
-        )
+    def gateway(self, gid: str = "gw", **kw) -> "Gateway":
+        """Build a cross-client aggregation gateway (ISSUE 4): sessions
+        opened with ``dss.session(cid, via=gw)`` (or ``gw.session(cid)``)
+        have their ops merged with other attached clients' into shared
+        quorum rounds, and registered RepairDaemons receive config coverage
+        via the gateway's gossip loop. Keyword args (``window``,
+        ``gossip_period``) pass through to the Gateway constructor."""
+        from repro_torch.core.gateway import Gateway
+
+        return Gateway(self, gid, **kw)
 
     # --- config construction (recon targets) -----------------------------------
     def make_config(
@@ -459,10 +478,12 @@ class DSS:
 
     # --- post-hoc history checking (ISSUE 8) -------------------------------------
     def check_history(self, *, strict_reads: bool = True) -> dict:
-        """Wing–Gong tag-order linearizability over the recorded history
-        (``repro.analysis.linearize`` in the reference) is not ported yet
-        (ROADMAP A7)."""
-        raise NotImplementedError(
-            "check_history needs the analysis stack, not ported to "
-            "repro_torch yet (ROADMAP A7)"
-        )
+        """Wing–Gong tag-order linearizability over this store's recorded
+        history (see ``repro_torch.analysis.linearize``); raises
+        ``LinearizabilityError`` on a violation, returns counters otherwise.
+        ``strict_reads=False`` relaxes only the reads-from condition — use it
+        for histories taken under crash storms, where a read may observe a
+        write that failed before recording itself."""
+        from repro_torch.analysis.linearize import check_tag_linearizable
+
+        return check_tag_linearizable(self.history, strict_reads=strict_reads)

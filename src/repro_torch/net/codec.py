@@ -48,7 +48,7 @@ class CodecError(ValueError):
 
 # --------------------------------------------------------- message registry
 # The protocol's message vocabulary, declared next to the wire format it
-# rides on. ``repro.analysis``'s registry-drift lint parses these literals
+# rides on. ``repro_torch.analysis``'s registry-drift lint parses these literals
 # and cross-checks them against ``core/server.py``'s ``_DISPATCH`` table and
 # handler reply tags (and the gateway's gossip vocabulary) in BOTH
 # directions, so adding a handler without auditing its framing — or

@@ -53,7 +53,7 @@ pins trace identity on mixed workloads.
 Schedule control (ISSUE 9)
 --------------------------
 ``Network.controller`` (default ``None``) hands the event loop's pop policy
-to an external scheduler — ``repro.analysis.explore.ScheduleController`` —
+to an external scheduler — ``repro_torch.analysis.explore.ScheduleController`` —
 so a model checker can turn "which pending delivery lands next" into an
 explicit, replayable decision. With a controller attached:
 
@@ -73,7 +73,7 @@ explicit, replayable decision. With a controller attached:
   choice, drawn from no RNG stream.
 
 ``Network.race_tracker`` (default ``None``) is a second pure observer —
-``repro.analysis.races.RaceTracker`` — fed from the same three points as
+``repro_torch.analysis.races.RaceTracker`` — fed from the same three points as
 the sanitizer (RPC issue, arrival processing, counted reply delivery) plus
 the tracked-map mutation hooks in ``core/server.py``; it maintains
 vector clocks per operation and flags conflicting unordered writes to
@@ -669,18 +669,18 @@ class Network:
         # event are noise the normal path shouldn't pay.
         self.profile_protocol = False
         self.protocol_time = 0.0
-        # optional runtime invariant observer (repro.analysis.sanitizer),
+        # optional runtime invariant observer (repro_torch.analysis.sanitizer),
         # attached via ProtocolSanitizer.attach() behind DSSParams.sanitize /
         # REPRO_SANITIZE=1. Pure observer: it draws no randomness and
         # schedules nothing, so sanitized traces stay bit-identical. Cost
         # when unset is one ``is not None`` per fan-out/reply.
         self.sanitizer = None
-        # optional schedule controller (repro.analysis.explore) — see the
+        # optional schedule controller (repro_torch.analysis.explore) — see the
         # "Schedule control" section of the module docstring. While set, the
         # event loop's pop policy (and optional message loss) is the
         # controller's decision; unset, behavior is bit-identical to before.
         self.controller = None
-        # optional happens-before race tracker (repro.analysis.races): a pure
+        # optional happens-before race tracker (repro_torch.analysis.races): a pure
         # observer fed at RPC issue / arrival handle / counted reply delivery
         # plus the tracked-map mutation hooks in core/server.py.
         self.race_tracker = None

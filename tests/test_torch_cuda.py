@@ -296,3 +296,80 @@ def test_prefill_on_the_card_matches_the_cpu(cuda, arch):
         assert fa_ops.launches - before == (cfg.n_layers if dev == "cuda" else 0)
     assert torch.isfinite(logits["cuda"]).all()
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0, atol=4 * 2.0**-6)
+
+
+def _workload_report(device: str) -> tuple[dict, tuple]:
+    """A small YCSB-B run through a gateway on the Emulab deployment (the
+    spec of ``chip_smoke.py``'s phase (a), at 32 sessions over 8 files of
+    256 KiB), with a tolerable crash storm and retries."""
+    from repro_torch.configs.paper_store import EMULAB, make_dss
+    from repro_torch.core import CrashStorm, RetryPolicy, WorkloadGen, WorkloadSpec
+
+    dss = make_dss(EMULAB, seed=4, indexed=True, coding_backend="kernel", device=device,
+                   min_block=16 << 10, avg_block=16 << 10, max_block=64 << 10,
+                   retry=RetryPolicy())
+    spec = WorkloadSpec(sessions=32, files=8, file_size=256 << 10, read_fraction=0.95,
+                        zipf_s=0.99, ops_per_session=2,
+                        storms=(CrashStorm(at=0.05, frac=0.25, duration=0.05),))
+    gw = dss.gateway()
+    report = WorkloadGen(spec, seed=4).run(dss, via=gw)
+    gw.stop()
+    dss.net.run()
+    assert dss.net.stuck_ops() == []
+    n = dss.net
+    return report, (n.now, n.events_processed, n.rpc_rounds, n.msg_count, n.bytes_sent,
+                    n.client_counters)
+
+
+@pytest.mark.cuda
+def test_workload_report_on_the_card_matches_the_cpu(cuda):
+    before = (cdc_ops.launches, gf_ops.launches)
+    card = _workload_report("cuda")
+    assert cdc_ops.launches > before[0] and gf_ops.launches > before[1]
+    assert card == _workload_report("cpu")
+    assert card[0]["ops_stuck"] == 0 and card[0]["availability_after_recovery"] >= 0.99
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_a_reduced_model_round_trips_on_the_card(cuda):
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.checkpoint import ECCheckpointStore
+
+    model = build_model(get_arch("qwen2_0_5b").reduced(), device="cuda")
+    params = model.load_params(model.init_params(torch.Generator().manual_seed(0)))
+    store = ECCheckpointStore(device="cuda", coding_backend="kernel", min_block=4096,
+                              avg_block=16384, max_block=65536)
+    before = (cdc_ops.launches, gf_ops.launches)
+    assert store.save(1, params).success
+    store.crash_hosts([f"s{i}" for i in range(store.fault_budget())])
+    step, got = store.restore()
+    assert cdc_ops.launches > before[0] and gf_ops.launches > before[1]
+
+    def leaves(tree, prefix=""):
+        for k in sorted(tree):
+            v = tree[k]
+            yield from leaves(v, prefix + k + ".") if isinstance(v, dict) else [(prefix + k, v)]
+
+    want, back = dict(leaves(params)), dict(leaves(got))
+    assert step == 1 and want.keys() == back.keys()
+    for name, value in want.items():
+        assert back[name].device.type == "cuda" and back[name].dtype == value.dtype
+        assert torch.equal(back[name], value), name
+    assert store.dss.net.stuck_ops() == []
+
+
+@pytest.mark.cuda
+def test_explorer_selftest_on_the_card(cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis.explore", "--selftest", "--device",
+         "cuda", "--budget", "500", "--out", str(tmp_path)],
+        env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.count("[selftest] ok:") == 4

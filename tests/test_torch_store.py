@@ -141,17 +141,29 @@ def test_cuda_store_without_a_card_raises(monkeypatch):
         port_core.DSS(port_core.DSSParams(device="tpu"))
 
 
-def test_unported_features_raise_not_implemented():
-    for flag in ("sanitize", "racecheck"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            port_core.DSS(port_core.DSSParams(device="cpu", **{flag: True}))
-    dss = port_core.DSS(port_core.DSSParams(device="cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        dss.gateway()
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        dss.check_history()
+def test_unknown_coding_backend_raises():
     with pytest.raises(ValueError):
         port_core.DSS(port_core.DSSParams(device="cpu", coding_backend="pallas"))
+
+
+def test_sanitize_racecheck_gateway_and_check_history_work():
+    """The observers, the gateway and the linearizability check, which the
+    port lacked before its analysis and gateway slice, run on the CPU."""
+    dss = port_core.DSS(port_core.DSSParams(device="cpu", sanitize=True, racecheck=True,
+                                            n_servers=5, parity_m=1))
+    assert dss.net.sanitizer is not None and dss.net.race_tracker is not None
+    gw = dss.gateway()
+    a, b = gw.session("a"), gw.session("b")
+    a.write("f", b"x" * 3000).result()
+    fa, fb = a.read("f"), b.read("f")
+    assert port_core.gather(fa, fb) == [b"x" * 3000] * 2
+    assert fa.stats.batched_with == 2
+    gw.stop()
+    dss.net.run()
+    assert dss.check_history()["ops"] >= 3
+    assert dss.net.sanitizer.report()["checks"] > 0
+    assert dss.net.race_tracker.report()["checks"] > 0
+    assert dss.net.stuck_ops() == []
 
 
 def test_paper_store_descriptors_match():
