@@ -53,6 +53,30 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernels are first held against their plain versions, and timed, at a
    4 MiB file's and at the checkpoint's shapes.
 
+7. training: qwen2-0.5b at full width and depth (random weights from the
+   seed), B=4 x 2048, AdamW at lr 1e-3 (``make_train_step``; the loss
+   attends with ``gqa_attention``, every layer under
+   ``torch.utils.checkpoint``), checkpointing its whole state (parameters,
+   AdamW's f32 moments and step, the data state; ~4.94 GB) through
+   ``ECCheckpointStore(device="cuda")`` on 8 hosts with 2 parity and the
+   paper's blocks: steps 1-2, a save, steps 3-4, an incremental save, step
+   5, then a crash of the trainer and of the fault budget's hosts, a restore
+   checked bit for bit, and step 5 redone (its loss within 1e-3 of the
+   first); train tokens/s, peak device memory, each save's and the
+   restore's GB/s, blocks rewritten and the storage kernels' launches. The
+   storage kernels are then held against their plain versions on the bytes
+   of the step-4 save (4.94 GB, past 2**32 positions), the save's blocks
+   are accounted for (chunks, tombstones, bytes unchanged by leaf), the
+   gradient's norm is printed by leaf, and one more step runs under
+   ``torch.profiler``. One train step on the card
+   against the CPU to the CPU parity criteria
+   (``tests/_torch_train_criteria.py``): reduced qwen2-0.5b and gemma3-1b
+   at 2 x 64 and at 1 x 2048 tokens (the chunked attention), and the model
+   at full width, one layer, 1 x 2048 tokens in f32; at full width, 2
+   layers, 2 x 256 in bf16, where the random weights make the gradients
+   ill-conditioned and the criteria are not met, the step is printed and
+   held only where it is well-conditioned (``train_card_vs_cpu``).
+
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -479,13 +503,19 @@ def _kind(name: str) -> str:
 
 
 def device_busy(prof, trace: Path, wall: float, tag: str) -> None:
-    """Write ``prof``'s trace to ``trace`` and print the device's busy time
-    (kernels + copies + fills, summed from the trace) against ``wall``, its
-    split by kind of kernel, and the costliest kernels."""
+    """Write ``prof``'s trace to ``trace`` + ``.gz`` (gzip: the traces of
+    every phase must fit what a run brings back) and print the device's
+    busy time (kernels + copies + fills, summed from the trace) against
+    ``wall``, its split by kind of kernel, and the costliest kernels."""
+    import gzip
+
     prof.export_chrome_trace(str(trace))
+    text = trace.read_bytes()
+    trace.with_name(trace.name + ".gz").write_bytes(gzip.compress(text))
+    trace.unlink()
     busy: dict[str, float] = {}
     kinds: dict[str, list] = {}
-    for ev in json.loads(trace.read_text()).get("traceEvents", []):
+    for ev in json.loads(text).get("traceEvents", []):
         cat = ev.get("cat", "")
         if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             key = ev["name"] if cat == "kernel" else cat
@@ -507,7 +537,7 @@ def device_busy(prof, trace: Path, wall: float, tag: str) -> None:
 def profile_path(data: bytes, out_dir: Path, seed: int) -> None:
     """The main path once more, under ``cProfile`` (host) and
     ``torch.profiler`` (device). Writes ``host_profile.txt`` and
-    ``path_trace.json`` to ``out_dir`` and prints the device's busy share
+    ``path_trace.json.gz`` to ``out_dir`` and prints the device's busy share
     (kernels + copies + fills, summed from the trace) of the wall time and
     the host functions that took the most time."""
     import cProfile
@@ -747,62 +777,66 @@ def ycsb_card_vs_cpu(seed: int) -> None:
         f"the CPU (virtual makespan {seen['cpu'][0]['virtual_makespan']})")
 
 
-def _leaves(tree, prefix: str = ""):
-    for key in sorted(tree):
-        value = tree[key]
-        if isinstance(value, dict):
-            yield from _leaves(value, f"{prefix}{key}.")
-        else:
-            yield f"{prefix}{key}", value
-
-
 def _same_state(got, want, tag: str) -> None:
-    got, want = dict(_leaves(got)), dict(_leaves(want))
+    from repro_torch.tree import named_leaves
+
+    got, want = dict(named_leaves(got)), dict(named_leaves(want))
     if got.keys() != want.keys():
         raise AssertionError(f"{tag}: restored leaves differ from the saved ones")
     for name, value in want.items():
         back = got[name]
-        if back.device != value.device or back.dtype != value.dtype or not torch.equal(back, value):
+        if not isinstance(value, torch.Tensor):  # a Python int of a data state
+            same = int(back) == value
+        else:
+            same = (back.device == value.device and back.dtype == value.dtype
+                    and torch.equal(back, value))
+        if not same:
             raise AssertionError(f"{tag}: {name} is not restored bit for bit on the card")
 
 
-def _bitmap_ref(data: torch.Tensor, mask: int) -> torch.Tensor:
-    """The plain gear-hash bitmap of ``data``, in slices of 128 MiB, each with
-    the window's 31 bytes before it (the memory of one slice, the bytes of
-    the whole)."""
+PLAIN_SPAN = 1 << 27  # positions a plain version takes at once in the checks below
+
+
+def _spans(n: int) -> list[tuple[int, int]]:
+    return [(s, min(s + PLAIN_SPAN, n)) for s in range(0, n, PLAIN_SPAN)]
+
+
+def _bitmap_ref(data: torch.Tensor, mask: int, s: int, e: int) -> torch.Tensor:
+    """The plain gear-hash bitmap of ``data[s:e]``, from the window's 31
+    bytes before it."""
     from repro_torch.kernels.cdc_gearhash.ref import gearhash_ref
 
-    span, out = 1 << 27, []
-    for s in range(0, data.numel(), span):
-        lo = max(0, s - 31)
-        out.append(gearhash_ref(data[lo:s + span], mask=mask)[1][s - lo:])
-    return torch.cat(out)
+    lo = max(0, s - 31)
+    return gearhash_ref(data[lo:e], mask=mask)[1][s - lo:]
 
 
 def check_storage_kernels_at(label: str, data: torch.Tensor, n_servers: tuple[int, ...],
-                             card: str, worst: dict) -> None:
+                             card: str, worst: dict) -> int:
     """The storage kernels at one of this slice's shapes, against their plain
     versions (tolerance 0), and timed beside them: the gear hash's
     bitmap-only form over ``data`` (what the chunker launches), then the
     encode for each of ``n_servers`` (k = 6) and the decode without s0 of the
     first, all at the width of the file's one batch, the sum over its blocks
-    of ceil(block / k)."""
+    of ceil(block / k). The plain versions run, and are compared and timed,
+    in slices of ``PLAIN_SPAN`` positions: the memory of one slice, the
+    bytes of the whole. Returns the blocks the chunker cuts ``data`` into."""
     from repro_torch.erasure.rs import _decoder_cached, _parity_cached
     from repro_torch.kernels.cdc_gearhash import ops as cdc
     from repro_torch.kernels.gf256_matmul import ops as gf
     from repro_torch.kernels.gf256_matmul.ref import gf256_matmul_ref
 
     mask = cdc._mask_for_avg(AVG_BLOCK)
+    L = int(data.numel())
     got = cdc.gearhash_bitmap(data, mask=mask)
     torch.cuda.synchronize()
-    err = _u8_err(got, _bitmap_ref(data, mask))
+    err = max(_u8_err(got[s:e], _bitmap_ref(data, mask, s, e)) for s, e in _spans(L))
     worst["cdc_gearhash"] = max(worst["cdc_gearhash"], err)
     if err:
         raise AssertionError(f"gearhash bitmap at {label} differs from the plain version")
     cand = torch.nonzero(got).flatten().cpu().numpy()
     del got
     k = 6
-    blocks, start, L, n = 0, 0, int(data.numel()), 0
+    blocks, start, n = 0, 0, 0
     ci = 0
     while start < L:  # the chunker's min/max pass over the candidates
         lo, hi = start + MIN_BLOCK, start + MAX_BLOCK
@@ -816,8 +850,13 @@ def check_storage_kernels_at(label: str, data: torch.Tensor, n_servers: tuple[in
         n += (end - start + k - 1) // k
         blocks += 1
         start = end
+
+    def plain_bitmap():
+        for s, e in _spans(L):
+            _bitmap_ref(data, mask, s, e)
+
     ms = cuda_ms(lambda: cdc.gearhash_bitmap(data, mask=mask), 10)
-    plain_ms = cuda_ms(lambda: _bitmap_ref(data, mask), 1)
+    plain_ms = cuda_ms(plain_bitmap, 1)
     log(f"kernels: at {label}: gearhash bitmap only L={L} ({blocks} blocks): {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {2 * L / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes); byte-identical "
         f"to the plain version ({card})")
@@ -831,19 +870,25 @@ def check_storage_kernels_at(label: str, data: torch.Tensor, n_servers: tuple[in
         C = gf.gf256_matmul(A, B)
         torch.cuda.synchronize()
         At = torch.from_numpy(np.array(A))
-        err = _u8_err(C, gf256_matmul_ref(At, B))
+        err = max(_u8_err(C[:, s:e], gf256_matmul_ref(At, B[:, s:e])) for s, e in _spans(n))
         worst["gf256_matmul"] = max(worst["gf256_matmul"], err)
         if err:
             raise AssertionError(f"gf256_matmul {name} at {label} differs from the plain version")
         del C
+
+        def plain_product():
+            for s, e in _spans(n):
+                gf256_matmul_ref(At, B[:, s:e])
+
         ms = cuda_ms(lambda: gf.gf256_matmul(A, B), 10)
-        plain_ms = cuda_ms(lambda: gf256_matmul_ref(At, B), 1)
+        plain_ms = cuda_ms(plain_product, 1)
         bound = (A.shape[0] + k) * n / HBM_BYTES_PER_S * 1e3
         log(f"kernels: at {label}: gf256_matmul {name} {A.shape} x (6, {n}): {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes), {100 * bound / ms:.2f} % of its "
             f"bound; byte-identical to the plain version ({card})")
     del B
     torch.cuda.empty_cache()
+    return blocks
 
 
 def drive_checkpoint(seed: int, out_dir: Path, card: str, totals: dict, worst: dict) -> None:
@@ -1082,6 +1127,350 @@ def card_vs_cpu(seed: int) -> None:
         f"greedy tokens agree at {share:.4f} of all positions (required {SMALL_ARGMAX_SHARE})")
 
 
+# ---------------------------------------------------------------- phase 7
+# qwen2-0.5b trained at full width and depth, checkpointing its whole state
+TRAIN_B, TRAIN_S, TRAIN_LR = 4, 2048, 1e-3  # the reference launcher's rate
+# The redone step 5 starts from the restored step-4 state, equal bit for bit,
+# with the same batch: its forward repeats on the same card. The tolerance
+# allows only for cuBLAS choosing another algorithm (the backward's atomics,
+# in the embedding gradient, come after the loss).
+REDO_LOSS_ATOL = 1e-3
+# card vs CPU in bf16: qwen2-0.5b at full width, 2 layers, B=2 x 256, one step at lr
+TRAIN_SMALL_LAYERS, TRAIN_SMALL_B, TRAIN_SMALL_S = 2, 2, 256
+
+
+def _host_memory() -> str:
+    """MemTotal and MemAvailable of the host, and this process's peak RSS."""
+    import resource
+
+    info = dict(line.split(":", 1) for line in Path("/proc/meminfo").read_text().splitlines())
+    gib = lambda key: int(info[key].split()[0]) / (1 << 20)  # noqa: E731
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1 << 20)
+    return (f"host memory {gib('MemTotal'):.1f} GiB, available {gib('MemAvailable'):.1f} GiB, "
+            f"this process's peak RSS {peak:.1f} GiB")
+
+
+def drive_training(seed: int, out_dir: Path, card: str, totals: dict, worst: dict) -> None:
+    """qwen2-0.5b at full width and depth, B=4 x 2048, AdamW at lr 1e-3:
+    steps 1-2, a save of the whole state (parameters, AdamW state, data
+    state), steps 3-4, an incremental save, step 5; then the trainer and
+    ``fault_budget()`` hosts crash, the step-4 state is restored (checked
+    bit for bit) and step 5 is redone. The storage kernels' counts are set
+    to 0 before the sequence and read after it. Then the kernels are held
+    against their plain versions on the bytes that the step-4 save wrote,
+    the blocks of that save are accounted for, the gradient's norm is
+    printed by leaf, and one more step runs under ``torch.profiler``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.cdc_gearhash import ops as cdc
+    from repro_torch.kernels.gf256_matmul import ops as gf
+    from repro_torch.models.registry import build_model
+    from repro_torch.device import host_tensor
+    from repro_torch.train.checkpoint import ECCheckpointStore, serialize_tree
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+    from repro_torch.tree import named_leaves
+
+    cfg = get_arch(MODEL)
+    t0 = time.perf_counter()
+    model = build_model(cfg, max_pos=TRAIN_S, device="cuda")
+    params = model.init_params(torch.Generator().manual_seed(seed))
+    opt = adamw_init(params)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                  seed=seed))
+    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+    store = ECCheckpointStore(n_hosts=8, parity=2, seed=seed, device="cuda",
+                              coding_backend="kernel", min_block=MIN_BLOCK,
+                              avg_block=AVG_BLOCK, max_block=MAX_BLOCK)
+    torch.cuda.synchronize()
+    log(f"train: {cfg.name} {model.n_params()} parameters ({cfg.n_layers} layers, full width), "
+        f"B={TRAIN_B} x S={TRAIN_S}, AdamW lr {TRAIN_LR}, random weights (seed {seed}) made in "
+        f"{time.perf_counter() - t0:.3f} s; {_host_memory()}")
+
+    losses: list[tuple[str, float, float]] = []  # (label, loss, wall)
+
+    def train(label: str):
+        nonlocal params, opt
+        batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.next_batch().items()}
+        t = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, batch)
+        loss = float(loss)  # waits for the step
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if not np.isfinite(loss):
+            raise AssertionError(f"train: {label} loss {loss} is not finite")
+        losses.append((label, loss, wall))
+        log(f"train: {label}: loss {loss:.6f}, {wall:.4f} s wall, "
+            f"{TRAIN_B * TRAIN_S / wall:.1f} tokens/s ({card})")
+
+    saves = {}
+
+    def save(step: int):
+        t = time.perf_counter()
+        st = store.save(step, {"params": params, "opt": opt, "data": data.state()})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if not st.success:
+            raise AssertionError(f"train: the save at step {step} failed: {st}")
+        saves[step] = (st, wall)
+        log(f"train: save at step {step}: {st.bytes_written} bytes in {wall:.3f} s, "
+            f"{st.bytes_written / 1e9 / wall:.4f} GB/s, {st.blocks_written}/{st.blocks_total} "
+            f"blocks written ({100 * st.blocks_written / st.blocks_total:.3f} %); "
+            f"{_host_memory()} ({card})")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cdc.launches = 0
+    gf.launches = 0
+    t_seq = time.perf_counter()
+    train("step 1")
+    train("step 2")
+    save(2)
+    # the bytes each save wrote, kept on the host for the accounting below
+    blob2 = serialize_tree({"step": 2, "state": {"params": params, "opt": opt,
+                                                 "data": data.state()}})
+    train("step 3")
+    train("step 4")
+    save(4)
+    saved = {"params": params, "opt": opt, "data": data.state()}  # what step 4 saved
+    blob4 = serialize_tree({"step": 4, "state": saved})
+    train("step 5")
+    first5 = losses[-1][1]
+    # the trainer dies (its state is dropped) and so do fault_budget() hosts
+    params = opt = None
+    budget = store.fault_budget()
+    store.crash_hosts([f"s{i}" for i in range(budget)])
+    t = time.perf_counter()
+    restored = store.restore()
+    torch.cuda.synchronize()
+    restore_wall = time.perf_counter() - t
+    if restored is None:
+        raise AssertionError("train: restore found no checkpoint")
+    rstep, state = restored
+    if rstep != 4:
+        raise AssertionError(f"train: restored step {rstep}, not 4")
+    _same_state(state, saved, "train restore")
+    del saved
+    params, opt = state["params"], state["opt"]
+    data.restore(state["data"])
+    del state
+    train("step 5 redone")
+    seq_wall = time.perf_counter() - t_seq
+    peak = torch.cuda.max_memory_allocated()
+    counts = {"cdc_gearhash": cdc.launches, "gf256_matmul": gf.launches}
+    for name, c in counts.items():
+        if not c:
+            raise AssertionError(f"train: the checkpoints never launched {name}")
+        totals[name] = totals.get(name, 0) + c
+    redo_err = abs(losses[-1][1] - first5)
+    if not redo_err <= REDO_LOSS_ATOL:
+        raise AssertionError(f"train: redone step 5 loss {losses[-1][1]} differs from "
+                             f"{first5} by {redo_err} > {REDO_LOSS_ATOL}")
+    gb = saves[4][0].bytes_written / 1e9
+    walls = [w for label, _, w in losses if label != "step 1"]
+    median = sorted(walls)[len(walls) // 2]
+    log(f"train: restore of step 4 with {budget} host(s) down: {restore_wall:.3f} s, "
+        f"{gb / restore_wall:.4f} GB/s, bit for bit on the card ({card})")
+    log(f"train: step 5 loss {first5:.6f}, redone {losses[-1][1]:.6f} (|diff| {redo_err:.3e}, "
+        f"tolerance {REDO_LOSS_ATOL}); losses {', '.join(f'{x:.6f}' for _, x, _ in losses)}")
+    log(f"train: {TRAIN_B * TRAIN_S / median:.1f} train tokens/s (median step {median:.4f} s "
+        f"of {', '.join(f'{w:.4f}' for w in walls)}, steps after the first, saves excluded); "
+        f"first step {losses[0][2]:.4f} s; the whole sequence {seq_wall:.3f} s; peak device "
+        f"memory {peak} bytes; incremental save rewrote {saves[4][0].blocks_written}/"
+        f"{saves[4][0].blocks_total} blocks; launches cdc_gearhash {counts['cdc_gearhash']} "
+        f"gf256_matmul {counts['gf256_matmul']} ({card})")
+    # the storage kernels on the bytes the step-4 save wrote (not counted:
+    # the counts were read above), and where that save's blocks came from
+    fm_stats = [r.extra for r in store.dss.history if r.kind == "fm-update"][-2:]
+    del store
+    chunks4 = check_storage_kernels_at(f"the training state ({len(blob4)} bytes)",
+                                       host_tensor(blob4).to("cuda"), (8,), card, worst)
+    account_blocks(fm_stats, blob2, blob4, chunks4)
+    del blob2, blob4
+
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.next_batch().items()}
+    # the gradient's size, which the global-norm clip divides every leaf by
+    _, grads = loss_and_grads(model, params, batch)
+    norms = {n: float(torch.linalg.vector_norm(g.float())) for n, g in named_leaves(grads)}
+    del grads
+    total = sum(v * v for v in norms.values()) ** 0.5
+    log(f"train: gradient norm {total:.4e} on the next batch, so the clip scales every "
+        f"gradient by {1 / total:.4e}; by leaf: "
+        f"{', '.join(f'{n} {v:.3e}' for n, v in sorted(norms.items(), key=lambda kv: -kv[1]))}")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    if not torch.isfinite(loss):
+        raise AssertionError("train: the profiled step's loss is not finite")
+    device_busy(prof, out_dir / "train_step_trace.json", wall, "profile train step:")
+    del model, params, opt, prof
+    torch.cuda.empty_cache()
+
+
+def account_blocks(fm_stats: list, blob2: bytes, blob4: bytes, chunks4: int) -> None:
+    """Where the incremental save's blocks come from: the file's block list
+    after an update is the new content's CDC chunks plus a tombstone (an
+    emptied block) for each old block the matcher did not pair with a new
+    chunk; and which bytes of the state did not change from step 2 to
+    step 4, leaf by leaf (the unchanged blocks lie there). ``fm_stats``
+    are the two saves' fragmentation-module records."""
+    from repro_torch.train.checkpoint import deserialize_tree
+    from repro_torch.tree import named_leaves
+
+    first, second = fm_stats
+    tomb = second["blocks"] - second["chunks"]
+    genesis = int(second["created"] > 0)  # new block ids change the file's index
+    data_writes = second["written"] - genesis
+    in_place = data_writes - second["created"] - tomb
+    log(f"train: blocks: the step-2 save cut {first['chunks']} chunks and listed "
+        f"{first['blocks']} blocks; the step-4 save cut {second['chunks']} chunks (the check "
+        f"above cut {chunks4}) and listed {second['blocks']} blocks = {second['chunks']} chunks "
+        f"+ {tomb} tombstones (step-2 blocks the matcher left unpaired, emptied). Of the "
+        f"{second['chunks']} chunks {second['blocks'] - data_writes} were unchanged, "
+        f"{in_place} rewritten in place and {second['created']} new: "
+        f"{100 * (in_place + second['created']) / second['chunks']:.3f} % of the content "
+        f"rewritten; {second['written']} writes with the emptied blocks and the genesis block")
+    if chunks4 != second["chunks"]:
+        raise AssertionError(f"train: the chunker cut {second['chunks']} blocks on the card, "
+                             f"the check {chunks4}")
+    old, new = (dict(named_leaves(deserialize_tree(b)["state"])) for b in (blob2, blob4))
+    rows, same_bytes = [], 0
+    for name, a in old.items():
+        if not isinstance(a, torch.Tensor):
+            continue
+        b = new[name]
+        bits = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        same = int(torch.sum(a.reshape(-1).view(bits) == b.reshape(-1).view(bits)))
+        same_bytes += same * a.element_size()
+        if same:
+            rows.append(f"{name} {same}/{a.numel()}")
+    log(f"train: bytes unchanged from step 2 to step 4: {same_bytes} of {len(blob4)}; by leaf "
+        f"(equal elements / elements): {'; '.join(rows)}")
+
+
+def _train_step_both(cfg, batch: dict, seed: int, lr: float) -> dict:
+    """One train step (its two halves: loss and gradients, then AdamW) on
+    the CPU and on the card from the same weights: the seeded bf16 weights
+    (one CPU generator), upcast for a float32 ``cfg``. On the card AdamW
+    also runs once more from the CPU's gradients. Returns {"cpu" | "cuda" |
+    "cuda from CPU gradients": (loss, grads, params, opt, gradient norm)}
+    as numpy."""
+    import dataclasses
+
+    import _torch_train_criteria as crit
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.train.steps import loss_and_grads
+    from repro_torch.tree import tree_leaves, tree_map
+
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    seen, cpu_grads = {}, None
+    for where in ("cpu", "cuda"):
+        model = build_model(cfg, device=where)
+        params = build_model(bf16, device=where).init_params(torch.Generator().manual_seed(seed))
+        if cfg.dtype != "bfloat16":
+            params = tree_map(lambda p: p.float(), params)
+        b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+        loss, grads = loss_and_grads(model, params, b)
+        new, opt = adamw_update(params, grads, adamw_init(params), AdamWConfig(lr=lr))
+        norm = float(sum(torch.sum(g.float() ** 2) for g in tree_leaves(grads))) ** 0.5
+        seen[where] = (float(loss), crit.to_np(grads), crit.to_np(new), crit.to_np(opt), norm)
+        if where == "cpu":
+            cpu_grads = grads
+        else:
+            g = tree_map(lambda x: x.to(model.device), cpu_grads)
+            new, opt = adamw_update(params, g, adamw_init(params), AdamWConfig(lr=lr))
+            seen["cuda from CPU gradients"] = (None, None, crit.to_np(new), crit.to_np(opt),
+                                               seen["cpu"][4])
+        del model, params, grads, new, opt
+    return seen
+
+
+def train_card_vs_cpu(seed: int) -> None:
+    """One train step on the card against the CPU, from the same weights and
+    batch, held to the slice's criteria (``tests/_torch_train_criteria.py``:
+    the loss, every gradient leaf, m, v, step and the updated parameters):
+
+    - reduced qwen2-0.5b and gemma3-1b in bf16 at B=2 x 64, and at
+      B=1 x 2048, where the attention runs in q_chunk chunks, each under its
+      own checkpoint inside the layer's, as in the timed step;
+    - qwen2-0.5b at full width, one layer, at B=1 x 2048 in f32 (the bf16
+      weights upcast; the whole step in f32, ``LM.loss_fn``): one layer's
+      gradients from the same inputs, through the chunked attention.
+
+    At full width the step is ill-conditioned from the second layer on: the
+    init's fan-in of wq and wk is H and KV, so the scores have a std of
+    ~170 and the attention is a hard argmax, and the second layer amplifies
+    what the first one's rounding changed. A one-ulp change of a bf16
+    projection moves a layer's gradient by tens of percent; two compiles of
+    the reference's own step are as far apart (``tests/_full_width_spread.py``).
+    Even in f32 a change of the CPU's thread count moves the gradients
+    about 28 times more at 2 layers than at 1 (``--f32`` there). So at
+    full width in bf16 (2 layers, B=2 x 256) the criteria are not met and
+    not held: that step is printed, and held only where it is
+    well-conditioned: the loss, step, the final norm's gradient, and AdamW
+    on the card from the CPU's gradients."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_train_criteria as crit
+
+    from repro_torch.configs import get_arch
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    def summary(m: dict) -> str:
+        pooled = sum(x["within"] for x in m.values()) / sum(x["size"] for x in m.values())
+        return (f"m {max(x['m'] for x in m.values()):.4f}, v {max(x['v'] for x in m.values()):.4f}; "
+                f"within 1 bf16 ulp {pooled:.4f} of all parameters (least leaf "
+                f"{min(x['share'] for x in m.values()):.4f}); largest |diff| / (ulp + 2 lr) "
+                f"{max(x['ratio'] for x in m.values()):.4f}")
+
+    def check(cfg, B: int, S: int, lr: float, data_seed: int, criteria: bool) -> None:
+        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                                       seed=data_seed)).next_batch()
+        seen = _train_step_both(cfg, batch, seed, lr)
+        width = "full width" if cfg.d_model == get_arch(MODEL).d_model else "reduced"
+        tag = (f"{cfg.name} {width}, {cfg.n_layers} layer{'s' if cfg.n_layers > 1 else ''}, "
+               f"{cfg.dtype}, {B} x {S} tokens, lr {lr}")
+        (lc, gc, pc, oc, nc), (lh, gh, ph, oh, nh) = seen["cuda"], seen["cpu"]
+        gerr = crit.grad_errors(gc, gh)
+        m = crit.step_metrics(pc, oc, ph, oh, lr)
+        _, _, px, ox, _ = seen["cuda from CPU gradients"]
+        mx = crit.step_metrics(px, ox, ph, oh, lr)
+        log(f"train card vs CPU: {tag}: loss {lc:.6f} / {lh:.6f} (|diff| {abs(lc - lh):.3e}); "
+            f"gradient norm {nc:.4f} / {nh:.4f}; gradients within {max(gerr.values()):.4f} "
+            f"relative L2 (final norm {gerr['final_ln']:.4f}); the step: {summary(m)}; AdamW on "
+            f"the card from the CPU's gradients: {summary(mx)}; the criteria "
+            f"{'held' if criteria else 'not met here, not held (see the docstring)'}")
+        if not (np.isfinite(lc) and abs(lc - lh) <= crit.LOSS_ATOL):
+            raise AssertionError(f"train card vs CPU {tag}: loss {lc} against {lh}")
+        if int(oc["step"]) != int(oh["step"]) or int(oc["step"]) != 1:
+            raise AssertionError(f"train card vs CPU {tag}: step differs")
+        if gerr["final_ln"] > crit.GRAD_RTOL:
+            raise AssertionError(f"train card vs CPU {tag}: final norm gradient {gerr['final_ln']}")
+        crit.assert_step_close(mx)
+        if criteria:
+            if max(gerr.values()) > crit.GRAD_RTOL:
+                raise AssertionError(f"train card vs CPU {tag}: gradient errors {gerr}")
+            crit.assert_step_close(m)
+
+    for arch in ("qwen2_0_5b", "gemma3_1b"):
+        cfg = get_arch(arch).reduced()
+        check(cfg, 2, 64, 3e-4, seed, criteria=True)
+        check(cfg, 1, TRAIN_S, 3e-4, seed, criteria=True)
+    full = get_arch(MODEL)
+    check(dataclasses.replace(full, n_layers=1, dtype="float32"), 1, TRAIN_S, TRAIN_LR,
+          seed + 3, criteria=True)
+    check(dataclasses.replace(full, n_layers=TRAIN_SMALL_LAYERS), TRAIN_SMALL_B, TRAIN_SMALL_S,
+          TRAIN_LR, seed + 3, criteria=False)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1115,7 +1504,9 @@ def main() -> int:
         f"storm {STORM} under RetryPolicy(rpc_timeout="
         f"{storm_retry(dict(YCSB_B)).rpc_timeout:.4f}); sanitized {SANITIZED}; checkpoint of {MODEL} on "
         f"ECCheckpointStore(n_hosts=8, parity=2, device=cuda, coding_backend=kernel), the same "
-        f"blocks, the model at full width and depth; cuts: none")
+        f"blocks, the model at full width and depth; training {MODEL} at B={TRAIN_B} x "
+        f"S={TRAIN_S}, AdamW lr {TRAIN_LR}, checkpoints on the same store configuration; "
+        f"cuts: none")
     # phase 2
     build(args.out)
     # phase 3
@@ -1167,6 +1558,9 @@ def main() -> int:
     drive_sanitized(args.seed, args.out, card, counts)
     ycsb_card_vs_cpu(args.seed)
     drive_checkpoint(args.seed, args.out, card, counts, worst)
+    # phase 7: training with checkpoints, the storage kernels counted from zero inside
+    drive_training(args.seed, args.out, card, counts, worst)
+    train_card_vs_cpu(args.seed)
 
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]

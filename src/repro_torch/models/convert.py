@@ -1,5 +1,6 @@
-"""Carry a parameter tree across from numpy (e.g. the reference's params,
-converted with ``np.asarray``) into the port's nested dict of tensors.
+"""Carry a parameter tree or an optimizer state across from numpy (e.g. the
+reference's, converted with ``np.asarray``) into the port's nested dict of
+tensors.
 
 bf16 arrays arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy``
 refuses. They are found by their dtype's name and reinterpreted bit for bit
@@ -24,6 +25,9 @@ def tensor_from_numpy(arr) -> torch.Tensor:
 
 def params_from_numpy(tree: dict) -> Params:
     """The nested dict of CPU tensors for a nested dict of arrays (stacked
-    layers included); ``LM.load_params`` moves it to the model's device."""
+    layers included); ``LM.load_params`` moves it to the model's device.
+    An AdamW state (the reference's ``adamw_init``/``adamw_update`` output,
+    converted with ``np.asarray``) comes across the same way: f32 ``m`` and
+    ``v`` trees and ``step`` as an int32 0-d tensor, bit for bit."""
     return {name: params_from_numpy(value) if isinstance(value, dict) else tensor_from_numpy(value)
             for name, value in tree.items()}

@@ -10,6 +10,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 
@@ -78,30 +79,50 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None,
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool = True,
-                  window: int | None = None,
+                  window: int | None = None, q_chunk: int = 1024,
                   score_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Grouped-query attention, q (B, Sq, H, hd); k/v (B, Sk, KV, hd).
 
     The reference's jnp attention, with its score chain in ``score_dtype``
     (bf16): the score product is rounded to bf16, max and exp run in bf16,
-    and only the softmax denominator sums in f32. The port's decode path
-    uses it; the prefill uses the flash kernel (f32 scores) instead."""
+    and only the softmax denominator sums in f32. The port's decode step and
+    its training stack use it; the prefill uses the flash kernel (f32 scores)
+    instead.
+
+    Above ``q_chunk`` queries (``Sq`` a multiple of it) the chain runs chunk
+    by chunk, each chunk under ``torch.utils.checkpoint``: the score buffers
+    are bounded to (B, KV, G, q_chunk, Sk) and recomputed in the backward,
+    as the reference's ``jax.checkpoint(nothing_saveable)`` over ``lax.map``
+    does."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     # the scale rounded to score_dtype, kept as a Python float: no host-to-
     # device copy (and no stream sync) per call
     scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32).to(score_dtype))
+
+    def attend(q_blk: torch.Tensor, qp_blk: torch.Tensor) -> torch.Tensor:
+        # q_blk (B, Sc, KV, G, hd)
+        s = torch.einsum("bqkgd,bskd->bkgqs", q_blk.float(), k.float()).to(score_dtype)
+        bias = _mask_bias(qp_blk, k_pos, window, causal).to(score_dtype)
+        s = s * scale + bias
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        den = e.sum(dim=-1, keepdim=True, dtype=torch.float32)
+        w = e / den.to(score_dtype)
+        out = torch.einsum("bkgqs,bskd->bqkgd", w.float(), v.float())
+        return out.to(q.dtype)
+
     qg = q.reshape(B, Sq, KV, G, hd)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()).to(score_dtype)
-    bias = _mask_bias(q_pos, k_pos, window, causal).to(score_dtype)
-    s = s * scale + bias
-    m = s.amax(dim=-1, keepdim=True)
-    e = torch.exp(s - m)
-    den = e.sum(dim=-1, keepdim=True, dtype=torch.float32)
-    w = e / den.to(score_dtype)
-    out = torch.einsum("bkgqs,bskd->bqkgd", w.float(), v.float())
-    return out.to(q.dtype).reshape(B, Sq, H, hd)
+    if Sq <= q_chunk:
+        out = attend(qg, q_pos)
+    else:
+        if Sq % q_chunk:
+            raise ValueError(f"{Sq} queries are not a multiple of q_chunk={q_chunk}")
+        out = torch.cat([checkpoint(attend, qg[:, i:i + q_chunk], q_pos[i:i + q_chunk],
+                                    use_reentrant=False)
+                         for i in range(0, Sq, q_chunk)], dim=1)
+    return out.reshape(B, Sq, H, hd)
 
 
 # ------------------------------------------------------------------ MLP

@@ -8,11 +8,15 @@ with the options its dense block carries: QKV bias (qwen2), qk-norm
 Parameters are a nested dict of tensors with the reference's names and
 shapes, stacked layers included (leading L axis); every method takes them
 explicitly, as the reference's do. ``load_params`` also registers them on
-the module. The prefill (``_run_decoder_stack``) runs a Python loop over
-the layers and computes each layer's attention with the flash-attention
-kernel (f32 scores; one launch per layer on the card). The decode step
-writes the new K/V into the cache in place and attends with the plain
-``gqa_attention`` (bf16 score chain), as the reference does: its query sits
+the module. The layer stack (``_run_decoder_stack``) is a Python loop over
+the layers. The prefill computes each layer's attention with the
+flash-attention kernel (f32 scores; one launch per layer on the card). The
+training loss (``loss_fn``) attends with the plain ``gqa_attention`` (bf16
+score chain), as the reference's ``_attn`` does, since the kernel has no
+backward, and runs each layer under ``torch.utils.checkpoint``, the
+counterpart of the reference's ``jax.checkpoint(nothing_saveable)`` over its
+layer scan. The decode step writes the new K/V into the cache in place and
+attends with ``gqa_attention`` too, as the reference does: its query sits
 at ``cur_len`` against an S-long cache, which the kernel's positions (both
 from 0) cannot express.
 """
@@ -23,6 +27,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
@@ -36,25 +41,17 @@ from repro_torch.models.layers import (
     rope_cos_sin,
     swiglu_mlp,
 )
+from repro_torch.tree import named_leaves
 
 Params = dict[str, Any]  # name -> tensor, or name -> dict of stacked-layer tensors
 
 _NOT_PORTED = {
-    "moe": "the MoE family waits for moe_layer (ROADMAP A9)",
-    "ssm": "the SSM family waits for models/ssd.py (ROADMAP A9)",
-    "hybrid": "the hybrid family waits for models/ssd.py (ROADMAP A9)",
-    "encdec": "the encoder-decoder family waits for its stack (ROADMAP A9)",
-    "vlm": "the VLM family waits for mrope and embeddings input (ROADMAP A9)",
+    "moe": "the MoE family waits for moe_layer (ROADMAP A2)",
+    "ssm": "the SSM family waits for models/ssd.py (ROADMAP A2)",
+    "hybrid": "the hybrid family waits for models/ssd.py (ROADMAP A2)",
+    "encdec": "the encoder-decoder family waits for its stack and gelu_mlp (ROADMAP A2)",
+    "vlm": "the VLM family waits for mrope and embeddings input (ROADMAP A2)",
 }
-
-
-def _leaves(tree: dict, prefix: str = ""):
-    for name in sorted(tree):
-        value = tree[name]
-        if isinstance(value, dict):
-            yield from _leaves(value, f"{prefix}{name}.")
-        else:
-            yield f"{prefix}{name}", value
 
 
 class LM(nn.Module):
@@ -90,7 +87,7 @@ class LM(nn.Module):
         return t
 
     def n_params(self) -> int:
-        return sum(math.prod(shape) for _, (shape, _) in _leaves(self.param_template()))
+        return sum(math.prod(shape) for _, (shape, _) in named_leaves(self.param_template()))
 
     def init_params(self, generator: torch.Generator) -> Params:
         """Random parameters by the reference's rule: zeros for 1-D leaves
@@ -98,7 +95,7 @@ class LM(nn.Module):
         are drawn in sorted-name order from ``generator`` (on its device)
         and moved to the model's device."""
         out: Params = {}
-        for name, (shape, dtype) in _leaves(self.param_template()):
+        for name, (shape, dtype) in named_leaves(self.param_template()):
             if len(shape) == 1:
                 value = torch.zeros(shape, dtype=dtype)
             else:
@@ -164,30 +161,46 @@ class LM(nn.Module):
         B, S = o.shape[:2]
         return (o.reshape(B * S, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)).reshape(B, S, -1)
 
-    def _attn(self, lp: dict, x: torch.Tensor, *, cos, sin, window: int) -> torch.Tensor:
+    def _attn(self, lp: dict, x: torch.Tensor, *, cos, sin, window: int,
+              train_pos: torch.Tensor | None) -> torch.Tensor:
+        """The layer's attention: the flash kernel, or with ``train_pos``
+        (the query and key positions) the differentiable ``gqa_attention``."""
         q, k, v = self._qkv(lp, x, cos, sin)
+        if train_pos is not None:
+            o = gqa_attention(q, k, v, q_pos=train_pos, k_pos=train_pos, causal=True,
+                              window=window, score_dtype=dt(self.cfg))
+            return self._out_proj(lp, o)
         o = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
                             v.transpose(1, 2).contiguous(), causal=True, window=window)
         return self._out_proj(lp, o.transpose(1, 2))
 
-    def _dense_block(self, lp: dict, h: torch.Tensor, *, cos, sin, window: int) -> torch.Tensor:
+    def _dense_block(self, lp: dict, h: torch.Tensor, *, cos, sin, window: int,
+                     train_pos: torch.Tensor | None = None) -> torch.Tensor:
         cfg = self.cfg
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        h = h + self._attn(lp, x, cos=cos, sin=sin, window=window)
+        h = h + self._attn(lp, x, cos=cos, sin=sin, window=window, train_pos=train_pos)
         x2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
         return h + swiglu_mlp(x2, lp["wg"], lp["wu"], lp["wd"])
 
     def _run_decoder_stack(self, params: Params, h: torch.Tensor, *,
-                           positions: torch.Tensor) -> torch.Tensor:
-        """The prefill's layer stack: h (B, S, D) bf16, positions (B, S).
-        Query and key positions are ``positions[0]``, which the flash
-        kernel takes to be 0..S-1."""
+                           positions: torch.Tensor, train: bool = False) -> torch.Tensor:
+        """The layer stack: h (B, S, D) bf16, positions (B, S). Query and key
+        positions are ``positions[0]``, which the flash kernel takes to be
+        0..S-1. With ``train``, every layer attends with ``gqa_attention``
+        and runs under ``torch.utils.checkpoint`` (its activations are
+        recomputed in the backward)."""
         S = h.shape[1]
         cos, sin = self._rope(positions)
-        layers = params["layers"]
+        # unbind, not w[i]: the backward then stacks each leaf's layer
+        # gradients once instead of adding L zero-padded copies
+        layers = {name: w.unbind(0) for name, w in params["layers"].items()}
         for i, window in enumerate(self._windows(S)):
             lp = {name: w[i] for name, w in layers.items()}
-            h = self._dense_block(lp, h, cos=cos, sin=sin, window=window)
+            if train:
+                h = checkpoint(self._dense_block, lp, h, cos=cos, sin=sin, window=window,
+                               train_pos=positions[0], use_reentrant=False)
+            else:
+                h = self._dense_block(lp, h, cos=cos, sin=sin, window=window)
         return h
 
     def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -195,6 +208,33 @@ class LM(nn.Module):
         if self.cfg.tie_embeddings:
             return h @ params["embed"].T
         return h @ params["head"]
+
+    # ------------------------------------------------------------- training
+    def loss_fn(self, params: Params, batch: dict) -> torch.Tensor:
+        """Mean next-token cross-entropy (f32 0-d) of ``batch`` = {"tokens",
+        "labels"} (B, S) int: the reference's ``loss_fn`` with ``ctx=None``.
+        The dense family has no auxiliary loss (the reference adds
+        ``0.01 * 0``). The embedding's output and the attention's score
+        chain take the configuration's dtype: bf16 for every configuration
+        of the catalog, as in the reference. A ``dtype="float32"``
+        configuration thus computes the whole step in f32 (the reference
+        keeps both in bf16 there), which makes it a precise witness of a
+        bf16 step from the same weights."""
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h = params["embed"][tokens].to(dt(self.cfg))
+        positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
+        h = self._run_decoder_stack(params, h, positions=positions, train=True)
+        return self._cross_entropy(params, h, batch["labels"])
+
+    def _cross_entropy(self, params: Params, h: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+        """CE over the vocab from the full (B, S, V) f32 logits, as the
+        reference's single-device form (its chunked form needs a mesh)."""
+        logits = self._head(params, h).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = logits.gather(-1, labels[..., None].long())[..., 0]
+        return (lse - ll).mean()
 
     # ------------------------------------------------------------- serving
     def cache_template(self, B: int, S: int) -> dict:

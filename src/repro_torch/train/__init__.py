@@ -1,9 +1,12 @@
-"""Training substrate of the port: the EC checkpoint store
+"""Training stack of the port, on one device: AdamW (``optimizer``), the
+train, prefill and serve step builders (``steps.make_train_step``,
+``steps.make_prefill_step``, ``steps.make_serve_step``), error-feedback int8
+gradient compression (``compress``), the EC checkpoint store
 (``checkpoint.ECCheckpointStore``, ``serialize_tree``/``deserialize_tree``
-over torch state dicts), the synthetic data pipeline (``data.SyntheticLM``)
-and the serving step builders (``steps.make_prefill_step``,
-``steps.make_serve_step``). The train step, optimizer, gradient compression
-and sharding wait for the training slice (ROADMAP A10)."""
+over torch state dicts) and the synthetic data pipeline
+(``data.SyntheticLM``). The launcher is ``repro_torch.launch.train``. The
+sharded forms (ZeRO-1 AdamW, batch and state shardings) and elastic
+resizing wait for the mesh layer (ROADMAP A3)."""
 from repro_torch.train.checkpoint import (
     CheckpointStats,
     ECCheckpointStore,
@@ -11,12 +14,18 @@ from repro_torch.train.checkpoint import (
     serialize_tree,
 )
 from repro_torch.train.data import DataConfig, SyntheticLM
+from repro_torch.train.optimizer import AdamWConfig, adamw_init, adamw_update
+from repro_torch.train.steps import make_train_step
 
 __all__ = [
+    "AdamWConfig",
     "CheckpointStats",
-    "ECCheckpointStore",
-    "deserialize_tree",
-    "serialize_tree",
     "DataConfig",
+    "ECCheckpointStore",
     "SyntheticLM",
+    "adamw_init",
+    "adamw_update",
+    "deserialize_tree",
+    "make_train_step",
+    "serialize_tree",
 ]

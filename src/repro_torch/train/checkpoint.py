@@ -35,6 +35,7 @@ import torch
 from repro_torch.core.store import DSS, DSSParams
 from repro_torch.device import host_tensor, resolve_device
 from repro_torch.net.sim import LatencyModel
+from repro_torch.tree import ordered_keys
 
 Tree = Any
 
@@ -49,7 +50,7 @@ Tree = Any
 # package's own.
 def _flatten(tree: Tree, leaves: list) -> Any:
     if isinstance(tree, dict):
-        keys = sorted(tree)
+        keys = ordered_keys(tree)
         return ("dict", tuple(keys), tuple(_flatten(tree[k], leaves) for k in keys))
     if isinstance(tree, (list, tuple)):
         kind = "list" if isinstance(tree, list) else "tuple"

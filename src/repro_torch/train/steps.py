@@ -1,11 +1,40 @@
-"""prefill_step / serve_step builders (one device: no mesh, no sharding).
-
-``make_train_step`` waits for the training slice (ROADMAP A10)."""
+"""train_step / prefill_step / serve_step builders (one device: no mesh, no
+sharding). ``batch_shardings`` and ``training_state_specs`` wait for the mesh
+layer (ROADMAP A3)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.lm import LM, Params
+from repro_torch.train.optimizer import AdamWConfig, adamw_init_shapes, adamw_update
+from repro_torch.tree import Tree, tree_leaves, tree_map
+
+
+def loss_and_grads(model: LM, params: Params, batch: dict) -> tuple[torch.Tensor, Params]:
+    """``(loss, grads)`` of ``model.loss_fn`` at ``params``, grads shaped and
+    typed like ``params``. The gradients are taken on detached views of the
+    leaves, so ``params`` (e.g. the frozen parameters that
+    ``LM.load_params`` registers for serving) are left as they are."""
+    live = tree_map(lambda p: p.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = model.loss_fn(live, batch)
+        leaves = list(tree_leaves(live))
+        flat = iter(torch.autograd.grad(loss, leaves))
+    return loss.detach(), tree_map(lambda _: next(flat), live)
+
+
+def make_train_step(model: LM, opt_cfg: AdamWConfig | None = None):
+    """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``:
+    the loss and its gradients, then one AdamW step; functional, like the
+    reference's (new trees are returned, the inputs are not modified)."""
+    opt_cfg = opt_cfg or AdamWConfig()
+
+    def train_step(params: Params, opt_state: Tree, batch: dict):
+        loss, grads = loss_and_grads(model, params, batch)
+        params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)
+        return params, opt_state, loss
+
+    return train_step
 
 
 def make_prefill_step(model: LM):
@@ -31,3 +60,9 @@ def make_serve_step(model: LM):
         return model.decode_step(params, cache, batch)
 
     return serve_step
+
+
+def training_state_shapes(model: LM) -> tuple[dict, dict]:
+    """(parameter, optimizer state) trees of (shape, dtype)."""
+    ps = model.param_template()
+    return ps, adamw_init_shapes(ps)

@@ -360,6 +360,92 @@ def test_checkpoint_of_a_reduced_model_round_trips_on_the_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(2, 64), (1, 2048)])
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "gemma3_1b"])
+def test_train_step_on_the_card_matches_the_cpu(cuda, arch, B, S):
+    """One train step (reduced config, ``AdamWConfig()``) on the card and on
+    the CPU, same weights (one seeded generator) and batch, held to the
+    criteria of ``tests/_torch_train_criteria.py``: the loss, every gradient
+    leaf, m, v, step and the updated parameters. At S=2048 the attention
+    runs in q_chunk chunks, each under its own checkpoint."""
+    import _torch_train_criteria as crit
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    cfg = get_arch(arch).reduced()
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)).next_batch()
+    seen = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        params = model.init_params(torch.Generator().manual_seed(0))
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        loss, grads = loss_and_grads(model, params, b)
+        new, opt, loss2 = make_train_step(model)(params, adamw_init(params), b)
+        assert new["embed"].device.type == dev and opt["step"].dtype == torch.int32
+        seen[dev] = (float(loss), crit.to_np(grads), crit.to_np(new), crit.to_np(opt),
+                     float(loss2))
+    (lc, gc, pc, oc, lc2), (lh, gh, ph, oh, lh2) = seen["cuda"], seen["cpu"]
+    assert np.isfinite(lc) and abs(lc - lh) <= crit.LOSS_ATOL and abs(lc2 - lh2) <= crit.LOSS_ATOL
+    assert max(crit.grad_errors(gc, gh).values()) <= crit.GRAD_RTOL
+    assert int(oc["step"]) == int(oh["step"]) == 1
+    crit.assert_step_close(crit.step_metrics(pc, oc, ph, oh, AdamWConfig().lr))
+
+
+@pytest.mark.cuda
+def test_training_state_round_trips_through_the_store_on_the_card(cuda):
+    """Two train steps of reduced qwen2-0.5b on the card, a save of the whole
+    state (parameters, AdamW state, data state) through the store on the
+    card, the fault budget's hosts down, a restore (bit for bit, on the
+    card), and the next step from the restored state: its loss equals the
+    uninterrupted run's within 1e-3 (the forward from an equal state
+    repeats; only the backward's atomics, after the loss, may differ)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.checkpoint import ECCheckpointStore
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.steps import make_train_step
+    from repro_torch.tree import named_leaves
+
+    model = build_model(get_arch("qwen2_0_5b").reduced(), device="cuda")
+    data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=64, global_batch=2))
+    params = model.init_params(torch.Generator().manual_seed(0))
+    opt = adamw_init(params)
+    step = make_train_step(model)
+
+    def batch():
+        return {k: torch.from_numpy(v).to(cuda) for k, v in data.next_batch().items()}
+
+    for _ in range(2):
+        params, opt, _ = step(params, opt, batch())
+    store = ECCheckpointStore(device="cuda", coding_backend="kernel", min_block=4096,
+                              avg_block=16384, max_block=65536)
+    before = (cdc_ops.launches, gf_ops.launches)
+    saved = {"params": params, "opt": opt, "data": data.state()}
+    assert store.save(2, saved).success
+    _, _, want = step(params, opt, batch())
+    store.crash_hosts([f"s{i}" for i in range(store.fault_budget())])
+    got_step, state = store.restore()
+    assert cdc_ops.launches > before[0] and gf_ops.launches > before[1]
+    assert got_step == 2
+
+    back = dict(named_leaves(state))
+    for name, value in named_leaves(saved):
+        if isinstance(value, torch.Tensor):
+            assert back[name].device.type == "cuda" and back[name].dtype == value.dtype
+            assert torch.equal(back[name], value), name
+        else:
+            assert int(back[name]) == value, name
+    data.restore(state["data"])
+    _, _, again = step(state["params"], state["opt"], batch())
+    assert abs(float(again) - float(want)) <= 1e-3
+    assert store.dss.net.stuck_ops() == []
+
+
+@pytest.mark.cuda
 def test_explorer_selftest_on_the_card(cuda, tmp_path):
     import os
     import subprocess
