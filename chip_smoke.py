@@ -32,6 +32,16 @@ Phases, each of which fails the run (non-zero exit) on any error:
    --cache-len 2048 --tokens 32``. Logits must be finite. The same prefill
    at full width, 2 layers and 256 tokens, and one decode step from one
    cache, must agree between the card (kernel) and the CPU (plain versions);
+5b. MoE serving: olmoe-1b-7b at full width and depth (random weights from
+   the seed): ``repro_torch.launch.serve --arch olmoe_1b_7b --full --batch 4
+   --cache-len 2048 --tokens 32``, then with its weights 3 timed prefills of
+   4 x 2048 tokens (one flash-attention launch per layer, hd 128), the share
+   of assignments dropped at capacity in the first and last layer, and a
+   profile split by the MoE layer's parts. Card against CPU, the same
+   weights: olmoe-1b-7b and qwen3-moe-30b-a3b at full width, 2 layers,
+   2 x 256 tokens (routes agree above a router-logit margin, logits
+   within 8 bf16 ulps where they do, greedy tokens >= 90 %), and
+   ``moe_layer`` alone at olmoe's widths and 8192 tokens;
 6. the store's users, each path with the kernels' counts set to 0 before it
    and read after it, under ``torch.profiler`` (wall time, launches, the
    device's busy share), on the same Emulab deployment and blocks:
@@ -86,6 +96,8 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import bisect
+import contextlib
 import json
 import re
 import subprocess
@@ -315,6 +327,8 @@ PREFILL_B, PREFILL_S = 4, 2048  # the model path's prefill: its flash kernel's s
 FLASH_CASES = (
     # (label, B, H, Hkv, Sq, Sk, hd, causal, window, dtype, input scale)
     ("path", PREFILL_B, 14, 2, PREFILL_S, PREFILL_S, 64, True, 0, torch.bfloat16, 1.0),
+    # olmoe-1b-7b's prefill (phase 5b): hd 128, the two-consumer-warpgroup form
+    ("olmoe path", PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 128, True, 0, torch.bfloat16, 1.0),
     ("sliding window", 1, 4, 1, 2048, 2048, 256, True, 512, torch.bfloat16, 1.0),
     ("f32 Sq<Sk top-left causal", 2, 4, 2, 320, 1111, 128, True, 0, torch.float32, 1.0),
     ("extreme logits x30", 1, 2, 2, 256, 256, 32, True, 0, torch.float32, 30.0),
@@ -338,10 +352,9 @@ def _causal_pairs(Sq: int, Sk: int) -> int:
 def check_flash(rng: np.random.Generator, card: str) -> dict:
     """The flash-attention kernel against its plain version on the cases
     above (tolerance 2e-2 in bf16: one bf16 rounding of outputs near 1;
-    1e-4 in f32: sums in another order), then timed at the path's shape
-    beside its plain version and ``scaled_dot_product_attention``."""
-    import torch.nn.functional as F
-
+    1e-4 in f32: sums in another order), then timed at the two path shapes
+    (qwen2-0.5b's hd 64, olmoe-1b-7b's hd 128) beside its plain version and
+    ``scaled_dot_product_attention``. The JSON entry holds the first."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -361,10 +374,27 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
         log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} "
             f"{str(dtype).removeprefix('torch.')} causal={causal} window={window}: "
             f"max |err| {err:.3e} (tolerance {tol})")
-        worst = max(worst, err) if label == "path" else worst
+        worst = max(worst, err) if label.endswith("path") else worst
         del q, k, v, got, want
 
-    _, B, H, Hkv, Sq, Sk, hd, causal, window, dtype, _ = FLASH_CASES[0]
+    entry = time_flash(FLASH_CASES[0], rng, card)
+    time_flash(FLASH_CASES[1], rng, card)
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
+            "max_abs_err": worst, **entry}
+
+
+def time_flash(case: tuple, rng: np.random.Generator, card: str) -> dict:
+    """The kernel timed at a causal bf16 path shape of ``FLASH_CASES``, beside
+    its plain version, ``scaled_dot_product_attention`` and its bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    dev = torch.device("cuda")
+    label, B, H, Hkv, Sq, Sk, hd, causal, window, dtype, _ = case
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
                for shape in ((B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
     ke, ve = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
@@ -375,17 +405,16 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True), 20)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
     plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), 2)
-    log(f"kernels: flash_attention path q{tuple(q.shape)} k/v{tuple(k.shape)} bf16 causal: "
+    log(f"kernels: flash_attention {label} q{tuple(q.shape)} k/v{tuple(k.shape)} bf16 causal: "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}: {flops} flops at 989 TFLOP/s = {flop_ms:.4f} ms, "
         f"{nbytes} bytes at 3.35 TB/s = {byte_ms:.4f} ms); {flops / ms / 1e9:.1f} TFLOP/s, "
         f"{100 * bound_ms / ms:.2f} % of its bound, {ms / library_ms:.3f}x the time of "
         f"scaled_dot_product_attention ({card})")
-    return {"name": "flash_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+    del q, k, v, ke, ve
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -502,11 +531,12 @@ def _kind(name: str) -> str:
     return "other elementwise and reductions"
 
 
-def device_busy(prof, trace: Path, wall: float, tag: str) -> None:
+def device_busy(prof, trace: Path, wall: float, tag: str) -> list:
     """Write ``prof``'s trace to ``trace`` + ``.gz`` (gzip: the traces of
     every phase must fit what a run brings back) and print the device's
     busy time (kernels + copies + fills, summed from the trace) against
-    ``wall``, its split by kind of kernel, and the costliest kernels."""
+    ``wall``, its split by kind of kernel, and the costliest kernels.
+    Returns the trace's events."""
     import gzip
 
     prof.export_chrome_trace(str(trace))
@@ -515,7 +545,8 @@ def device_busy(prof, trace: Path, wall: float, tag: str) -> None:
     trace.unlink()
     busy: dict[str, float] = {}
     kinds: dict[str, list] = {}
-    for ev in json.loads(text).get("traceEvents", []):
+    events = json.loads(text).get("traceEvents", [])
+    for ev in events:
         cat = ev.get("cat", "")
         if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             key = ev["name"] if cat == "kernel" else cat
@@ -532,6 +563,7 @@ def device_busy(prof, trace: Path, wall: float, tag: str) -> None:
         log(f"{tag} by kind {sec:.6f} s ({100 * sec / total:.2f} % of busy) in {n}: {kind}")
     for key, sec in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
         log(f"{tag} device {sec:.6f} s ({100 * sec / total:.2f} % of busy) {key[:90]}")
+    return events
 
 
 def profile_path(data: bytes, out_dir: Path, seed: int) -> None:
@@ -1002,7 +1034,6 @@ def drive_model(seed: int, card: str, out_dir: Path) -> int:
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.launch import serve
     from repro_torch.models.registry import build_model
-    from repro_torch.train.steps import make_prefill_step
 
     cfg = get_arch(MODEL)
     t0 = time.perf_counter()
@@ -1014,28 +1045,7 @@ def drive_model(seed: int, card: str, out_dir: Path) -> int:
         f"random weights (seed {seed}) made in {time.perf_counter() - t0:.3f} s")
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
-    step = make_prefill_step(model)
-    step(params, {"tokens": tokens})  # warm-up: cuBLAS handles, kernel library load
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    walls = []
-    for _ in range(PREFILL_RUNS):
-        t0 = time.perf_counter()
-        logits = step(params, {"tokens": tokens})
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t0)
-    prefill_launches = fa.launches
-    if prefill_launches != PREFILL_RUNS * cfg.n_layers:
-        raise AssertionError(f"{PREFILL_RUNS} prefills launched flash_attention "
-                             f"{prefill_launches} times, not {PREFILL_RUNS} x {cfg.n_layers}")
-    if logits.shape != (PREFILL_B, cfg.vocab) or not torch.isfinite(logits).all():
-        raise AssertionError(f"prefill logits {tuple(logits.shape)} are not finite (B, V)")
-    wall = sorted(walls)[len(walls) // 2]
-    log(f"model: prefill {PREFILL_B} x {PREFILL_S} tokens: {wall:.4f} s wall (median of "
-        f"{', '.join(f'{w:.4f}' for w in walls)}), {PREFILL_B * PREFILL_S / wall:.1f} tokens/s, "
-        f"peak device memory {torch.cuda.max_memory_allocated()} bytes, flash_attention "
-        f"launches {prefill_launches} ({cfg.n_layers} per prefill) ({card})")
+    prefill_launches = timed_prefills(model, params, tokens, "model", card)
 
     torch.cuda.reset_peak_memory_stats()
     out = serve.main(SERVE_ARGS + ["--seed", str(seed)])
@@ -1049,15 +1059,53 @@ def drive_model(seed: int, card: str, out_dir: Path) -> int:
         f"{torch.cuda.max_memory_allocated()} bytes, flash_attention launches "
         f"+{launches - prefill_launches} (decode attends with the plain gqa_attention) ({card})")
     profile_model(model, params, tokens, out_dir)
-    del model, params, logits, step
+    del model, params, out
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_model(model, params, tokens: torch.Tensor, out_dir: Path) -> None:
+def timed_prefills(model, params, tokens: torch.Tensor, tag: str, card: str) -> int:
+    """PREFILL_RUNS timed prefills of ``tokens`` through ``make_prefill_step``
+    after one warm-up (cuBLAS handles, the kernel library's load), with
+    flash_attention counted from 0: fails unless it launched once per layer
+    a prefill and the logits are finite (B, V). Prints the median wall,
+    tokens/s and peak device memory; returns the launches."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = model.cfg
+    B, S = tokens.shape
+    step = make_prefill_step(model)
+    step(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    walls = []
+    for _ in range(PREFILL_RUNS):
+        t0 = time.perf_counter()
+        logits = step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = fa.launches
+    if launches != PREFILL_RUNS * cfg.n_layers:
+        raise AssertionError(f"{PREFILL_RUNS} prefills launched flash_attention "
+                             f"{launches} times, not {PREFILL_RUNS} x {cfg.n_layers}")
+    if logits.shape != (B, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} are not finite (B, V)")
+    wall = sorted(walls)[len(walls) // 2]
+    log(f"{tag}: prefill {B} x {S} tokens: {wall:.4f} s wall (median of "
+        f"{', '.join(f'{w:.4f}' for w in walls)}), {B * S / wall:.1f} tokens/s, "
+        f"peak device memory {torch.cuda.max_memory_allocated()} bytes, flash_attention "
+        f"launches {launches} ({cfg.n_layers} per prefill) ({card})")
+    return launches
+
+
+def profile_model(model, params, tokens: torch.Tensor, out_dir: Path, name: str = "model") -> None:
     """One prefill and 8 decode steps (from a zero cache of the serve
     phase's length) under ``torch.profiler``: the device's busy share and
-    the costliest kernels of each; traces in ``out_dir``."""
+    the costliest kernels of each; traces in ``out_dir``. For the MoE
+    family, the MoE layer's parts run inside ``record_function`` ranges
+    (``moe_ranges``) and its device time is split by them."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import decode_loop
@@ -1072,59 +1120,305 @@ def profile_model(model, params, tokens: torch.Tensor, out_dir: Path) -> None:
     for label, fn in runs:
         fn()  # warm-up outside the profiler
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        moe = model.cfg.family == "moe"
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+                (moe_ranges() if moe else contextlib.nullcontext()):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        device_busy(prof, out_dir / f"model_{label.split()[0]}_trace.json", wall,
-                    f"profile {label}:")
+        tag = f"profile {label}:" if name == "model" else f"profile {name} {label}:"
+        events = device_busy(prof, out_dir / f"{name}_{label.split()[0]}_trace.json", wall, tag)
+        if moe:
+            moe_breakdown(events, tag)
 
 
-def card_vs_cpu(seed: int) -> None:
-    """The same prefill and one decode step on the card and on the CPU, with
-    the same weights (one seeded CPU generator) and inputs."""
+# ---------------------------------------------------------------- phase 5b
+# olmoe-1b-7b, the MoE family, at full width and depth
+MOE_MODEL = "olmoe_1b_7b"
+MOE_SERVE_ARGS = ["--arch", MOE_MODEL, "--full", "--batch", "4", "--cache-len", "2048",
+                  "--tokens", "32"]
+# card vs CPU of the MoE family (full width, SMALL_LAYERS layers, SMALL_B x
+# SMALL_S tokens): routes to tests/_torch_moe_criteria.py's criteria, logits
+# within the dense check's 8 bf16 ulps, taken at the CPU logits' largest
+# magnitude (the MoE heads give |logit| up to ~5, the dense check's ~0.5)
+MOE_CHECK_ARCHS = ("olmoe_1b_7b", "qwen3_moe_30b_a3b")
+MOE_LOGIT_ULPS = 8
+# moe_layer alone, card vs CPU on the same bf16 inputs: y where the routes
+# agree. cuBLAS sums the expert products in another order than the CPU, so
+# g, u and the expert outputs round to another bf16 at some elements, and a
+# token's 8-term bf16 sum carries that at the scale of its largest term: y
+# within MOE_Y_ULPS bf16 ulps of the token's largest |y| (measured on the
+# CPU, bf16 against f32-accumulated expert products at olmoe's widths:
+# 0.27 % of elements differ, by at most 2.5 such ulps)
+MOE_Y_ULPS = 4
+
+
+def moe_ranges():
+    """While active, the port's MoE layer runs its parts inside
+    ``record_function`` ranges: ``moe`` (the whole ``_moe_tokens``), and
+    inside it ``moe.route`` (``_route``) and ``moe.combine``
+    (``_combine``), which ``moe_breakdown`` reads from the trace."""
+    from torch.profiler import record_function
+
+    from repro_torch.models import layers
+
+    names = {"_moe_tokens": "moe", "_route": "moe.route", "_combine": "moe.combine"}
+    orig = {fn: getattr(layers, fn) for fn in names}
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with record_function(names[fn]):
+                return orig[fn](*a, **kw)
+        return call
+
+    stack = contextlib.ExitStack()
+    for fn in names:
+        setattr(layers, fn, ranged(fn))
+        stack.callback(setattr, layers, fn, orig[fn])
+    return stack
+
+
+def moe_breakdown(events: list, tag: str) -> None:
+    """The device time of a MoE profile split by part: each kernel goes to
+    the innermost ``moe*`` range that was open on the thread that launched
+    it (found by the launch's correlation id), then by kind of kernel."""
+    ranges: dict = {}
+    for ev in events:
+        if ev.get("cat") == "user_annotation" and ev.get("name", "").startswith("moe"):
+            ranges.setdefault(ev.get("tid"), []).append(
+                (ev["ts"], ev["ts"] + ev.get("dur", 0.0), ev["name"]))
+    for spans in ranges.values():
+        spans.sort()
+    launched_in: dict = {}
+    for ev in events:
+        corr = ev.get("args", {}).get("correlation")
+        if ev.get("cat") not in ("cuda_runtime", "cuda_driver") or corr is None:
+            continue
+        spans = ranges.get(ev.get("tid"), [])
+        j = bisect.bisect_right(spans, (ev["ts"], float("inf"), "")) - 1
+        while j >= 0:  # the latest-starting range that still holds the launch
+            start, end, name = spans[j]
+            if end >= ev["ts"]:
+                launched_in[corr] = name
+                break
+            if name == "moe":  # a whole layer that ended before: nothing earlier holds it
+                break
+            j -= 1
+    parts: dict[str, float] = {}
+    for ev in events:
+        cat = ev.get("cat", "")
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        kind = _kind(ev["name"]) if cat == "kernel" else cat
+        where = launched_in.get(ev.get("args", {}).get("correlation"))
+        if kind == "flash_attention":
+            part = "flash_attention"
+        elif where == "moe.route":
+            part = "MoE routing (router GEMM, softmax, top-k sort, argsort, searchsorted)"
+        elif where == "moe.combine":
+            part = "MoE combine (sort by token, gather, ordered bf16 adds)"
+        elif where == "moe" and kind == "cuBLAS GEMM":
+            part = "MoE expert GEMMs"
+        elif where == "moe":
+            part = "MoE dispatch (buffer scatter, output gather, gate scale) and silu"
+        else:
+            part = f"outside the MoE layer: {kind}"
+        parts[part] = parts.get(part, 0.0) + ev.get("dur", 0.0) * 1e-6
+    total = sum(parts.values())
+    if not any(p.startswith("MoE") for p in parts):
+        log(f"{tag} MoE split: no kernel was launched inside a moe range (the trace holds "
+            f"{sum(len(v) for v in ranges.values())} of them)")
+    for part, sec in sorted(parts.items(), key=lambda kv: -kv[1]):
+        log(f"{tag} MoE split {sec:.6f} s ({100 * sec / total:.2f} % of busy): {part}")
+
+
+def drive_moe(seed: int, card: str, out_dir: Path) -> int:
+    """olmoe-1b-7b at full width and depth: the serve CLI (greedy decode
+    of ``MOE_SERVE_ARGS``), then, with its model and weights,
+    PREFILL_RUNS timed prefills of PREFILL_B x PREFILL_S tokens after a
+    warm-up (flash_attention counted from 0: one launch per layer), the
+    share of assignments dropped at capacity in the first and last layer of
+    one prefill (the port's own routes, recorded), and a profile of both.
+    Returns the flash_attention launches of the prefills and the decode."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_moe_criteria as mc
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve
+    from repro_torch.train.steps import make_prefill_step
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    out = serve.main(MOE_SERVE_ARGS + ["--seed", str(seed)])
+    serve_wall = time.perf_counter() - t0
+    decode_launches = fa.launches
+    model, params = out.pop("model"), out.pop("params")
+    cfg = model.cfg
+    if not out["finite"] or out["tokens"].shape != (4, 32):
+        raise AssertionError(f"serve: logits finite {out['finite']}, tokens {out['tokens'].shape}")
+    log(f"moe: {cfg.name} {model.n_params()} parameters, {model.n_active_params()} active per "
+        f"token, {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, "
+        f"hd {cfg.hd}, {cfg.moe_experts} experts top-{cfg.moe_top_k} of d_ff {cfg.moe_d_ff}, "
+        f"capacity factor {cfg.capacity_factor}, vocab {cfg.vocab}; random weights (seed {seed})")
+    log(f"moe: serve {' '.join(MOE_SERVE_ARGS)}: {out['seconds']:.4f} s after a "
+        f"{out['warmup_seconds']:.4f} s warm-up step, {out['tokens'].size / out['seconds']:.1f} "
+        f"tokens/s, {1e3 * out['seconds'] / 32:.3f} ms per step, peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes, flash_attention launches {decode_launches}; "
+        f"{serve_wall:.3f} s for the whole CLI, the weights' draw on the host included ({card})")
+
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
+    prefill_launches = timed_prefills(model, params, tokens, "moe", card)
+    with mc.RouteLog() as routes:
+        make_prefill_step(model)(params, {"tokens": tokens})
+    if len(routes.calls) != cfg.n_layers:
+        raise AssertionError(f"one prefill routed {len(routes.calls)} layers of {cfg.n_layers}")
+    T = PREFILL_B * PREFILL_S
+    from repro_torch.models.layers import _capacity
+
+    C = _capacity(T, cfg.moe_top_k, cfg.moe_experts, cfg.capacity_factor)
+    for i in (0, cfg.n_layers - 1):
+        r = routes.calls[i]
+        n, kept = int(r["routed"].sum()), int(r["kept"].sum())
+        load = r["routed"].sum(0)
+        log(f"moe: prefill layer {i}: {n - kept} of {n} (token, expert) assignments dropped at "
+            f"capacity C={C} ({100 * (n - kept) / n:.3f} %); tokens per expert min {load.min()} "
+            f"max {load.max()} (mean {n / cfg.moe_experts:.1f}); {int((load > C).sum())} experts "
+            f"over capacity")
+    profile_model(model, params, tokens, out_dir, name="olmoe")
+    del model, params, out
+    torch.cuda.empty_cache()
+    return prefill_launches + decode_launches
+
+
+def card_vs_cpu(seed: int, arch: str = MODEL) -> None:
+    """The prefill (last-position logits, every position's greedy token)
+    and one decode step (from one random cache) of ``arch`` at full width
+    and SMALL_LAYERS layers, SMALL_B x SMALL_S tokens, on the card and on
+    the CPU from the same weights (one draw of one seeded CPU generator).
+    Logits agree within SMALL_ATOL and greedy tokens at SMALL_ARGMAX_SHARE
+    of all positions. For the MoE family each layer's routes are recorded
+    and held to the criteria of ``tests/_torch_moe_criteria.py``
+    (ROUTE_DELTA); the logits are held, within MOE_LOGIT_ULPS bf16 ulps of
+    the largest |logit|, at the sequences whose routes agreed in every
+    layer. Every flip is counted and printed."""
     import dataclasses
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_moe_criteria as mc
 
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import build_model
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
-    cfg = dataclasses.replace(get_arch(MODEL), n_layers=SMALL_LAYERS)
+    cfg = dataclasses.replace(get_arch(arch), n_layers=SMALL_LAYERS)
+    moe = cfg.family == "moe"
     rng = np.random.default_rng(seed + 2)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (SMALL_B, SMALL_S), dtype=np.int32))
     cache_shape = (SMALL_LAYERS, SMALL_B, SMALL_S, cfg.n_kv_heads, cfg.hd)
     cache_np = {name: rng.standard_normal(cache_shape, dtype=np.float32) for name in ("k", "v")}
     cur = SMALL_S // 2
+    weights = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(seed))
     seen = {}
     for where in ("cuda", "cpu"):
         model = build_model(cfg, device=where)
         dev = model.device
-        params = model.load_params(model.init_params(torch.Generator().manual_seed(seed)))
-        last = make_prefill_step(model)(params, {"tokens": tokens.to(dev)})
+        params = model.load_params(weights)
+        with mc.RouteLog() as pre:
+            last = make_prefill_step(model)(params, {"tokens": tokens.to(dev)})
         positions = torch.arange(SMALL_S, device=dev)[None].expand(SMALL_B, SMALL_S)
-        h = model._run_decoder_stack(params, params["embed"][tokens.to(dev)].bfloat16(),
-                                     positions=positions)
-        greedy = model._head(params, h).argmax(dim=-1)  # every position's greedy token
+        with torch.no_grad():
+            h = model._run_decoder_stack(params, params["embed"][tokens.to(dev)].bfloat16(),
+                                         positions=positions)
+            greedy = model._head(params, h).argmax(dim=-1)  # every position's greedy token
         cache = {name: torch.from_numpy(a).to(dev, torch.bfloat16) for name, a in cache_np.items()}
-        step_logits, _ = make_serve_step(model)(params, cache, {"token": tokens[:, cur].to(dev),
-                                                                "cur_len": cur})
-        seen[where] = (last.cpu(), greedy.cpu(), step_logits.cpu())
+        with mc.RouteLog() as dec:
+            step_logits, _ = make_serve_step(model)(params, cache, {"token": tokens[:, cur].to(dev),
+                                                                    "cur_len": cur})
+        seen[where] = (last.cpu(), greedy.cpu(), step_logits.cpu(), pre.calls, dec.calls)
         del model, params, h, cache
-    for label, i in (("prefill last-position logits", 0), ("decode-step logits", 2)):
-        a, b = seen["cuda"][i], seen["cpu"][i]
-        err = float((a - b).abs().max())
-        if not torch.isfinite(a).all() or not err <= SMALL_ATOL:
-            raise AssertionError(f"card vs CPU {label}: max |diff| {err} > {SMALL_ATOL}")
-        log(f"card vs CPU: {label} {tuple(a.shape)}: max |diff| {err:.3e} (tolerance "
-            f"{SMALL_ATOL:.3e}, max |logit| {float(b.abs().max()):.3e}), greedy tokens agree "
-            f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{a.shape[0]}")
-    share = float((seen["cuda"][1] == seen["cpu"][1]).float().mean())
+    del weights
+    card, cpu = seen["cuda"], seen["cpu"]
+    tag = "card vs CPU" if not moe else f"moe card vs CPU: {cfg.name} full width, {SMALL_LAYERS} layers"
+    for label, i, li in (("prefill last-position logits", 0, 3), ("decode-step logits", 2, 4)):
+        a, b = card[i], cpu[i]
+        rows, tol, note = list(range(SMALL_B)), SMALL_ATOL, ""
+        if moe:
+            res = mc.compare_routes(card[li], cpu[li], cfg.moe_top_k, SMALL_B)
+            for n, lay in enumerate(res["layers"]):
+                log(f"{tag}: {label.split()[0]} layer {n} routes ({cpu[li][n]['probs'].shape[0]} "
+                    f"tokens, delta {mc.ROUTE_DELTA}): {lay['near_ties']} tokens below delta, "
+                    f"{lay['flips_below_delta']} expert sets differ there, "
+                    f"{lay['flips_after_upstream_flip']} differ after a flip upstream, "
+                    f"{lay['drop_changes']} drop changes, least margin {lay['min_margin']:.3e}")
+            rows = res["seqs"]
+            tol = MOE_LOGIT_ULPS * float(mc.bf16_ulp(float(b.abs().max())))
+            note = (f"; routes agree in every layer at sequences {rows} of {SMALL_B}, where it is "
+                    f"held; at every sequence, flips included and not held, "
+                    f"{float((a - b).abs().max()):.3e}; largest margin shift {res['max_shift']:.3e}")
+        err = float((a[rows] - b[rows]).abs().max()) if rows else float("nan")
+        if not torch.isfinite(a).all() or (rows and not err <= tol):
+            raise AssertionError(f"{tag} {label}: max |diff| {err} > {tol} at sequences {rows}")
+        log(f"{tag}: {label} {tuple(a.shape)}: max |diff| {err:.3e} (tolerance {tol:.3e}, max "
+            f"|logit| {float(b.abs().max()):.3e}), greedy tokens agree "
+            f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{a.shape[0]}{note}")
+    share = float((card[1] == cpu[1]).float().mean())
     if share < SMALL_ARGMAX_SHARE:
-        raise AssertionError(f"card vs CPU: greedy tokens agree at {share} of positions "
+        raise AssertionError(f"{tag}: greedy tokens agree at {share} of positions "
                              f"< {SMALL_ARGMAX_SHARE}")
-    log(f"card vs CPU: {cfg.name} full width, {SMALL_LAYERS} layers, {SMALL_B} x {SMALL_S} tokens: "
-        f"greedy tokens agree at {share:.4f} of all positions (required {SMALL_ARGMAX_SHARE})")
+    log(f"{tag if moe else f'card vs CPU: {cfg.name} full width, {SMALL_LAYERS} layers'}, "
+        f"{SMALL_B} x {SMALL_S} tokens: greedy tokens agree at {share:.4f} of all positions "
+        f"(required {SMALL_ARGMAX_SHARE})")
+
+
+def moe_layer_card_vs_cpu(seed: int, card: str) -> None:
+    """``moe_layer`` alone at olmoe-1b-7b's widths and one prefill's tokens
+    (T = PREFILL_B x PREFILL_S), on identical bf16 inputs on the card and
+    on the CPU: the route criteria (one layer, ROUTE_DELTA), and y within
+    MOE_Y_ULPS bf16 ulps of each token's largest |y| at the tokens whose
+    routes agree, with the share of elements equal bit for bit printed."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_moe_criteria as mc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import _capacity, dense_init, moe_layer
+
+    cfg = get_arch(MOE_MODEL)
+    T, D, E, F, K = (PREFILL_B * PREFILL_S, cfg.d_model, cfg.moe_experts, cfg.moe_d_ff,
+                     cfg.moe_top_k)
+    g = torch.Generator().manual_seed(seed + 5)
+    bf = torch.bfloat16
+    x = torch.randn((1, T, D), generator=g).to(bf)
+    ws = [dense_init(g, (D, E), bf), dense_init(g, (E, D, F), bf), dense_init(g, (E, D, F), bf),
+          dense_init(g, (E, F, D), bf)]
+    seen = {}
+    for where in ("cuda", "cpu"):
+        with mc.RouteLog() as log_:
+            y, aux = moe_layer(x.to(where), *(w.to(where) for w in ws), top_k=K,
+                               capacity_factor=cfg.capacity_factor)
+        seen[where] = (y[0].float().cpu().numpy(), float(aux), log_.calls)
+    (yc, auxc, rc), (yh, auxh, rh) = seen["cuda"], seen["cpu"]
+    res = mc.compare_routes(rc, rh, K, 1)
+    lay = res["layers"][0]
+    agree = res["agree"]
+    d = np.abs(yc[agree] - yh[agree])
+    row_ulp = mc.bf16_ulp(np.abs(yh[agree]).max(-1, keepdims=True))
+    worst = float((d / row_ulp).max()) if d.size else 0.0
+    own = float((d <= mc.bf16_ulp(yh[agree])).mean()) if d.size else 1.0
+    C = _capacity(T, K, E, cfg.capacity_factor)
+    log(f"moe_layer card vs CPU: T={T} D={D} E={E} K={K} F={F} C={C}, bf16: {lay['near_ties']} "
+        f"tokens below delta {mc.ROUTE_DELTA}, {lay['flips_below_delta']} expert sets differ "
+        f"there, {lay['drop_changes']} drop changes, largest margin shift "
+        f"{res['max_shift']:.3e}; y at the {int(agree.sum())} tokens whose routes agree: "
+        f"{100 * float((d == 0).mean()):.4f} % of elements equal bit for bit, the rest within "
+        f"{worst:.3f} bf16 ulps of the token's largest |y| (tolerance {MOE_Y_ULPS}); "
+        f"{100 * own:.4f} % within 1 bf16 ulp of their own |y|; aux "
+        f"{auxc!r} on the card, {auxh!r} on the CPU ({card})")
+    if not np.isfinite(yc).all() or worst > MOE_Y_ULPS:
+        raise AssertionError(f"moe_layer card vs CPU: y differs by {worst} ulps > {MOE_Y_ULPS}")
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1507,6 +1801,10 @@ def main() -> int:
         f"blocks, the model at full width and depth; training {MODEL} at B={TRAIN_B} x "
         f"S={TRAIN_S}, AdamW lr {TRAIN_LR}, checkpoints on the same store configuration; "
         f"cuts: none")
+    log(f"config: serving {MODEL} and {MOE_MODEL} at full width and depth, prefill "
+        f"{PREFILL_B} x {PREFILL_S}, decode batch 4 against a 2048 cache; card vs CPU for "
+        f"{MODEL}, {', '.join(MOE_CHECK_ARCHS)} at full width, {SMALL_LAYERS} layers (cut from "
+        f"the depth), {SMALL_B} x {SMALL_S} tokens")
     # phase 2
     build(args.out)
     # phase 3
@@ -1551,6 +1849,13 @@ def main() -> int:
     counts["flash_attention"] = drive_model(args.seed, card, args.out)
     torch.cuda.empty_cache()
     card_vs_cpu(args.seed)
+    # phase 5b: the MoE family, flash_attention counted from zero inside drive_moe
+    counts["flash_attention"] += drive_moe(args.seed, card, args.out)
+    torch.cuda.empty_cache()
+    for arch in MOE_CHECK_ARCHS:
+        card_vs_cpu(args.seed, arch)
+    moe_layer_card_vs_cpu(args.seed, card)
+    torch.cuda.empty_cache()
     # phase 6: the store's users, each path counted from zero inside counted_phase
     worst = {"gf256_matmul": 0, "cdc_gearhash": 0}
     check_ycsb_shapes(args.seed, card, worst)

@@ -2,9 +2,11 @@
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b --full \
         --batch 4 --cache-len 2048 --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b --full \
+        --batch 4 --cache-len 2048 --tokens 32
 
-Runs on the GPU unless ``--device cpu`` is given; weights are random, from
-``torch.Generator().manual_seed(--seed)``.
+Serves the dense and MoE families. Runs on the GPU unless ``--device cpu``
+is given; weights are random, from ``torch.Generator().manual_seed(--seed)``.
 """
 from __future__ import annotations
 
@@ -41,6 +43,9 @@ def decode_loop(model: LM, params: Params, cache: dict, batch: dict, tokens: int
 
 
 def main(argv=None) -> dict:
+    """Runs the CLI; returns the greedy tokens, the decode's wall seconds, the
+    warm-up step's, whether every logit was finite, and the model and its
+    weights (for a caller that goes on with them)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="qwen2_0_5b")
     ap.add_argument("--batch", type=int, default=4)
@@ -76,7 +81,8 @@ def main(argv=None) -> dict:
           f"({args.tokens * B / dt:.1f} tok/s on {where}, "
           f"{'full' if args.full else 'reduced'} config, cache {S}; warm-up step {warm:.3f}s)")
     print("[serve] sample:", toks[0][:16].tolist())
-    return {"tokens": toks, "seconds": dt, "warmup_seconds": warm, "finite": finite}
+    return {"tokens": toks, "seconds": dt, "warmup_seconds": warm, "finite": finite,
+            "model": model, "params": params}
 
 
 if __name__ == "__main__":

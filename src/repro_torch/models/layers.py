@@ -1,13 +1,16 @@
-"""Layer library of the dense LM family: norms, RoPE, GQA attention, MLP.
+"""Layer library of the dense and MoE LM families: norms, RoPE, GQA
+attention, MLP, top-k MoE.
 
 Plain PyTorch copies of the reference's ``repro.models.layers``, with its
 conventions: activations bf16, reductions, softmax and norms in f32. Weight
 trees are nested dicts of tensors; stacked-layer weights carry a leading L
-axis. ``mrope_cos_sin``, ``gelu_mlp`` and ``moe_layer`` are not ported yet.
+axis. ``mrope_cos_sin`` and ``gelu_mlp`` are not ported yet, nor
+``moe_layer``'s expert-parallel branch (ROADMAP A3).
 """
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -132,6 +135,133 @@ def swiglu_mlp(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
     u = x @ wi_up
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return h @ wo
+
+
+# ------------------------------------------------------------------ MoE
+class Route(NamedTuple):
+    """One block of tokens' routing (``_route``): T tokens, E experts, top K,
+    capacity C. The T*K (token, choice) assignments are sorted by expert,
+    stably; ``se``, ``st``, ``sw`` are the sorted assignments' expert,
+    token and renormalised gate; ``slot`` is each one's row of the
+    (E*C + 1)-row buffer, the last row (E*C) the drop bin, and ``keep``
+    says which fit under the capacity."""
+    probs: torch.Tensor      # (T, E) f32 router softmax
+    se: torch.Tensor         # (T*K,) int64
+    st: torch.Tensor         # (T*K,) int64
+    sw: torch.Tensor         # (T*K,) f32
+    slot: torch.Tensor       # (T*K,) int64
+    keep: torch.Tensor       # (T*K,) bool
+    me: torch.Tensor         # (E,) f32 mean router probability
+    ce: torch.Tensor         # (E,) f32 share of the assignments
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k`` over the last axis: the k largest, in descending
+    order, equal values lower index first. A stable descending sort gives
+    that order on every device; ``torch.topk`` does not promise it."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _route(xt: torch.Tensor, wr: torch.Tensor, *, top_k: int, capacity: int) -> Route:
+    """The reference's sort-based routing of a flat token block xt (T, D)
+    over wr (D, E): f32 router logits and softmax, top-k, the gates
+    renormalised (``+ 1e-9``), a stable sort of the assignments by expert,
+    each group's start by ``searchsorted``, and capacity C per expert
+    (``pos < C``; the rest go to the drop bin E*C). Every step is a sort, a
+    gather or elementwise: nothing depends on the order of an atomic."""
+    T = xt.shape[0]
+    E = wr.shape[1]
+    C = capacity
+    logits = xt.float() @ wr.float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = _top_k(probs, top_k)
+    gate_vals = gate_vals / (gate_vals.sum(-1, keepdim=True) + 1e-9)
+    me = probs.mean(dim=0)
+    flat_e = gate_idx.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    se = flat_e[order]
+    st = order // top_k                 # the token of flat assignment t*K + k
+    sw = gate_vals.reshape(-1)[order]
+    bounds = torch.searchsorted(se, torch.arange(E + 1, dtype=se.dtype, device=se.device),
+                                side="left")
+    # each expert's assignments, a count: the reference's scatter-add of
+    # ones, exact in f32 either way
+    ce = (bounds[1:] - bounds[:-1]).float() / (T * top_k)
+    pos = torch.arange(T * top_k, device=se.device) - bounds[se]
+    keep = pos < C
+    slot = torch.where(keep, se * C + pos, E * C)
+    return Route(probs, se, st, sw, slot, keep, me, ce)
+
+
+def _combine(contrib: torch.Tensor, token: torch.Tensor, expert: torch.Tensor, T: int,
+             E: int) -> torch.Tensor:
+    """y (T, D): each token's K contributions (rows of ``contrib``, with
+    their ``token`` and ``expert``) added in its dtype one at a time, in
+    ascending expert order, from zero. These are the reference's roundings:
+    its scatter-add ``zeros.at[st].add(contrib)`` over the expert-sorted
+    assignments adds a token's contributions in that order. The rows are
+    first put in (token, expert) order by a sort of unique keys, so the
+    result does not depend on the order of the rows, and nothing is summed
+    by atomics (``index_add_`` on the card adds bf16 in no fixed order)."""
+    D = contrib.shape[1]
+    idx = torch.argsort(token * E + expert)
+    parts = contrib[idx].reshape(T, -1, D)
+    y = torch.zeros((T, D), dtype=contrib.dtype, device=contrib.device)
+    for k in range(parts.shape[1]):
+        y = y + parts[:, k]
+    return y
+
+
+def _moe_tokens(xt: torch.Tensor, wr: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+                w_down: torch.Tensor, *, top_k: int,
+                capacity: int) -> tuple[torch.Tensor, tuple[torch.Tensor, torch.Tensor]]:
+    """The reference's ``_moe_tokens``: sort-based dispatch over a flat token
+    block xt (T, D) bf16. Routes (``_route``), copies each kept assignment's
+    token into its row of an (E, C, D) buffer, runs the three expert
+    products as batched matmuls over E (silu in f32, cast back), gathers
+    each assignment's output row (the drop bin's is zero), scales it by its
+    gate in bf16 and adds each token's contributions (``_combine``).
+    Returns (y (T, D), (me, ce)) for the auxiliary loss."""
+    T, D = xt.shape
+    E = wr.shape[1]
+    C = capacity
+    r = _route(xt, wr, top_k=top_k, capacity=C)
+    buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+    buf[r.slot] = xt[r.st]   # rows are unique but for the drop bin, which is discarded
+    buf = buf[:-1].reshape(E, C, D)
+    g = torch.bmm(buf, w_gate)
+    u = torch.bmm(buf, w_up)
+    h = torch.nn.functional.silu(g.float()).to(xt.dtype) * u
+    yb = torch.bmm(h, w_down)
+    ybf = torch.cat([yb.reshape(E * C, D), yb.new_zeros((1, D))])
+    contrib = ybf[r.slot] * r.sw[:, None].to(xt.dtype)
+    contrib = torch.where(r.keep[:, None], contrib, 0)
+    return _combine(contrib, r.st, r.se, T, E), (r.me, r.ce)
+
+
+def _capacity(T: int, top_k: int, E: int, cf: float) -> int:
+    """Slots per expert: ceil(T*K/E * cf), rounded up to a multiple of 8,
+    at least 8 (the reference's ``_capacity``)."""
+    C = int(math.ceil(T * top_k / E * cf))
+    return max(8, -(-C // 8) * 8)
+
+
+def moe_layer(x: torch.Tensor, wr: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+              w_down: torch.Tensor, *, top_k: int,
+              capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Top-k MoE with capacity and dropping (GShard-style), the reference's
+    whole-array ``moe_layer``: x (B, S, D); wr (D, E); w_gate/w_up (E, D,
+    F); w_down (E, F, D). Returns (y (B, S, D), aux = E * sum(me * ce)).
+    The expert-parallel branch (``shard_map`` with all_to_all over the
+    model axis) belongs to the mesh layer (ROADMAP A3): this takes no
+    mesh."""
+    B, S, D = x.shape
+    E = wr.shape[1]
+    C = _capacity(B * S, top_k, E, capacity_factor)
+    y, (me, ce) = _moe_tokens(x.reshape(B * S, D), wr, w_gate, w_up, w_down, top_k=top_k,
+                              capacity=C)
+    return y.reshape(B, S, D), E * torch.sum(me * ce)
 
 
 # ----------------------------------------------------------- init helpers

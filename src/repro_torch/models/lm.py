@@ -1,9 +1,14 @@
-"""The LM of the dense family (pre-norm GQA attention + SwiGLU MLP).
+"""The LM of the dense and MoE families (pre-norm GQA attention, then a
+SwiGLU MLP or a top-k mixture of SwiGLU experts).
 
 The port of the reference's ``repro.models.lm.LM`` for ``family="dense"``,
 with the options its dense block carries: QKV bias (qwen2), qk-norm
 (qwen3), sliding-window layers with a global layer every
-``global_every`` (gemma3) and partial RoPE (chatglm3).
+``global_every`` (gemma3) and partial RoPE (chatglm3); and for
+``family="moe"`` (olmoe, qwen3-moe), whose block swaps the MLP for
+``moe_layer`` (sort-based top-k dispatch with capacity drops). Serving
+drops the MoE layers' auxiliary loss, as the reference's does; the MoE
+training loss (which adds it) is not ported yet (ROADMAP A2).
 
 Parameters are a nested dict of tensors with the reference's names and
 shapes, stacked layers included (leading L axis); every method takes them
@@ -37,6 +42,7 @@ from repro_torch.models.layers import (
     dense_init,
     dt,
     gqa_attention,
+    moe_layer,
     rms_norm,
     rope_cos_sin,
     swiglu_mlp,
@@ -46,7 +52,6 @@ from repro_torch.tree import named_leaves
 Params = dict[str, Any]  # name -> tensor, or name -> dict of stacked-layer tensors
 
 _NOT_PORTED = {
-    "moe": "the MoE family waits for moe_layer (ROADMAP A2)",
     "ssm": "the SSM family waits for models/ssd.py (ROADMAP A2)",
     "hybrid": "the hybrid family waits for models/ssd.py (ROADMAP A2)",
     "encdec": "the encoder-decoder family waits for its stack and gelu_mlp (ROADMAP A2)",
@@ -57,7 +62,7 @@ _NOT_PORTED = {
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, max_pos: int = 4096, device: str = "cuda"):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: {_NOT_PORTED.get(cfg.family, f'unknown family {cfg.family!r}')}")
         self.cfg = cfg
@@ -67,15 +72,22 @@ class LM(nn.Module):
     # ------------------------------------------------------------- template
     def param_template(self) -> dict:
         """Nested dict of (shape, dtype), the reference's tree for the dense
-        family."""
+        and MoE families: a MoE block has the router ``wr`` (L, D, E) and
+        the experts ``w_gate``/``w_up`` (L, E, D, F) and ``w_down``
+        (L, E, F, D) in place of ``wg``/``wu``/``wd``."""
         cfg = self.cfg
         bf, f32 = dt(cfg), torch.float32
         L, D, H, KV, hd, F = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                               cfg.hd, cfg.d_ff)
         blk = {"wq": ((L, D, H, hd), bf), "wk": ((L, D, KV, hd), bf),
                "wv": ((L, D, KV, hd), bf), "wo": ((L, H, hd, D), bf),
-               "ln1": ((L, D), f32), "ln2": ((L, D), f32),
-               "wg": ((L, D, F), bf), "wu": ((L, D, F), bf), "wd": ((L, F, D), bf)}
+               "ln1": ((L, D), f32), "ln2": ((L, D), f32)}
+        if cfg.family == "moe":
+            E, Fe = cfg.moe_experts, cfg.moe_d_ff
+            blk.update({"wr": ((L, D, E), bf), "w_gate": ((L, E, D, Fe), bf),
+                        "w_up": ((L, E, D, Fe), bf), "w_down": ((L, E, Fe, D), bf)})
+        else:
+            blk.update({"wg": ((L, D, F), bf), "wu": ((L, D, F), bf), "wd": ((L, F, D), bf)})
         if cfg.qkv_bias:
             blk.update({"bq": ((L, H, hd), bf), "bk": ((L, KV, hd), bf),
                         "bv": ((L, KV, hd), bf)})
@@ -88,6 +100,16 @@ class LM(nn.Module):
 
     def n_params(self) -> int:
         return sum(math.prod(shape) for _, (shape, _) in named_leaves(self.param_template()))
+
+    def n_active_params(self) -> int:
+        """Parameters a token runs through: for MoE, top_k of the E experts."""
+        cfg = self.cfg
+        total = self.n_params()
+        if cfg.family != "moe":
+            return total
+        blk = self.param_template()["layers"]
+        expert = sum(math.prod(blk[k][0]) for k in ("w_gate", "w_up", "w_down"))
+        return total - expert + expert // cfg.moe_experts * cfg.moe_top_k
 
     def init_params(self, generator: torch.Generator) -> Params:
         """Random parameters by the reference's rule: zeros for 1-D leaves
@@ -179,8 +201,17 @@ class LM(nn.Module):
         cfg = self.cfg
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
         h = h + self._attn(lp, x, cos=cos, sin=sin, window=window, train_pos=train_pos)
-        x2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
-        return h + swiglu_mlp(x2, lp["wg"], lp["wu"], lp["wd"])
+        return h + self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+
+    def _mlp(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
+        """The block's MLP: SwiGLU, or for MoE ``moe_layer``, whose auxiliary
+        loss serving drops (as the reference's prefill and decode do)."""
+        cfg = self.cfg
+        if cfg.family == "moe":
+            y, _aux = moe_layer(x, lp["wr"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                                top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
+            return y
+        return swiglu_mlp(x, lp["wg"], lp["wu"], lp["wd"])
 
     def _run_decoder_stack(self, params: Params, h: torch.Tensor, *,
                            positions: torch.Tensor, train: bool = False) -> torch.Tensor:
@@ -219,7 +250,14 @@ class LM(nn.Module):
         of the catalog, as in the reference. A ``dtype="float32"``
         configuration thus computes the whole step in f32 (the reference
         keeps both in bf16 there), which makes it a precise witness of a
-        bf16 step from the same weights."""
+        bf16 step from the same weights.
+
+        The MoE family's loss (the reference's adds ``0.01 * aux`` and
+        differentiates through the dispatch) is not ported yet: it raises."""
+        if self.cfg.family == "moe":
+            raise NotImplementedError(
+                f"{self.cfg.name}: the MoE training loss (its aux term and the backward of "
+                "the dispatch) waits for its own slice (ROADMAP A2)")
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = params["embed"][tokens].to(dt(self.cfg))
@@ -287,6 +325,5 @@ class LM(nn.Module):
             x = rms_norm(h, lp["ln1"], cfg.norm_eps)
             h = h + self._decode_attn(lp, x, cache["k"][i], cache["v"][i], cur, window=window,
                                       pos1=pos1, cos=cos, sin=sin)
-            x2 = rms_norm(h, lp["ln2"], cfg.norm_eps)
-            h = h + swiglu_mlp(x2, lp["wg"], lp["wu"], lp["wd"])
+            h = h + self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
         return h

@@ -193,6 +193,7 @@ FLASH_CASES = [
     (2, 4, 2, 333, 333, 16, False, 0, torch.bfloat16),   # hd 16 under GQA
     (1, 4, 2, 100, 700, 256, True, 0, torch.bfloat16),   # hd 256 under GQA, Sq < Sk
     (1, 4, 1, 700, 700, 256, False, 300, torch.bfloat16),
+    (4, 16, 16, 2048, 2048, 128, True, 0, torch.bfloat16),  # olmoe-1b-7b's prefill
 ]
 
 
@@ -459,3 +460,69 @@ def test_explorer_selftest_on_the_card(cuda, tmp_path):
         env=dict(os.environ, PYTHONPATH=str(src)), capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stdout + out.stderr
     assert out.stdout.count("[selftest] ok:") == 4
+
+
+@pytest.mark.cuda
+def test_moe_layer_on_the_card_matches_the_cpu(cuda):
+    """``moe_layer`` on identical bf16 inputs (T=2048, D=256, 32 experts,
+    top-8, capacity factor 1.0: 341 assignments drop) on the card and the
+    CPU: routes to ``_torch_moe_criteria``; y, where they agree, within 4
+    bf16 ulps of each token's largest |y| (cuBLAS sums the expert products
+    in another order), with most elements equal bit for bit."""
+    import math
+
+    from repro_torch.models.layers import moe_layer
+
+    from _torch_moe_criteria import RouteLog, bf16_ulp, compare_routes
+
+    T, D, E, K, F = 2048, 256, 32, 8, 128
+    g = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    x = torch.randn((1, T, D), generator=g).to(bf)
+    ws = [(torch.randn(shape, generator=g) / math.sqrt(shape[-2])).to(bf)
+          for shape in ((D, E), (E, D, F), (E, D, F), (E, F, D))]
+    seen = {}
+    for dev in ("cuda", "cpu"):
+        with RouteLog() as routes:
+            y, aux = moe_layer(x.to(dev), *(w.to(dev) for w in ws), top_k=K, capacity_factor=1.0)
+        seen[dev] = (y[0].float().cpu().numpy(), float(aux), routes.calls)
+    res = compare_routes(seen["cuda"][2], seen["cpu"][2], K, 1)
+    assert int((~seen["cpu"][2][0]["kept"] & seen["cpu"][2][0]["routed"]).sum()) > 0
+    agree = res["agree"]
+    yc, yh = seen["cuda"][0][agree], seen["cpu"][0][agree]
+    d = np.abs(yc - yh)
+    assert (d <= 4 * bf16_ulp(np.abs(yh).max(-1, keepdims=True))).all()
+    assert (d == 0).mean() > 0.9
+    assert abs(seen["cuda"][1] - seen["cpu"][1]) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["olmoe_1b_7b", "qwen3_moe_30b_a3b"])
+def test_moe_prefill_on_the_card_matches_the_cpu(cuda, arch):
+    """The MoE prefill on the card against the CPU, reduced config, same
+    weights and tokens: routes to ``_torch_moe_criteria``, logits within 4
+    bf16 ulps at |logit| < 4 at the sequences whose routes agree in every
+    layer, one flash launch per layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_prefill_step
+
+    from _torch_moe_criteria import RouteLog, compare_routes
+
+    cfg = get_arch(arch).reduced()
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 96)))
+    weights = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    seen = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        params = model.load_params(weights)
+        before = fa_ops.launches
+        with RouteLog() as routes:
+            logits = make_prefill_step(model)(params, {"tokens": tokens.to(dev)}).cpu()
+        assert fa_ops.launches - before == (cfg.n_layers if dev == "cuda" else 0)
+        seen[dev] = (logits, routes.calls)
+    assert torch.isfinite(seen["cuda"][0]).all()
+    rows = compare_routes(seen["cuda"][1], seen["cpu"][1], cfg.moe_top_k, 2)["seqs"]
+    assert rows
+    torch.testing.assert_close(seen["cuda"][0][rows], seen["cpu"][0][rows], rtol=0,
+                               atol=4 * 2.0**-6)
