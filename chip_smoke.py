@@ -42,6 +42,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    2 x 256 tokens (routes agree above a router-logit margin, logits
    within 8 bf16 ulps where they do, greedy tokens >= 90 %), and
    ``moe_layer`` alone at olmoe's widths and 8192 tokens;
+5c. SSM and hybrid serving: mamba2-2.7b and zamba2-7b at full width and
+   depth, one at a time (random weights from the seed): ``repro_torch.launch.
+   serve --arch <arch> --full --batch 4 --cache-len 2048 --tokens 32``, then
+   3 timed prefills of 4 x 2048 tokens (zamba2: one flash-attention launch
+   per group, hd 112; mamba2: none), peak device memory, the cache's bytes,
+   and a profile split by the Mamba2 mixer's parts (the SSD's intra-chunk
+   term and chunk states, the causal conv, GEMMs, elementwise; zamba2's
+   shared block and flash) with the device operations of a decode step.
+   Card against CPU at full width, 2 x 256 tokens, mamba2 at 2 layers and
+   zamba2 at 7 (one group, the shared block, a trailing layer): prefill and
+   4 decode steps' logits within 8 bf16 ulps, greedy tokens >= 90 %, each
+   layer's SSM state within 8 bf16 ulps, each held where the CPU meets it
+   against its own 1-ulp jitter; zamba2 in bf16 does not (its random
+   shared attention is near-argmax), and is held in f32 instead;
 6. the store's users, each path with the kernels' counts set to 0 before it
    and read after it, under ``torch.profiler`` (wall time, launches, the
    device's busy share), on the same Emulab deployment and blocks:
@@ -99,6 +113,7 @@ import argparse
 import bisect
 import contextlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -329,6 +344,9 @@ FLASH_CASES = (
     ("path", PREFILL_B, 14, 2, PREFILL_S, PREFILL_S, 64, True, 0, torch.bfloat16, 1.0),
     # olmoe-1b-7b's prefill (phase 5b): hd 128, the two-consumer-warpgroup form
     ("olmoe path", PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 128, True, 0, torch.bfloat16, 1.0),
+    # zamba2-7b's prefill (phase 5c): hd 112, padded to two 64-column chunks on the card
+    ("zamba2 path", PREFILL_B, 32, 32, PREFILL_S, PREFILL_S, 112, True, 0, torch.bfloat16, 1.0),
+    ("f32 hd 112 Sq<Sk GQA", 2, 8, 2, 320, 1111, 112, True, 0, torch.float32, 1.0),
     ("sliding window", 1, 4, 1, 2048, 2048, 256, True, 512, torch.bfloat16, 1.0),
     ("f32 Sq<Sk top-left causal", 2, 4, 2, 320, 1111, 128, True, 0, torch.float32, 1.0),
     ("extreme logits x30", 1, 2, 2, 256, 256, 32, True, 0, torch.float32, 30.0),
@@ -352,9 +370,10 @@ def _causal_pairs(Sq: int, Sk: int) -> int:
 def check_flash(rng: np.random.Generator, card: str) -> dict:
     """The flash-attention kernel against its plain version on the cases
     above (tolerance 2e-2 in bf16: one bf16 rounding of outputs near 1;
-    1e-4 in f32: sums in another order), then timed at the two path shapes
-    (qwen2-0.5b's hd 64, olmoe-1b-7b's hd 128) beside its plain version and
-    ``scaled_dot_product_attention``. The JSON entry holds the first."""
+    1e-4 in f32: sums in another order), then timed at the three path shapes
+    (qwen2-0.5b's hd 64, olmoe-1b-7b's hd 128, zamba2-7b's hd 112) beside
+    its plain version and ``scaled_dot_product_attention``. The JSON entry
+    holds the last, the shape this slice adds."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -377,8 +396,9 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
         worst = max(worst, err) if label.endswith("path") else worst
         del q, k, v, got, want
 
-    entry = time_flash(FLASH_CASES[0], rng, card)
+    time_flash(FLASH_CASES[0], rng, card)
     time_flash(FLASH_CASES[1], rng, card)
+    entry = time_flash(FLASH_CASES[2], rng, card)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
@@ -1067,9 +1087,10 @@ def drive_model(seed: int, card: str, out_dir: Path) -> int:
 def timed_prefills(model, params, tokens: torch.Tensor, tag: str, card: str) -> int:
     """PREFILL_RUNS timed prefills of ``tokens`` through ``make_prefill_step``
     after one warm-up (cuBLAS handles, the kernel library's load), with
-    flash_attention counted from 0: fails unless it launched once per layer
-    a prefill and the logits are finite (B, V). Prints the median wall,
-    tokens/s and peak device memory; returns the launches."""
+    flash_attention counted from 0: fails unless it launched once per
+    attention layer a prefill (``attention_layers``) and the logits are
+    finite (B, V). Prints the median wall, tokens/s and peak device memory;
+    returns the launches."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.train.steps import make_prefill_step
 
@@ -1087,25 +1108,38 @@ def timed_prefills(model, params, tokens: torch.Tensor, tag: str, card: str) -> 
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     launches = fa.launches
-    if launches != PREFILL_RUNS * cfg.n_layers:
+    per = attention_layers(cfg)
+    if launches != PREFILL_RUNS * per:
         raise AssertionError(f"{PREFILL_RUNS} prefills launched flash_attention "
-                             f"{launches} times, not {PREFILL_RUNS} x {cfg.n_layers}")
+                             f"{launches} times, not {PREFILL_RUNS} x {per}")
     if logits.shape != (B, cfg.vocab) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} are not finite (B, V)")
     wall = sorted(walls)[len(walls) // 2]
     log(f"{tag}: prefill {B} x {S} tokens: {wall:.4f} s wall (median of "
         f"{', '.join(f'{w:.4f}' for w in walls)}), {B * S / wall:.1f} tokens/s, "
         f"peak device memory {torch.cuda.max_memory_allocated()} bytes, flash_attention "
-        f"launches {launches} ({cfg.n_layers} per prefill) ({card})")
+        f"launches {launches} ({per} per prefill) ({card})")
     return launches
+
+
+def attention_layers(cfg) -> int:
+    """The attention layers of one forward, each one flash_attention launch
+    in a prefill: every layer of the attention families, none of mamba2,
+    one shared block per group of zamba2."""
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.n_layers // cfg.shared_attn_every
+    return cfg.n_layers
 
 
 def profile_model(model, params, tokens: torch.Tensor, out_dir: Path, name: str = "model") -> None:
     """One prefill and 8 decode steps (from a zero cache of the serve
     phase's length) under ``torch.profiler``: the device's busy share and
-    the costliest kernels of each; traces in ``out_dir``. For the MoE
-    family, the MoE layer's parts run inside ``record_function`` ranges
-    (``moe_ranges``) and its device time is split by them."""
+    the costliest kernels of each; traces in ``out_dir``. For the MoE, SSM
+    and hybrid families, their layers' parts run inside ``record_function``
+    ranges (``moe_ranges``, ``ssm_ranges``) and the device time is split
+    by them; the decode's device operations are also counted per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import decode_loop
@@ -1114,23 +1148,30 @@ def profile_model(model, params, tokens: torch.Tensor, out_dir: Path, name: str 
     step = make_prefill_step(model)
     B = tokens.shape[0]
     first = {"token": tokens[:, 0].contiguous()}
+    steps = 8
     runs = (("prefill", lambda: step(params, {"tokens": tokens})),
-            ("decode x8", lambda: decode_loop(model, params, model.init_cache(B, PREFILL_S),
-                                              dict(first), 8)))
+            (f"decode x{steps}", lambda: decode_loop(model, params,
+                                                     model.init_cache(B, PREFILL_S),
+                                                     dict(first), steps)))
+    family = model.cfg.family
+    split = {"moe": (moe_ranges, "MoE", moe_part), "ssm": (ssm_ranges, "SSM", ssm_part),
+             "hybrid": (ssm_ranges, "SSM", ssm_part)}.get(family)
     for label, fn in runs:
         fn()  # warm-up outside the profiler
         torch.cuda.synchronize()
-        moe = model.cfg.family == "moe"
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
-                (moe_ranges() if moe else contextlib.nullcontext()):
+                (split[0]() if split else contextlib.nullcontext()):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         tag = f"profile {label}:" if name == "model" else f"profile {name} {label}:"
         events = device_busy(prof, out_dir / f"{name}_{label.split()[0]}_trace.json", wall, tag)
-        if moe:
-            moe_breakdown(events, tag)
+        if label.startswith("decode"):
+            n_ops = sum(ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") for ev in events)
+            log(f"{tag} {n_ops / steps:.1f} device operations a decode step")
+        if split:
+            split_device_time(events, tag, split[1], split[2])
 
 
 # ---------------------------------------------------------------- phase 5b
@@ -1154,55 +1195,74 @@ MOE_LOGIT_ULPS = 8
 MOE_Y_ULPS = 4
 
 
-def moe_ranges():
-    """While active, the port's MoE layer runs its parts inside
-    ``record_function`` ranges: ``moe`` (the whole ``_moe_tokens``), and
-    inside it ``moe.route`` (``_route``) and ``moe.combine``
-    (``_combine``), which ``moe_breakdown`` reads from the trace."""
+def ranges(targets) -> contextlib.ExitStack:
+    """While active, each ``(owner, attribute, range)`` of ``targets`` (a
+    function of a module, or a method of a class) runs inside a
+    ``record_function`` range of that name, which ``split_device_time``
+    reads from the trace. A name with no dot is an outermost range."""
     from torch.profiler import record_function
 
-    from repro_torch.models import layers
-
-    names = {"_moe_tokens": "moe", "_route": "moe.route", "_combine": "moe.combine"}
-    orig = {fn: getattr(layers, fn) for fn in names}
-
-    def ranged(fn):
-        def call(*a, **kw):
-            with record_function(names[fn]):
-                return orig[fn](*a, **kw)
-        return call
-
     stack = contextlib.ExitStack()
-    for fn in names:
-        setattr(layers, fn, ranged(fn))
-        stack.callback(setattr, layers, fn, orig[fn])
+    for owner, attr, name in targets:
+        orig = getattr(owner, attr)
+
+        def call(*a, _orig=orig, _name=name, **kw):
+            with record_function(_name):
+                return _orig(*a, **kw)
+
+        setattr(owner, attr, call)
+        stack.callback(setattr, owner, attr, orig)
     return stack
 
 
-def moe_breakdown(events: list, tag: str) -> None:
-    """The device time of a MoE profile split by part: each kernel goes to
-    the innermost ``moe*`` range that was open on the thread that launched
-    it (found by the launch's correlation id), then by kind of kernel."""
-    ranges: dict = {}
+def moe_ranges():
+    """The MoE layer's parts: ``moe`` (the whole ``_moe_tokens``), and inside
+    it ``moe.route`` (``_route``) and ``moe.combine`` (``_combine``)."""
+    from repro_torch.models import layers
+
+    return ranges([(layers, "_moe_tokens", "moe"), (layers, "_route", "moe.route"),
+                   (layers, "_combine", "moe.combine")])
+
+
+def ssm_ranges():
+    """The Mamba2 mixer's parts: ``mixer`` (the whole mixer, or its decode
+    step), and inside it ``mixer.conv`` (the causal conv), ``mixer.intra``
+    (the SSD's intra-chunk term) and ``mixer.state`` (the chunk states:
+    their own contributions, the loop over chunks, C against the state);
+    the hybrid's shared block, ``shared``, and its MLP, ``shared.mlp``."""
+    from repro_torch.models import lm, ssd
+
+    return ranges([(ssd, "mamba2_mixer", "mixer"), (ssd, "mamba2_decode_step", "mixer"),
+                   (ssd, "_causal_conv", "mixer.conv"), (ssd, "_intra_chunk", "mixer.intra"),
+                   (ssd, "_inter_chunk", "mixer.state"), (lm.LM, "_dense_block", "shared"),
+                   (lm.LM, "_decode_block", "shared"), (lm, "swiglu_mlp", "shared.mlp")])
+
+
+def split_device_time(events: list, tag: str, what: str, part_of) -> None:
+    """The device time of a profile split by part: each kernel goes to the
+    innermost range that was open on the thread that launched it (found by
+    the launch's correlation id), and ``part_of(kind, range or None)``
+    names its part. Prints each part's seconds and share of the busy time."""
+    spans_by_tid: dict = {}
     for ev in events:
-        if ev.get("cat") == "user_annotation" and ev.get("name", "").startswith("moe"):
-            ranges.setdefault(ev.get("tid"), []).append(
+        if ev.get("cat") == "user_annotation":
+            spans_by_tid.setdefault(ev.get("tid"), []).append(
                 (ev["ts"], ev["ts"] + ev.get("dur", 0.0), ev["name"]))
-    for spans in ranges.values():
+    for spans in spans_by_tid.values():
         spans.sort()
     launched_in: dict = {}
     for ev in events:
         corr = ev.get("args", {}).get("correlation")
         if ev.get("cat") not in ("cuda_runtime", "cuda_driver") or corr is None:
             continue
-        spans = ranges.get(ev.get("tid"), [])
+        spans = spans_by_tid.get(ev.get("tid"), [])
         j = bisect.bisect_right(spans, (ev["ts"], float("inf"), "")) - 1
         while j >= 0:  # the latest-starting range that still holds the launch
             start, end, name = spans[j]
             if end >= ev["ts"]:
                 launched_in[corr] = name
                 break
-            if name == "moe":  # a whole layer that ended before: nothing earlier holds it
+            if "." not in name:  # an outermost range that ended before: nothing earlier holds it
                 break
             j -= 1
     parts: dict[str, float] = {}
@@ -1211,26 +1271,48 @@ def moe_breakdown(events: list, tag: str) -> None:
         if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
         kind = _kind(ev["name"]) if cat == "kernel" else cat
-        where = launched_in.get(ev.get("args", {}).get("correlation"))
-        if kind == "flash_attention":
-            part = "flash_attention"
-        elif where == "moe.route":
-            part = "MoE routing (router GEMM, softmax, top-k sort, argsort, searchsorted)"
-        elif where == "moe.combine":
-            part = "MoE combine (sort by token, gather, ordered bf16 adds)"
-        elif where == "moe" and kind == "cuBLAS GEMM":
-            part = "MoE expert GEMMs"
-        elif where == "moe":
-            part = "MoE dispatch (buffer scatter, output gather, gate scale) and silu"
-        else:
-            part = f"outside the MoE layer: {kind}"
+        part = part_of(kind, launched_in.get(ev.get("args", {}).get("correlation")))
         parts[part] = parts.get(part, 0.0) + ev.get("dur", 0.0) * 1e-6
     total = sum(parts.values())
-    if not any(p.startswith("MoE") for p in parts):
-        log(f"{tag} MoE split: no kernel was launched inside a moe range (the trace holds "
-            f"{sum(len(v) for v in ranges.values())} of them)")
+    if not launched_in:
+        log(f"{tag} {what} split: no kernel was launched inside a range")
     for part, sec in sorted(parts.items(), key=lambda kv: -kv[1]):
-        log(f"{tag} MoE split {sec:.6f} s ({100 * sec / total:.2f} % of busy): {part}")
+        log(f"{tag} {what} split {sec:.6f} s ({100 * sec / total:.2f} % of busy): {part}")
+
+
+def moe_part(kind: str, where: str | None) -> str:
+    if kind == "flash_attention":
+        return "flash_attention"
+    if where == "moe.route":
+        return "MoE routing (router GEMM, softmax, top-k sort, argsort, searchsorted)"
+    if where == "moe.combine":
+        return "MoE combine (sort by token, gather, ordered bf16 adds)"
+    if where == "moe" and kind == "cuBLAS GEMM":
+        return "MoE expert GEMMs"
+    if where == "moe":
+        return "MoE dispatch (buffer scatter, output gather, gate scale) and silu"
+    return f"outside the MoE layer: {kind}"
+
+
+def ssm_part(kind: str, where: str | None) -> str:
+    if kind == "flash_attention":
+        return "flash_attention (the shared block)"
+    if where == "mixer.intra":
+        return "SSD intra-chunk term (C.B scores, masked segment sums, exp, M.(dt x); f32)"
+    if where == "mixer.state":
+        return "SSD chunk states (each chunk's B.(dt decay x), the loop over chunks, C.state; f32)"
+    if where == "mixer.conv":
+        return "causal conv (4 shifted f32 products and adds)"
+    if where == "mixer" and kind == "cuBLAS GEMM":
+        return "Mamba2 GEMMs (projections in and out; decode: C.state)"
+    if where == "mixer":
+        return "Mamba2 elementwise (concat, silu, softplus, skip, gate, norm, casts; decode: " \
+               "the recurrence)"
+    if where == "shared.mlp":
+        return f"shared block's SwiGLU MLP: {kind}"
+    if where == "shared":
+        return f"shared block's attention outside flash_attention: {kind}"
+    return f"outside the mixers and the shared block: {kind}"
 
 
 def drive_moe(seed: int, card: str, out_dir: Path) -> int:
@@ -1419,6 +1501,202 @@ def moe_layer_card_vs_cpu(seed: int, card: str) -> None:
         f"{auxc!r} on the card, {auxh!r} on the CPU ({card})")
     if not np.isfinite(yc).all() or worst > MOE_Y_ULPS:
         raise AssertionError(f"moe_layer card vs CPU: y differs by {worst} ulps > {MOE_Y_ULPS}")
+
+
+# ---------------------------------------------------------------- phase 5c
+# mamba2-2.7b (SSM, no attention) and zamba2-7b (hybrid: one shared attention
+# + MLP block after every 6 Mamba2 layers) at full width and depth
+SSM_MODELS = ("mamba2_2_7b", "zamba2_7b")
+# card vs CPU at full width, SMALL_B x SMALL_S tokens: mamba2 at 2 layers,
+# zamba2 at 7 (one group of 6, the shared block, one trailing layer). Logits
+# within SSM_LOGIT_ULPS bf16 ulps of the CPU's largest |logit| (the MoE
+# check's 8), greedy tokens at SMALL_ARGMAX_SHARE of all positions; and each
+# layer's f32 SSM state after SSM_DECODE_STEPS decode steps within
+# SSM_STATE_ULPS bf16 ulps of that layer's largest |state|: the state sums
+# products of bf16 activations (B, x after the conv) that the two devices
+# may round one bf16 ulp apart, so it carries their bf16 error, not f32's.
+# Each criterion is held where the CPU meets it against itself with every
+# SSD output and decode state moved by one f32 ulp (``ssd_jitter``). From
+# random weights the shared block's attention is near-argmax (scores of std
+# ~100), so past it the bf16 model is ill-conditioned: there the criteria
+# are printed, and held on the same model in f32 (``dtype="float32"``).
+SSM_CHECK_LAYERS = {"mamba2_2_7b": 2, "zamba2_7b": 7}
+SSM_LOGIT_ULPS = 8
+SSM_STATE_ULPS = 8
+SSM_DECODE_STEPS = 4
+
+
+def drive_ssm(arch: str, seed: int, card: str, out_dir: Path) -> int:
+    """``arch`` at full width and depth: the serve CLI (greedy decode, B=4,
+    32 tokens after a warm-up step; its cache's bytes), then with its model
+    and weights PREFILL_RUNS timed prefills of PREFILL_B x PREFILL_S tokens
+    (flash_attention counted from 0: once per group for zamba2, never for
+    mamba2), then a profile split by the mixer's parts. Returns the
+    flash_attention launches of the prefills and the decode."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve
+
+    import gc
+
+    args = ["--arch", arch, "--full", "--batch", str(PREFILL_B), "--cache-len", str(PREFILL_S),
+            "--tokens", "32", "--seed", str(seed)]
+    gc.collect()  # an earlier phase's model caught in a reference cycle would count in the peak
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    out = serve.main(args)
+    serve_wall = time.perf_counter() - t0
+    decode_launches = fa.launches
+    model, params = out.pop("model"), out.pop("params")
+    cfg = model.cfg
+    if not out["finite"] or out["tokens"].shape != (PREFILL_B, 32):
+        raise AssertionError(f"serve: logits finite {out['finite']}, tokens {out['tokens'].shape}")
+    cache = {name: math.prod(shape) * dtype.itemsize
+             for name, (shape, dtype) in model.cache_template(PREFILL_B, PREFILL_S).items()}
+    tag = arch.split("_")[0]
+    log(f"{tag}: {cfg.name} {model.n_params()} parameters, {cfg.n_layers} Mamba2 layers, d "
+        f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.ssm_heads} SSM heads of {cfg.ssm_headdim}, "
+        f"state {cfg.ssm_state}, chunk {cfg.ssm_chunk}, vocab {cfg.vocab}"
+        + (f"; a shared block after every {cfg.shared_attn_every} ({attention_layers(cfg)} "
+           f"applications), {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}"
+           if cfg.family == "hybrid" else "") + f"; random weights (seed {seed})")
+    log(f"{tag}: serve {' '.join(args)}: {out['seconds']:.4f} s after a "
+        f"{out['warmup_seconds']:.4f} s warm-up step, {out['tokens'].size / out['seconds']:.1f} "
+        f"tokens/s, {1e3 * out['seconds'] / 32:.3f} ms per step, peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes ({held} held before the phase), cache "
+        f"{sum(cache.values())} bytes "
+        f"({', '.join(f'{k} {v}' for k, v in cache.items())}), flash_attention launches "
+        f"{decode_launches} (decode attends with the plain gqa_attention); {serve_wall:.3f} s "
+        f"for the whole CLI, the weights' draw on the host included ({card})")
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
+    prefill_launches = timed_prefills(model, params, tokens, tag, card)
+    profile_model(model, params, tokens, out_dir, name=tag)
+    del model, params, out
+    torch.cuda.empty_cache()
+    return prefill_launches + decode_launches
+
+
+@contextlib.contextmanager
+def ssd_jitter(seed: int):
+    """While active, every ``_ssd_chunked`` output and every state a
+    ``mamba2_decode_step`` returns moves by one f32 ulp, up or down at random
+    (seeded): a perturbation below any rounding the card and the CPU could
+    disagree on, which shows how far the model carries one."""
+    from repro_torch.models import ssd
+
+    g = torch.Generator().manual_seed(seed)
+
+    def nudge(t: torch.Tensor) -> torch.Tensor:
+        up = torch.rand(t.shape, generator=g) < 0.5
+        return torch.nextafter(t, torch.where(up, math.inf, -math.inf).to(t.dtype))
+
+    chunked, step = ssd._ssd_chunked, ssd.mamba2_decode_step
+    ssd._ssd_chunked = lambda *a: nudge(chunked(*a))
+
+    def jittered_step(*a):
+        y, conv, state = step(*a)
+        return y, conv, nudge(state)
+
+    ssd.mamba2_decode_step = jittered_step
+    try:
+        yield
+    finally:
+        ssd._ssd_chunked, ssd.mamba2_decode_step = chunked, step
+
+
+def _ssm_run(cfg, weights, tokens: torch.Tensor, where: str) -> tuple:
+    """The prefill's last-position logits (``make_prefill_step``), every
+    position's greedy token, the logits of SSM_DECODE_STEPS decode steps from
+    a zero cache fed ``tokens[:, i]``, and the SSM state after them."""
+    from repro_torch.models.layers import dt
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    model = build_model(cfg, device=where)
+    params = model.load_params(weights)
+    t = tokens.to(model.device)
+    last = make_prefill_step(model)(params, {"tokens": t})
+    with torch.no_grad():
+        h = params["embed"][t].to(dt(cfg))
+        if cfg.family == "ssm":
+            h = model._run_ssm_stack(params, h)
+        else:
+            positions = torch.arange(t.shape[1], device=t.device)[None].expand(t.shape)
+            h = model._run_hybrid_stack(params, h, positions=positions)
+        greedy = model._head(params, h).argmax(dim=-1)
+    cache, steps = model.init_cache(*t.shape), []
+    for i in range(SSM_DECODE_STEPS):
+        logits, cache = make_serve_step(model)(params, cache, {"token": t[:, i], "cur_len": i})
+        steps.append(logits.cpu())
+    return last.cpu(), greedy.cpu(), torch.stack(steps), cache["ssm"].cpu()
+
+
+def ssm_card_vs_cpu(seed: int, arch: str, dtype: str = "bfloat16") -> bool:
+    """``arch`` at full width and SSM_CHECK_LAYERS layers in ``dtype`` on the
+    card and on the CPU from the same weights (one draw of one seeded CPU
+    generator), and on the CPU once more under ``ssd_jitter``: each
+    criterion above is held where the jittered CPU meets it, printed where
+    it does not. Returns whether every criterion was held."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_moe_criteria import bf16_ulp
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+
+    cfg = dataclasses.replace(get_arch(arch), n_layers=SSM_CHECK_LAYERS[arch], dtype=dtype)
+    tokens = torch.from_numpy(np.random.default_rng(seed + 3).integers(
+        0, cfg.vocab, (SMALL_B, SMALL_S), dtype=np.int32))
+    weights = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(seed))
+    card = _ssm_run(cfg, weights, tokens, "cuda")
+    cpu = _ssm_run(cfg, weights, tokens, "cpu")
+    with ssd_jitter(seed):
+        jit = _ssm_run(cfg, weights, tokens, "cpu")
+    del weights
+    tag = (f"{arch.split('_')[0]} card vs CPU: {cfg.name} full width, {cfg.n_layers} layers, "
+           f"{dtype}")
+    held = True
+
+    def judge(label: str, err: float, self_err: float, tol: float, what: str) -> None:
+        nonlocal held
+        if self_err <= tol:
+            if not err <= tol:
+                raise AssertionError(f"{tag}: {label}: {what} {err} > {tol}")
+            verdict = "held"
+        else:
+            held, verdict = False, "NOT held: ill-conditioned, the jittered CPU misses it too"
+        log(f"{tag}: {label}: {what} {err:.3e}, the CPU against its 1-ulp jitter "
+            f"{self_err:.3e} (tolerance {tol:.3e}); {verdict}")
+
+    for label, i in (("prefill last-position logits", 0),
+                     (f"logits of {SSM_DECODE_STEPS} decode steps", 2)):
+        a, b, c = card[i], cpu[i], jit[i]
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{tag}: {label} are not finite")
+        tol = SSM_LOGIT_ULPS * float(bf16_ulp(float(b.abs().max())))
+        judge(f"{label} {tuple(a.shape)} (max |logit| {float(b.abs().max()):.3e}, greedy "
+              f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{a[..., 0].numel()} equal)",
+              float((a - b).abs().max()), float((c - b).abs().max()), tol, "max |diff|")
+    for layer, (a, b, c) in enumerate(zip(card[3], cpu[3], jit[3])):
+        big = float(b.abs().max())
+        judge(f"layer {layer} SSM state after {SSM_DECODE_STEPS} steps (max |state| {big:.3e}, "
+              f"relative L2 {float((a - b).norm() / b.norm()):.3e})",
+              float((a - b).abs().max()), float((c - b).abs().max()),
+              SSM_STATE_ULPS * float(bf16_ulp(big)), "max |diff|")
+    share = float((card[1] == cpu[1]).float().mean())
+    self_share = float((jit[1] == cpu[1]).float().mean())
+    if self_share >= SMALL_ARGMAX_SHARE and share < SMALL_ARGMAX_SHARE:
+        raise AssertionError(f"{tag}: greedy tokens agree at {share} of positions "
+                             f"< {SMALL_ARGMAX_SHARE}")
+    held = held and self_share >= SMALL_ARGMAX_SHARE
+    log(f"{tag}, {SMALL_B} x {SMALL_S} tokens: greedy tokens agree at {share:.4f} of all "
+        f"positions, the CPU against its 1-ulp jitter at {self_share:.4f} (required "
+        f"{SMALL_ARGMAX_SHARE}; {'held' if self_share >= SMALL_ARGMAX_SHARE else 'NOT held'})")
+    return held
 
 
 # ---------------------------------------------------------------- phase 7
@@ -1801,10 +2079,11 @@ def main() -> int:
         f"blocks, the model at full width and depth; training {MODEL} at B={TRAIN_B} x "
         f"S={TRAIN_S}, AdamW lr {TRAIN_LR}, checkpoints on the same store configuration; "
         f"cuts: none")
-    log(f"config: serving {MODEL} and {MOE_MODEL} at full width and depth, prefill "
-        f"{PREFILL_B} x {PREFILL_S}, decode batch 4 against a 2048 cache; card vs CPU for "
-        f"{MODEL}, {', '.join(MOE_CHECK_ARCHS)} at full width, {SMALL_LAYERS} layers (cut from "
-        f"the depth), {SMALL_B} x {SMALL_S} tokens")
+    log(f"config: serving {MODEL}, {MOE_MODEL} and {', '.join(SSM_MODELS)} at full width and "
+        f"depth, prefill {PREFILL_B} x {PREFILL_S}, decode batch 4 against a 2048 cache; card vs "
+        f"CPU for {MODEL}, {', '.join(MOE_CHECK_ARCHS)} at full width, {SMALL_LAYERS} layers (cut "
+        f"from the depth), {SMALL_B} x {SMALL_S} tokens; for "
+        f"{', '.join(f'{a} at {n} layers' for a, n in SSM_CHECK_LAYERS.items())}")
     # phase 2
     build(args.out)
     # phase 3
@@ -1855,6 +2134,16 @@ def main() -> int:
     for arch in MOE_CHECK_ARCHS:
         card_vs_cpu(args.seed, arch)
     moe_layer_card_vs_cpu(args.seed, card)
+    torch.cuda.empty_cache()
+    # phase 5c: the SSM and hybrid families, one model at a time, flash_attention counted
+    # from zero inside drive_ssm
+    for arch in SSM_MODELS:
+        counts["flash_attention"] += drive_ssm(arch, args.seed, card, args.out)
+    for arch in SSM_MODELS:
+        if not ssm_card_vs_cpu(args.seed, arch) and not ssm_card_vs_cpu(args.seed, arch,
+                                                                         "float32"):
+            raise AssertionError(f"{arch}: the f32 card-vs-CPU check did not hold every "
+                                 f"criterion")
     torch.cuda.empty_cache()
     # phase 6: the store's users, each path counted from zero inside counted_phase
     worst = {"gf256_matmul": 0, "cdc_gearhash": 0}

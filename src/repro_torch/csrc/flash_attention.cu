@@ -22,7 +22,7 @@
 // bf16: the tensor-core form (flash_fwd_wgmma). Both products run as wgmma
 // on the tensor cores, the only road to that bound. A CTA holds BQ query
 // rows in consumer warpgroups of 64 rows each: three (BQ = 192) at hd <= 64,
-// two at hd 128, one at hd 256, where registers are short. One producer
+// two at hd 112 and 128, one at hd 256, where registers are short. One producer
 // warpgroup hands most of its registers to the consumers (setmaxnreg); one
 // of its threads loads Q once and then K/V tiles of BK keys by TMA (128-byte
 // swizzle, zero fill past Sk) into a ring of 3 stages, each tracked by a
@@ -45,7 +45,10 @@
 // tile j - 1 together and takes the softmax of S while P V runs, and the
 // other warpgroups of the CTA keep the tensor cores busy meanwhile.
 // Head dims below 64 are padded to one 64-column chunk by the TMA's zero
-// fill; 128 and 256 are 2 and 4 chunks. Q tiles are issued last-first over
+// fill; 128 and 256 are 2 and 4 chunks, and 112 (zamba2-7b) is padded to 2
+// the same way: S = Q K^T runs its 7 k-steps of 16 over the real columns
+// only (the last three in the second chunk), P V fills 16 zero columns that
+// are not stored, and the scale stays 1/sqrt(112). Q tiles are issued last-first over
 // all heads, so the longest causal rows start first; key tiles wholly past
 // the causal edge or outside the window are skipped per CTA, and per
 // warpgroup, unless a row has no key at all (then, as in the reference, it
@@ -269,7 +272,7 @@ constexpr int ATOM = 1024;  // bytes of one swizzle atom (8 chunk rows)
 
 template <int HD>
 struct Shape {
-  static constexpr int HDP = HD < CH ? CH : HD;  // head dim padded to whole chunks
+  static constexpr int HDP = (HD + CH - 1) / CH * CH;  // head dim padded to whole chunks
   static constexpr int NCH = HDP / CH;
   static constexpr int NWG = HD <= 64 ? 3 : HD <= 128 ? 2 : 1;  // consumer warpgroups of 64 rows
   static constexpr int BQ = 64 * NWG;
@@ -669,6 +672,7 @@ cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, 
     case 16: return tc::launch<16, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     case 32: return tc::launch<32, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     case 64: return tc::launch<64, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
+    case 112: return tc::launch<112, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     case 128: return tc::launch<128, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     case 256: return tc::launch<256, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     default: return cudaErrorInvalidValue;
@@ -681,6 +685,7 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, i
     case 16: return f32::launch<16>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     case 32: return f32::launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     case 64: return f32::launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
+    case 112: return f32::launch<112>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     case 128: return f32::launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     case 256: return f32::launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
     default: return cudaErrorInvalidValue;
@@ -691,7 +696,7 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, i
 
 // q (B, H, Sq, hd), k/v (B, Hkv, Sk, hd), o (B, H, Sq, hd), all contiguous and
 // of one dtype (bf16 when is_bf16, else f32); bf16 pointers 16-byte aligned.
-// hd in {16, 32, 64, 128, 256}, H % Hkv == 0, Sq >= 1, Sk >= 1, window >= 0
+// hd in {16, 32, 64, 112, 128, 256}, H % Hkv == 0, Sq >= 1, Sk >= 1, window >= 0
 // (0: no window). Launches on `stream`, does not synchronise, returns the
 // launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,

@@ -19,7 +19,7 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 # Kernel launches made by ``flash_attention`` since the count was last reset.
 launches = 0
 
-HEAD_DIMS = (16, 32, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 112, 128, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 _INT_MAX = 2**31 - 1
 

@@ -1,12 +1,20 @@
-"""Batched serving driver: prefill-free greedy decode from a zero KV cache.
+"""Batched serving CLI: prefill-free greedy decode from a zero cache.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2_0_5b --full \
         --batch 4 --cache-len 2048 --tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe_1b_7b --full \
         --batch 4 --cache-len 2048 --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2_2_7b --full \
+        --batch 4 --cache-len 2048 --tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2_7b --full \
+        --batch 4 --cache-len 2048 --tokens 32
 
-Serves the dense and MoE families. Runs on the GPU unless ``--device cpu``
-is given; weights are random, from ``torch.Generator().manual_seed(--seed)``.
+Serves the dense, MoE, SSM (mamba2) and hybrid (zamba2) families. The
+cache is K/V for the attention layers and, for the SSM and hybrid
+families, each Mamba2 layer's conv window and state (``LM.cache_template``;
+mamba2's holds no K/V, so ``--cache-len`` does not size it). Runs on the
+GPU unless ``--device cpu`` is given; weights are random, from
+``torch.Generator().manual_seed(--seed)``.
 """
 from __future__ import annotations
 

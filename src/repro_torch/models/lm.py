@@ -1,29 +1,33 @@
-"""The LM of the dense and MoE families (pre-norm GQA attention, then a
-SwiGLU MLP or a top-k mixture of SwiGLU experts).
+"""The LM of the dense, MoE, SSM and hybrid families.
 
-The port of the reference's ``repro.models.lm.LM`` for ``family="dense"``,
-with the options its dense block carries: QKV bias (qwen2), qk-norm
-(qwen3), sliding-window layers with a global layer every
-``global_every`` (gemma3) and partial RoPE (chatglm3); and for
-``family="moe"`` (olmoe, qwen3-moe), whose block swaps the MLP for
-``moe_layer`` (sort-based top-k dispatch with capacity drops). Serving
-drops the MoE layers' auxiliary loss, as the reference's does; the MoE
-training loss (which adds it) is not ported yet (ROADMAP A2).
+The port of the reference's ``repro.models.lm.LM`` for ``family="dense"``
+(pre-norm GQA attention, then a SwiGLU MLP), with the options its dense
+block carries: QKV bias (qwen2), qk-norm (qwen3), sliding-window layers
+with a global layer every ``global_every`` (gemma3) and partial RoPE
+(chatglm3); for ``family="moe"`` (olmoe, qwen3-moe), whose block swaps the
+MLP for ``moe_layer`` (sort-based top-k dispatch with capacity drops);
+for ``family="ssm"`` (mamba2), a stack of Mamba2 mixers
+(``models/ssd.py``) with no attention; and for ``family="hybrid"``
+(zamba2), groups of ``shared_attn_every`` Mamba2 layers, each followed by
+the one shared attention + SwiGLU block (its weights reused), then the
+trailing layers with none. Serving drops the MoE layers' auxiliary loss,
+as the reference's does. Only the dense family's training loss is ported;
+the others raise (ROADMAP A2).
 
 Parameters are a nested dict of tensors with the reference's names and
 shapes, stacked layers included (leading L axis); every method takes them
 explicitly, as the reference's do. ``load_params`` also registers them on
-the module. The layer stack (``_run_decoder_stack``) is a Python loop over
-the layers. The prefill computes each layer's attention with the
-flash-attention kernel (f32 scores; one launch per layer on the card). The
+the module. The layer stacks are Python loops over the layers. The prefill
+computes each attention with the flash-attention kernel (f32 scores; one
+launch per attention layer on the card, and per group for the hybrid). The
 training loss (``loss_fn``) attends with the plain ``gqa_attention`` (bf16
 score chain), as the reference's ``_attn`` does, since the kernel has no
 backward, and runs each layer under ``torch.utils.checkpoint``, the
 counterpart of the reference's ``jax.checkpoint(nothing_saveable)`` over its
-layer scan. The decode step writes the new K/V into the cache in place and
-attends with ``gqa_attention`` too, as the reference does: its query sits
-at ``cur_len`` against an S-long cache, which the kernel's positions (both
-from 0) cannot express.
+layer scan. The decode step writes the new K/V, conv windows and SSM
+states into the cache in place and attends with ``gqa_attention`` too, as
+the reference does: its query sits at ``cur_len`` against an S-long cache,
+which the kernel's positions (both from 0) cannot express.
 """
 from __future__ import annotations
 
@@ -37,6 +41,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.models import ssd
 from repro_torch.models.layers import (
     apply_rope,
     dense_init,
@@ -52,17 +57,48 @@ from repro_torch.tree import named_leaves
 Params = dict[str, Any]  # name -> tensor, or name -> dict of stacked-layer tensors
 
 _NOT_PORTED = {
-    "ssm": "the SSM family waits for models/ssd.py (ROADMAP A2)",
-    "hybrid": "the hybrid family waits for models/ssd.py (ROADMAP A2)",
     "encdec": "the encoder-decoder family waits for its stack and gelu_mlp (ROADMAP A2)",
     "vlm": "the VLM family waits for mrope and embeddings input (ROADMAP A2)",
 }
+
+_NO_LOSS = {
+    "moe": "the MoE training loss (its aux term and the backward of the dispatch) waits "
+           "for its own slice (ROADMAP A2)",
+    "ssm": "the SSM training loss (the backward of models/ssd.py) waits for its own slice "
+           "(ROADMAP A2)",
+    "hybrid": "the hybrid training loss (the backward of models/ssd.py and of the shared "
+              "block) waits for its own slice (ROADMAP A2)",
+}
+
+
+def _attn_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
+    """The attention's weights, each with the leading dims ``lead`` ((L,)
+    for a stack, () for the hybrid's shared block)."""
+    bf = dt(cfg)
+    H, KV, hd, D = cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_model
+    out = {"wq": ((*lead, D, H, hd), bf), "wk": ((*lead, D, KV, hd), bf),
+           "wv": ((*lead, D, KV, hd), bf), "wo": ((*lead, H, hd, D), bf)}
+    if cfg.qkv_bias:
+        out.update({"bq": ((*lead, H, hd), bf), "bk": ((*lead, KV, hd), bf),
+                    "bv": ((*lead, KV, hd), bf)})
+    if cfg.qk_norm:
+        out.update({"qn": ((*lead, hd), bf), "kn": ((*lead, hd), bf)})
+    return out
+
+
+def _mlp_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
+    bf, D, F = dt(cfg), cfg.d_model, cfg.d_ff
+    return {"wg": ((*lead, D, F), bf), "wu": ((*lead, D, F), bf), "wd": ((*lead, F, D), bf)}
+
+
+def _norm_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
+    return {n: ((*lead, cfg.d_model), torch.float32) for n in ("ln1", "ln2")}
 
 
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, max_pos: int = 4096, device: str = "cuda"):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"{cfg.name}: {_NOT_PORTED.get(cfg.family, f'unknown family {cfg.family!r}')}")
         self.cfg = cfg
@@ -71,31 +107,36 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- template
     def param_template(self) -> dict:
-        """Nested dict of (shape, dtype), the reference's tree for the dense
-        and MoE families: a MoE block has the router ``wr`` (L, D, E) and
-        the experts ``w_gate``/``w_up`` (L, E, D, F) and ``w_down``
-        (L, E, F, D) in place of ``wg``/``wu``/``wd``."""
+        """Nested dict of (shape, dtype), the reference's tree. A dense block
+        holds the attention and SwiGLU weights; a MoE block has the router
+        ``wr`` (L, D, E) and the experts ``w_gate``/``w_up`` (L, E, D, F)
+        and ``w_down`` (L, E, F, D) in place of ``wg``/``wu``/``wd``. The
+        SSM family stacks ``mamba2_param_shapes`` and a norm ``ln``; the
+        hybrid adds the one ``shared`` block (attention, SwiGLU MLP, ``ln1``,
+        ``ln2``), unstacked."""
         cfg = self.cfg
         bf, f32 = dt(cfg), torch.float32
-        L, D, H, KV, hd, F = (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                              cfg.hd, cfg.d_ff)
-        blk = {"wq": ((L, D, H, hd), bf), "wk": ((L, D, KV, hd), bf),
-               "wv": ((L, D, KV, hd), bf), "wo": ((L, H, hd, D), bf),
-               "ln1": ((L, D), f32), "ln2": ((L, D), f32)}
+        L, D = cfg.n_layers, cfg.d_model
+        t: dict = {"final_ln": ((D,), f32), "embed": ((cfg.vocab, D), bf)}
+        if not cfg.tie_embeddings:
+            t["head"] = ((D, cfg.vocab), bf)
+        if cfg.is_ssm:
+            blk = {k: ((L, *shape), dtype)
+                   for k, (shape, dtype) in ssd.mamba2_param_shapes(cfg).items()}
+            blk["ln"] = ((L, D), f32)
+            t["layers"] = blk
+            if cfg.family == "hybrid":
+                t["shared"] = {**_attn_shapes(cfg, ()), **_mlp_shapes(cfg, ()),
+                               **_norm_shapes(cfg, ())}
+            return t
+        blk = {**_attn_shapes(cfg, (L,)), **_norm_shapes(cfg, (L,))}
         if cfg.family == "moe":
             E, Fe = cfg.moe_experts, cfg.moe_d_ff
             blk.update({"wr": ((L, D, E), bf), "w_gate": ((L, E, D, Fe), bf),
                         "w_up": ((L, E, D, Fe), bf), "w_down": ((L, E, Fe, D), bf)})
         else:
-            blk.update({"wg": ((L, D, F), bf), "wu": ((L, D, F), bf), "wd": ((L, F, D), bf)})
-        if cfg.qkv_bias:
-            blk.update({"bq": ((L, H, hd), bf), "bk": ((L, KV, hd), bf),
-                        "bv": ((L, KV, hd), bf)})
-        if cfg.qk_norm:
-            blk.update({"qn": ((L, hd), bf), "kn": ((L, hd), bf)})
-        t: dict = {"final_ln": ((D,), f32), "layers": blk, "embed": ((cfg.vocab, D), bf)}
-        if not cfg.tie_embeddings:
-            t["head"] = ((D, cfg.vocab), bf)
+            blk.update(_mlp_shapes(cfg, (L,)))
+        t["layers"] = blk
         return t
 
     def n_params(self) -> int:
@@ -234,6 +275,26 @@ class LM(nn.Module):
                 h = self._dense_block(lp, h, cos=cos, sin=sin, window=window)
         return h
 
+    def _run_ssm_stack(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        """The SSM stack: h + mamba2_mixer(rms_norm(h)) for each layer."""
+        for lp in _layers(params["layers"]):
+            h = h + ssd.mamba2_mixer(lp, rms_norm(h, lp["ln"], self.cfg.norm_eps), self.cfg)
+        return h
+
+    def _run_hybrid_stack(self, params: Params, h: torch.Tensor, *,
+                          positions: torch.Tensor) -> torch.Tensor:
+        """Zamba2: after every ``shared_attn_every`` Mamba2 layers, the one
+        shared block (attention on the flash kernel, causal and unwindowed,
+        then its SwiGLU MLP); the trailing ``n_layers mod shared_attn_every``
+        layers run with no shared block after them."""
+        cos, sin = self._rope(positions)
+        E = self.cfg.shared_attn_every
+        for i, lp in enumerate(_layers(params["layers"])):
+            h = h + ssd.mamba2_mixer(lp, rms_norm(h, lp["ln"], self.cfg.norm_eps), self.cfg)
+            if (i + 1) % E == 0:
+                h = self._dense_block(params["shared"], h, cos=cos, sin=sin, window=0)
+        return h
+
     def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         h = rms_norm(h, params["final_ln"], self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
@@ -252,12 +313,11 @@ class LM(nn.Module):
         keeps both in bf16 there), which makes it a precise witness of a
         bf16 step from the same weights.
 
-        The MoE family's loss (the reference's adds ``0.01 * aux`` and
-        differentiates through the dispatch) is not ported yet: it raises."""
-        if self.cfg.family == "moe":
-            raise NotImplementedError(
-                f"{self.cfg.name}: the MoE training loss (its aux term and the backward of "
-                "the dispatch) waits for its own slice (ROADMAP A2)")
+        The other families' losses are not ported yet: they raise (the MoE
+        loss adds ``0.01 * aux`` and differentiates through the dispatch; the
+        SSM and hybrid losses differentiate through ``models/ssd.py``)."""
+        if self.cfg.family != "dense":
+            raise NotImplementedError(f"{self.cfg.name}: {_NO_LOSS[self.cfg.family]}")
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = params["embed"][tokens].to(dt(self.cfg))
@@ -276,9 +336,25 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- serving
     def cache_template(self, B: int, S: int) -> dict:
+        """The decode cache's (shape, dtype), the reference's: K/V (L, B, S,
+        KV, hd) bf16 for the attention families; for the SSM family each
+        layer's conv window (L, B, K-1, conv_dim) bf16 and state (L, B, G,
+        H, N, P) f32; the hybrid adds K/V of its shared block, one per
+        group (n_groups, B, S, KV, hd)."""
         cfg = self.cfg
-        shape = (cfg.n_layers, B, S, cfg.n_kv_heads, cfg.hd)
-        return {"k": (shape, torch.bfloat16), "v": (shape, torch.bfloat16)}
+        bf = torch.bfloat16
+        kv = (B, S, cfg.n_kv_heads, cfg.hd)
+        L = cfg.n_layers
+        if not cfg.is_ssm:
+            return {"k": ((L, *kv), bf), "v": ((L, *kv), bf)}
+        conv_dim = cfg.d_inner + 2 * ssd.G * cfg.ssm_state
+        out = {"conv": ((L, B, cfg.conv_kernel - 1, conv_dim), bf),
+               "ssm": ((L, B, ssd.G, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim),
+                       torch.float32)}
+        if cfg.family == "hybrid":
+            n_groups = L // cfg.shared_attn_every
+            out.update({"k": ((n_groups, *kv), bf), "v": ((n_groups, *kv), bf)})
+        return out
 
     def init_cache(self, B: int, S: int) -> dict[str, torch.Tensor]:
         """A zero cache of ``cache_template(B, S)`` on the model's device."""
@@ -287,23 +363,31 @@ class LM(nn.Module):
 
     def decode_step(self, params: Params, cache: dict[str, torch.Tensor],
                     batch: dict) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
-        """One token for the whole batch against an S-long cache.
+        """One token for the whole batch against the cache.
 
         batch: {"token": (B,) int, "cur_len": int}. Writes the new K/V at
-        ``cur_len`` into ``cache`` in place (the reference returns a new
-        cache; updating in place spares a copy of the whole cache per token)
-        and returns (logits (B, V) f32, cache)."""
+        ``cur_len``, and each Mamba2 layer's new conv window and SSM state,
+        into ``cache`` in place (the reference returns a new cache; updating
+        in place spares a copy of the whole cache per token) and returns
+        (logits (B, V) f32, cache). The SSM family reads no ``cur_len``. The
+        embedding's output takes the configuration's dtype, as in the prefill
+        and ``loss_fn``."""
         cur = int(batch["cur_len"])
-        S = cache["k"].shape[2]
-        if not 0 <= cur < S:
-            raise ValueError(f"cur_len {cur} outside the {S}-long cache")
-        x = params["embed"][batch["token"]].to(torch.bfloat16)
-        h = self._decode_dense(params, cache, x[:, None, :], cur)
+        if "k" in cache and not 0 <= cur < cache["k"].shape[2]:
+            raise ValueError(f"cur_len {cur} outside the {cache['k'].shape[2]}-long cache")
+        h = params["embed"][batch["token"]].to(dt(self.cfg))[:, None, :]
+        family = self.cfg.family
+        if family == "ssm":
+            h = self._decode_ssm(params, cache, h)
+        elif family == "hybrid":
+            h = self._decode_hybrid(params, cache, h, cur)
+        else:
+            h = self._decode_dense(params, cache, h, cur)
         return self._head(params, h)[:, 0].float(), cache
 
     def _decode_attn(self, lp: dict, h: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, cur: int, *, window: int, pos1: torch.Tensor,
-                     cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+                     v_cache: torch.Tensor, cur: int, *, window: int | None,
+                     pos1: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
         S = k_cache.shape[1]  # the per-layer cache is (B, S, KV, hd)
         q, k_new, v_new = self._qkv(lp, h, cos, sin)
         k_cache[:, cur] = k_new[:, 0]
@@ -313,17 +397,62 @@ class LM(nn.Module):
                           window=window)
         return self._out_proj(lp, o)
 
-    def _decode_dense(self, params: Params, cache: dict[str, torch.Tensor],
-                      h: torch.Tensor, cur: int) -> torch.Tensor:
-        cfg = self.cfg
-        layers = params["layers"]
-        # every layer rotates by the same position: compute its RoPE once
+    def _decode_block(self, lp: dict, h: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, cur: int, **attn) -> torch.Tensor:
+        """A pre-norm attention block's decode step: attention against its
+        cache, then its MLP."""
+        x = rms_norm(h, lp["ln1"], self.cfg.norm_eps)
+        h = h + self._decode_attn(lp, x, k_cache, v_cache, cur, **attn)
+        return h + self._mlp(lp, rms_norm(h, lp["ln2"], self.cfg.norm_eps))
+
+    def _decode_rope(self, h: torch.Tensor, cur: int) -> dict:
+        """Position ``cur`` and its RoPE, the same for every layer."""
         pos1 = torch.full((1,), cur, dtype=torch.int32, device=h.device)
         cos, sin = self._rope(pos1[None].expand(h.shape[0], 1))
-        for i, window in enumerate(self._windows(cache["k"].shape[2])):
-            lp = {name: w[i] for name, w in layers.items()}
-            x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-            h = h + self._decode_attn(lp, x, cache["k"][i], cache["v"][i], cur, window=window,
-                                      pos1=pos1, cos=cos, sin=sin)
-            h = h + self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+        return {"pos1": pos1, "cos": cos, "sin": sin}
+
+    def _decode_dense(self, params: Params, cache: dict[str, torch.Tensor],
+                      h: torch.Tensor, cur: int) -> torch.Tensor:
+        rope = self._decode_rope(h, cur)
+        windows = self._windows(cache["k"].shape[2])
+        for i, lp in enumerate(_layers(params["layers"])):
+            h = self._decode_block(lp, h, cache["k"][i], cache["v"][i], cur, window=windows[i],
+                                   **rope)
         return h
+
+    def _decode_mamba(self, lp: dict, h: torch.Tensor, cache: dict[str, torch.Tensor],
+                      i: int) -> torch.Tensor:
+        """Mamba2 layer i's decode step; its conv window and state are
+        written into the cache."""
+        x = rms_norm(h, lp["ln"], self.cfg.norm_eps)
+        y, conv, state = ssd.mamba2_decode_step(lp, x[:, 0], cache["conv"][i], cache["ssm"][i],
+                                                self.cfg)
+        cache["conv"][i].copy_(conv)
+        cache["ssm"][i].copy_(state)
+        return h + y[:, None]
+
+    def _decode_ssm(self, params: Params, cache: dict[str, torch.Tensor],
+                    h: torch.Tensor) -> torch.Tensor:
+        for i, lp in enumerate(_layers(params["layers"])):
+            h = self._decode_mamba(lp, h, cache, i)
+        return h
+
+    def _decode_hybrid(self, params: Params, cache: dict[str, torch.Tensor],
+                       h: torch.Tensor, cur: int) -> torch.Tensor:
+        """The hybrid's decode step: the shared block after each group of
+        Mamba2 layers attends against its group's K/V, with no window."""
+        rope = self._decode_rope(h, cur)
+        E = self.cfg.shared_attn_every
+        for i, lp in enumerate(_layers(params["layers"])):
+            h = self._decode_mamba(lp, h, cache, i)
+            if (i + 1) % E == 0:
+                g = i // E
+                h = self._decode_block(params["shared"], h, cache["k"][g], cache["v"][g], cur,
+                                       window=None, **rope)
+        return h
+
+
+def _layers(stacked: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
+    """Each layer's parameters, from the stacked (leading L axis) leaves."""
+    n = len(next(iter(stacked.values())))
+    return [{name: w[i] for name, w in stacked.items()} for i in range(n)]

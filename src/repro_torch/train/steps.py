@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.models.layers import dt
 from repro_torch.models.lm import LM, Params
 from repro_torch.train.optimizer import AdamWConfig, adamw_init_shapes, adamw_update
 from repro_torch.tree import Tree, tree_leaves, tree_map
@@ -39,14 +40,25 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig | None = None):
 
 def make_prefill_step(model: LM):
     """``prefill_step(params, batch) -> (B, V) f32`` logits of the last
-    position of ``batch["tokens"]`` (B, S), on the model's device."""
+    position of ``batch["tokens"]`` (B, S), on the model's device: the
+    family's stack (attention, MoE, SSM or hybrid), as the reference's
+    ``make_prefill_step`` dispatches it. The embedding's output takes the
+    configuration's dtype, as in ``LM.loss_fn``: bf16 for every configuration
+    of the catalog, the reference's cast; a ``dtype="float32"`` configuration
+    then serves in f32 throughout (the reference casts it to bf16)."""
     @torch.no_grad()
     def prefill_step(params: Params, batch: dict) -> torch.Tensor:
         tokens = batch["tokens"]
         B, S = tokens.shape
-        h = params["embed"][tokens].to(torch.bfloat16)
+        h = params["embed"][tokens].to(dt(model.cfg))
         positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
-        h = model._run_decoder_stack(params, h, positions=positions)
+        family = model.cfg.family
+        if family == "ssm":
+            h = model._run_ssm_stack(params, h)
+        elif family == "hybrid":
+            h = model._run_hybrid_stack(params, h, positions=positions)
+        else:
+            h = model._run_decoder_stack(params, h, positions=positions)
         return model._head(params, h[:, -1:, :])[:, 0].float()
 
     return prefill_step

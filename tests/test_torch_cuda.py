@@ -194,6 +194,13 @@ FLASH_CASES = [
     (1, 4, 2, 100, 700, 256, True, 0, torch.bfloat16),   # hd 256 under GQA, Sq < Sk
     (1, 4, 1, 700, 700, 256, False, 300, torch.bfloat16),
     (4, 16, 16, 2048, 2048, 128, True, 0, torch.bfloat16),  # olmoe-1b-7b's prefill
+    # hd 112 (zamba2-7b), padded to two 64-column chunks in the bf16 form
+    (4, 32, 32, 2048, 2048, 112, True, 0, torch.bfloat16),  # zamba2-7b's prefill
+    (2, 4, 2, 320, 1111, 112, True, 0, torch.bfloat16),     # top-left causal, Sq < Sk, GQA
+    (1, 2, 2, 77, 77, 112, False, 0, torch.bfloat16),       # ragged, non-causal
+    (1, 4, 1, 600, 600, 112, True, 128, torch.bfloat16),    # windowed
+    (2, 4, 2, 320, 1111, 112, True, 0, torch.float32),
+    (1, 2, 2, 200, 50, 112, True, 16, torch.float32),       # rows with no key at all
 ]
 
 
@@ -276,12 +283,13 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "gemma3_1b"])
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "gemma3_1b", "mamba2_2_7b", "zamba2_7b"])
 def test_prefill_on_the_card_matches_the_cpu(cuda, arch):
     """The prefill with the kernel on the card against the plain versions
     on the CPU, same weights (one seeded generator) and tokens, on a reduced
     config: logits within 4 bf16 ulps at |logit| < 4 (matmuls round in
-    another order on the two devices), one launch per layer."""
+    another order on the two devices), one launch per attention layer (none
+    in mamba2, one per group of zamba2)."""
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import build_model
     from repro_torch.train.steps import make_prefill_step
@@ -294,7 +302,9 @@ def test_prefill_on_the_card_matches_the_cpu(cuda, arch):
         params = model.load_params(model.init_params(torch.Generator().manual_seed(0)))
         before = fa_ops.launches
         logits[dev] = make_prefill_step(model)(params, {"tokens": tokens.to(dev)}).cpu()
-        assert fa_ops.launches - before == (cfg.n_layers if dev == "cuda" else 0)
+        attn = {"ssm": 0, "hybrid": cfg.n_layers // max(1, cfg.shared_attn_every)}
+        assert fa_ops.launches - before == (attn.get(cfg.family, cfg.n_layers)
+                                            if dev == "cuda" else 0)
     assert torch.isfinite(logits["cuda"]).all()
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0, atol=4 * 2.0**-6)
 
@@ -526,3 +536,89 @@ def test_moe_prefill_on_the_card_matches_the_cpu(cuda, arch):
     assert rows
     torch.testing.assert_close(seen["cuda"][0][rows], seen["cpu"][0][rows], rtol=0,
                                atol=4 * 2.0**-6)
+
+
+# The SSD pieces at reduced width (mamba2-2.7b's reduced config), on the card
+# against the CPU. f32 inputs to the SSD alone: within 32 f32 ulps of the
+# largest |y| (its Q + N terms summed in another order, as against the
+# reference in tests/test_torch_ssd.py). Through the bf16 projections, the
+# two devices may round an activation one bf16 ulp apart, and the SSD and
+# the norm carry that: outputs and states within SSM_BF16_ULPS = 8 bf16 ulps
+# of their largest entries (the model's card-vs-CPU criterion, PERF.md §2).
+SSM_BF16_ULPS = 8
+
+
+def _bf16_ulp(t: torch.Tensor) -> float:
+    from _torch_moe_criteria import bf16_ulp
+
+    return float(bf16_ulp(float(t.abs().max())))
+
+
+def _ssd_layer(seed: int):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssd
+
+    cfg = get_arch("mamba2_2_7b").reduced()
+    g = torch.Generator().manual_seed(seed)
+    p = {}
+    for name, (shape, dtype) in ssd.mamba2_param_shapes(cfg).items():
+        scale = 0.5 if len(shape) == 1 or name == "conv_w" else shape[0] ** -0.5
+        p[name] = (torch.randn(shape, generator=g) * scale).to(dtype)
+    return cfg, p, g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks", [1, 4])
+def test_ssd_chunked_on_the_card_matches_the_cpu(cuda, chunks):
+    from repro_torch.models import ssd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, _, g = _ssd_layer(0)
+    B, H, P, N, Q = 2, cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_chunk
+    L = chunks * Q
+    x = torch.randn((B, L, H, P), generator=g)
+    dt_ = ssd.softplus(torch.randn((B, L, H), generator=g))
+    A = -torch.exp(torch.randn(H, generator=g) * 0.5)
+    Bm, Cm = torch.randn((B, L, 1, N), generator=g), torch.randn((B, L, 1, N), generator=g)
+    want = ssd._ssd_chunked(x, dt_, A, Bm, Cm, Q)
+    got = ssd._ssd_chunked(*(t.to(cuda) for t in (x, dt_, A, Bm, Cm)), Q).cpu()
+    atol = 32 * float(np.spacing(np.float32(want.abs().max())))
+    torch.testing.assert_close(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.cuda
+def test_mamba2_mixer_on_the_card_matches_the_cpu(cuda):
+    from repro_torch.models import ssd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, g = _ssd_layer(1)
+    x = torch.randn((2, 4 * cfg.ssm_chunk, cfg.d_model), generator=g).bfloat16()
+    want = ssd.mamba2_mixer(p, x, cfg).float()
+    got = ssd.mamba2_mixer({k: v.to(cuda) for k, v in p.items()}, x.to(cuda), cfg).float().cpu()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=0, atol=SSM_BF16_ULPS * _bf16_ulp(want))
+
+
+@pytest.mark.cuda
+def test_mamba2_decode_step_on_the_card_matches_the_cpu(cuda):
+    """Four steps from the same random conv window and state on each device,
+    each carrying its own: y each step and the state at the end."""
+    from repro_torch.models import ssd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, p, g = _ssd_layer(2)
+    B = 2
+    conv_dim = cfg.d_inner + 2 * ssd.G * cfg.ssm_state
+    conv = torch.randn((B, cfg.conv_kernel - 1, conv_dim), generator=g).bfloat16()
+    state = torch.randn((B, 1, cfg.ssm_heads, cfg.ssm_state, cfg.ssm_headdim), generator=g)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    side = {"cpu": (conv, state), "cuda": (conv.to(cuda), state.to(cuda))}
+    for _ in range(4):
+        x = torch.randn((B, cfg.d_model), generator=g).bfloat16()
+        y_cpu, *side["cpu"] = ssd.mamba2_decode_step(p, x, *side["cpu"], cfg)
+        y_card, *side["cuda"] = ssd.mamba2_decode_step(pc, x.to(cuda), *side["cuda"], cfg)
+        torch.testing.assert_close(y_card.float().cpu(), y_cpu.float(), rtol=0,
+                                   atol=SSM_BF16_ULPS * _bf16_ulp(y_cpu))
+    want = side["cpu"][1]
+    torch.testing.assert_close(side["cuda"][1].cpu(), want, rtol=0,
+                               atol=SSM_BF16_ULPS * _bf16_ulp(want))

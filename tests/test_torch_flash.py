@@ -54,6 +54,37 @@ def test_plain_flash_matches_pallas_kernel_and_oracle(B, H, Sq, Sk, hd, causal, 
                           interpret=True), tol)
 
 
+# zamba2-7b's head dim, 112 (the card's kernel pads it to two 64-column
+# chunks): (B, H, Hkv, Sq, Sk, causal, window, dtype)
+HD112_CASES = [
+    (1, 4, 4, 128, 128, True, 0, "bfloat16"),    # zamba2's MHA shared block, reduced
+    (2, 4, 4, 256, 256, True, 0, "float32"),
+    (1, 4, 2, 64, 192, True, 0, "float32"),      # top-left causal, Sq < Sk, GQA
+    (1, 2, 2, 128, 128, False, 0, "bfloat16"),
+    (1, 2, 1, 128, 256, True, 64, "bfloat16"),   # windowed, GQA
+]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,window,dtype", HD112_CASES)
+def test_plain_flash_hd112_matches_pallas_kernel_and_oracle(B, H, Hkv, Sq, Sk, causal, window,
+                                                            dtype):
+    """hd 112, which the Pallas kernel takes as it is (it asserts only on the
+    lengths), against the kernel in interpret mode and its oracle, on
+    ``jnp.repeat``-ed KV heads; the scale is 1/sqrt(112) on every side."""
+    hd = 112
+    rng = np.random.default_rng(Sq + Sk + Hkv)
+    (jq, jk, jv), (q, k, v) = _inputs(rng, [(B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)],
+                                      dtype)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    G = H // Hkv
+    jk, jv = jnp.repeat(jk, G, axis=1), jnp.repeat(jv, G, axis=1)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    _close(got, jax_ref(jq, jk, jv, causal=causal, window=window), tol)
+    _close(got, jax_flash(jq, jk, jv, causal=causal, window=window, bq=64, bk=64,
+                          interpret=True), tol)
+
+
 @pytest.mark.parametrize("bq,bk", [(32, 32), (128, 64)])
 def test_plain_flash_matches_pallas_block_sizes(bq, bk):
     """The reference's block-size invariance case: every block shape of the
@@ -179,6 +210,9 @@ BUDGET_CASES = [
     (1, 4, 2, 100, 100, 16, False, 0, 1.0, 128),     # hd 16 under GQA
     (1, 2, 2, 256, 256, 32, True, 0, 30.0, 128),     # extreme logits: scores ~+-1e3
     (1, 2, 2, 256, 256, 32, True, 100, 30.0, 128),   # ... with masked first tiles
+    (1, 4, 4, 256, 256, 112, True, 0, 1.0, 128),     # zamba2's hd 112 (two chunks, padded)
+    (1, 4, 2, 80, 277, 112, True, 0, 1.0, 128),      # hd 112 under GQA, Sq < Sk
+    (1, 2, 2, 256, 256, 112, True, 0, 30.0, 128),    # hd 112 with extreme logits
 ]
 
 
