@@ -101,6 +101,26 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ill-conditioned and the criteria are not met, the step is printed and
    held only where it is well-conditioned (``train_card_vs_cpu``).
 
+7b. training of the MoE, SSM and hybrid families: olmoe-1b-7b, mamba2-2.7b
+   and zamba2-7b at their published widths, the depth cut to what one
+   card's 80 GB holds (``FAMILY_TRAIN_DEPTHS``; each cut printed as a
+   ``reduced:`` line), weights drawn on the card from the seed, B=4 x 2048,
+   AdamW at lr 1e-3: a warm-up and 3 timed steps (train tokens/s, peak
+   device memory, finite losses), the gradient's norm (olmoe: the
+   recompute routes as the forward did; the drop share of its first and
+   last layer), one step under ``torch.profiler`` split into forward,
+   recompute, backward and AdamW and by the family's parts. The backward of
+   the MoE dispatch gather on identical inputs, bit for bit against the
+   CPU. One train step on the card against the CPU: the four reduced
+   configs at 2 x 64 in bf16 (MoE routes held to their criteria, the
+   gradients held where no route differs; the SSD families held where the
+   CPU meets the criteria against itself with the SSD nudged one f32 ulp,
+   printed where it is ill-conditioned) and at full width in f32, olmoe and
+   mamba2 at 1 layer, zamba2 at 7, at 1 x 256, held. Then
+   ``repro_torch.launch.train`` at each family's reduced config, with
+   checkpoints, a crash, one host down and a restore: bit for bit, the
+   redone steps' losses equal; the storage kernels counted.
+
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -110,7 +130,6 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
-import bisect
 import contextlib
 import json
 import math
@@ -359,21 +378,31 @@ FLASH_CASES = (
     ("bf16 hd 16 GQA", 2, 4, 2, 333, 333, 16, False, 0, torch.bfloat16, 1.0),
 )
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# timed only: gemma3-1b's prefill at 4 x 2048 (hd 256, 4 query heads on one
+# KV head), its local layers' 512-key window and its global layers' none.
+# No model phase runs it: gemma3 is served on the CPU in the tests only.
+FLASH_TIMED = (
+    ("gemma3 local layers", PREFILL_B, 4, 1, PREFILL_S, PREFILL_S, 256, True, 512,
+     torch.bfloat16, 1.0),
+    ("gemma3 global layers", PREFILL_B, 4, 1, PREFILL_S, PREFILL_S, 256, True, 0,
+     torch.bfloat16, 1.0),
+)
 
 
-def _causal_pairs(Sq: int, Sk: int) -> int:
-    """Unmasked (q, k) pairs of one head under the top-left causal mask."""
-    full = min(Sq, Sk)
-    return full * (full + 1) // 2 + max(0, Sq - Sk) * Sk
+def _causal_pairs(Sq: int, Sk: int, window: int = 0) -> int:
+    """Unmasked (q, k) pairs of one head under the top-left causal mask and
+    a window (0 <= q - k < window; 0 for none): what the kernel computes."""
+    return sum(max(0, min(q, Sk - 1) - (max(0, q - window + 1) if window else 0) + 1)
+               for q in range(Sq))
 
 
 def check_flash(rng: np.random.Generator, card: str) -> dict:
     """The flash-attention kernel against its plain version on the cases
     above (tolerance 2e-2 in bf16: one bf16 rounding of outputs near 1;
     1e-4 in f32: sums in another order), then timed at the three path shapes
-    (qwen2-0.5b's hd 64, olmoe-1b-7b's hd 128, zamba2-7b's hd 112) beside
-    its plain version and ``scaled_dot_product_attention``. The JSON entry
-    holds the last, the shape this slice adds."""
+    (qwen2-0.5b's hd 64, olmoe-1b-7b's hd 128, zamba2-7b's hd 112) and at
+    gemma3-1b's two (hd 256, ``FLASH_TIMED``) beside its plain version and
+    ``scaled_dot_product_attention``. The JSON entry holds zamba2-7b's."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
@@ -398,6 +427,8 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
 
     time_flash(FLASH_CASES[0], rng, card)
     time_flash(FLASH_CASES[1], rng, card)
+    for case in FLASH_TIMED:
+        time_flash(case, rng, card)
     entry = time_flash(FLASH_CASES[2], rng, card)
     return {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -406,8 +437,9 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
 
 
 def time_flash(case: tuple, rng: np.random.Generator, card: str) -> dict:
-    """The kernel timed at a causal bf16 path shape of ``FLASH_CASES``, beside
-    its plain version, ``scaled_dot_product_attention`` and its bound."""
+    """The kernel timed at a causal bf16 shape of ``FLASH_CASES`` or
+    ``FLASH_TIMED``, beside its plain version, ``scaled_dot_product_attention``
+    (with a boolean mask where there is a window) and its bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
@@ -418,19 +450,22 @@ def time_flash(case: tuple, rng: np.random.Generator, card: str) -> dict:
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
                for shape in ((B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
     ke, ve = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
-    flops = 4 * hd * _causal_pairs(Sq, Sk) * B * H
+    flops = 4 * hd * _causal_pairs(Sq, Sk, window) * B * H
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
     flop_ms, byte_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, ke, ve, is_causal=True), 20)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v), 20)
-    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v), 2)
-    log(f"kernels: flash_attention {label} q{tuple(q.shape)} k/v{tuple(k.shape)} bf16 causal: "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {flops} flops at 989 TFLOP/s = {flop_ms:.4f} ms, "
-        f"{nbytes} bytes at 3.35 TB/s = {byte_ms:.4f} ms); {flops / ms / 1e9:.1f} TFLOP/s, "
-        f"{100 * bound_ms / ms:.2f} % of its bound, {ms / library_ms:.3f}x the time of "
-        f"scaled_dot_product_attention ({card})")
+    qp, kp = torch.arange(Sq, device=dev)[:, None], torch.arange(Sk, device=dev)[None]
+    mask = (kp <= qp) & (qp - kp < window) if window else None
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, ke, ve, attn_mask=mask, is_causal=mask is None), 20)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, window=window), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, window=window), 2)
+    log(f"kernels: flash_attention {label} q{tuple(q.shape)} k/v{tuple(k.shape)} bf16 causal "
+        f"window={window}: {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops} flops at 989 TFLOP/s "
+        f"= {flop_ms:.4f} ms, {nbytes} bytes at 3.35 TB/s = {byte_ms:.4f} ms); "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.2f} % of its bound, "
+        f"{ms / library_ms:.3f}x the time of scaled_dot_product_attention ({card})")
     del q, k, v, ke, ve
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1199,7 +1234,7 @@ def ranges(targets) -> contextlib.ExitStack:
     """While active, each ``(owner, attribute, range)`` of ``targets`` (a
     function of a module, or a method of a class) runs inside a
     ``record_function`` range of that name, which ``split_device_time``
-    reads from the trace. A name with no dot is an outermost range."""
+    reads from the trace."""
     from torch.profiler import record_function
 
     stack = contextlib.ExitStack()
@@ -1238,49 +1273,58 @@ def ssm_ranges():
                    (lm.LM, "_decode_block", "shared"), (lm, "swiglu_mlp", "shared.mlp")])
 
 
+def open_ranges(events: list) -> dict:
+    """Each launch's open ``record_function`` ranges (innermost first), by
+    the launch's correlation id: the ranges and launches of each thread are
+    swept in time order with a stack of the ranges still open."""
+    by_tid: dict = {}
+    for ev in events:
+        cat, tid = ev.get("cat"), ev.get("tid")
+        if cat == "user_annotation":
+            # ties: a range opens before a launch at its start, an outer one before an inner one
+            by_tid.setdefault(tid, []).append((ev["ts"], 0, -ev.get("dur", 0.0), ev["name"]))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            corr = ev.get("args", {}).get("correlation")
+            if corr is not None:
+                by_tid.setdefault(tid, []).append((ev["ts"], 1, 0.0, corr))
+    out: dict = {}
+    for items in by_tid.values():
+        items.sort(key=lambda it: it[:3])
+        stack: list = []  # (end, name) of the open ranges, outermost first
+        for ts, is_launch, neg_dur, what in items:
+            while stack and stack[-1][0] < ts:
+                stack.pop()
+            if is_launch:
+                out[what] = tuple(name for _, name in reversed(stack))
+            else:
+                stack.append((ts - neg_dur, what))
+    return out
+
+
 def split_device_time(events: list, tag: str, what: str, part_of) -> None:
-    """The device time of a profile split by part: each kernel goes to the
-    innermost range that was open on the thread that launched it (found by
-    the launch's correlation id), and ``part_of(kind, range or None)``
-    names its part. Prints each part's seconds and share of the busy time."""
-    spans_by_tid: dict = {}
-    for ev in events:
-        if ev.get("cat") == "user_annotation":
-            spans_by_tid.setdefault(ev.get("tid"), []).append(
-                (ev["ts"], ev["ts"] + ev.get("dur", 0.0), ev["name"]))
-    for spans in spans_by_tid.values():
-        spans.sort()
-    launched_in: dict = {}
-    for ev in events:
-        corr = ev.get("args", {}).get("correlation")
-        if ev.get("cat") not in ("cuda_runtime", "cuda_driver") or corr is None:
-            continue
-        spans = spans_by_tid.get(ev.get("tid"), [])
-        j = bisect.bisect_right(spans, (ev["ts"], float("inf"), "")) - 1
-        while j >= 0:  # the latest-starting range that still holds the launch
-            start, end, name = spans[j]
-            if end >= ev["ts"]:
-                launched_in[corr] = name
-                break
-            if "." not in name:  # an outermost range that ended before: nothing earlier holds it
-                break
-            j -= 1
+    """The device time of a profile split by part: ``part_of(kind, ranges)``
+    names the part of each kernel, copy and fill from its kind and the
+    ranges that were open on the thread that launched it (innermost first;
+    found by the launch's correlation id). Prints each part's seconds and
+    share of the busy time."""
+    launched_in = open_ranges(events)
     parts: dict[str, float] = {}
     for ev in events:
         cat = ev.get("cat", "")
         if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
         kind = _kind(ev["name"]) if cat == "kernel" else cat
-        part = part_of(kind, launched_in.get(ev.get("args", {}).get("correlation")))
+        part = part_of(kind, launched_in.get(ev.get("args", {}).get("correlation"), ()))
         parts[part] = parts.get(part, 0.0) + ev.get("dur", 0.0) * 1e-6
     total = sum(parts.values())
-    if not launched_in:
+    if not any(launched_in.values()):
         log(f"{tag} {what} split: no kernel was launched inside a range")
     for part, sec in sorted(parts.items(), key=lambda kv: -kv[1]):
         log(f"{tag} {what} split {sec:.6f} s ({100 * sec / total:.2f} % of busy): {part}")
 
 
-def moe_part(kind: str, where: str | None) -> str:
+def moe_part(kind: str, ranges: tuple) -> str:
+    where = ranges[0] if ranges else None
     if kind == "flash_attention":
         return "flash_attention"
     if where == "moe.route":
@@ -1294,7 +1338,8 @@ def moe_part(kind: str, where: str | None) -> str:
     return f"outside the MoE layer: {kind}"
 
 
-def ssm_part(kind: str, where: str | None) -> str:
+def ssm_part(kind: str, ranges: tuple) -> str:
+    where = ranges[0] if ranges else None
     if kind == "flash_attention":
         return "flash_attention (the shared block)"
     if where == "mixer.intra":
@@ -1349,7 +1394,7 @@ def drive_moe(seed: int, card: str, out_dir: Path) -> int:
         f"{out['warmup_seconds']:.4f} s warm-up step, {out['tokens'].size / out['seconds']:.1f} "
         f"tokens/s, {1e3 * out['seconds'] / 32:.3f} ms per step, peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes, flash_attention launches {decode_launches}; "
-        f"{serve_wall:.3f} s for the whole CLI, the weights' draw on the host included ({card})")
+        f"{serve_wall:.3f} s for the whole CLI, the weights' draw on the card included ({card})")
 
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
@@ -1413,8 +1458,8 @@ def card_vs_cpu(seed: int, arch: str = MODEL) -> None:
             last = make_prefill_step(model)(params, {"tokens": tokens.to(dev)})
         positions = torch.arange(SMALL_S, device=dev)[None].expand(SMALL_B, SMALL_S)
         with torch.no_grad():
-            h = model._run_decoder_stack(params, params["embed"][tokens.to(dev)].bfloat16(),
-                                         positions=positions)
+            h, _ = model._run_decoder_stack(params, params["embed"][tokens.to(dev)].bfloat16(),
+                                            positions=positions)
             greedy = model._head(params, h).argmax(dim=-1)  # every position's greedy token
         cache = {name: torch.from_numpy(a).to(dev, torch.bfloat16) for name, a in cache_np.items()}
         with mc.RouteLog() as dec:
@@ -1503,6 +1548,43 @@ def moe_layer_card_vs_cpu(seed: int, card: str) -> None:
         raise AssertionError(f"moe_layer card vs CPU: y differs by {worst} ulps > {MOE_Y_ULPS}")
 
 
+def moe_gather_backward_card_vs_cpu(seed: int, card: str) -> None:
+    """The backward of ``_moe_tokens``'s dispatch gather ``xt[r.st]`` on
+    identical inputs on the card and on the CPU, at olmoe-1b-7b's widths and
+    T = PREFILL_B x PREFILL_S: an accumulating ``index_put_`` that adds each
+    token's K row gradients into its row of xt's bf16 gradient. The CPU
+    adds them in index order, ascending expert (the reference's
+    scatter-add order); held bit for bit."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_moe_criteria as mc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import _capacity, _route, dense_init
+
+    cfg = get_arch(MOE_MODEL)
+    T, D, E, K = PREFILL_B * PREFILL_S, cfg.d_model, cfg.moe_experts, cfg.moe_top_k
+    g = torch.Generator().manual_seed(seed + 7)
+    bf = torch.bfloat16
+    x = torch.randn((T, D), generator=g).to(bf)
+    wr = dense_init(g, (D, E), bf)
+    st = _route(x.to("cuda"), wr.to("cuda"), top_k=K,
+                capacity=_capacity(T, K, E, cfg.capacity_factor)).st.cpu()
+    up = torch.randn((T * K, D), generator=g).to(bf)
+    grads = {}
+    for where in ("cuda", "cpu"):
+        xt = x.to(where, copy=True).requires_grad_()
+        xt[st.to(where)].backward(up.to(where))
+        grads[where] = xt.grad.float().cpu().numpy()
+    a, b = grads["cuda"], grads["cpu"]
+    ulps = np.abs(a - b) / mc.bf16_ulp(b)
+    log(f"moe gather backward card vs CPU: xt (T={T}, D={D}) gradient of xt[st], {K} rows a "
+        f"token: {100 * float((a == b).mean()):.4f} % of elements equal bit for bit, at most "
+        f"{float(ulps.max()):.3f} bf16 ulps apart ({card})")
+    if not np.array_equal(a, b):
+        raise AssertionError("moe gather backward: the card's gradient of xt differs from the "
+                             "CPU's")
+
+
 # ---------------------------------------------------------------- phase 5c
 # mamba2-2.7b (SSM, no attention) and zamba2-7b (hybrid: one shared attention
 # + MLP block after every 6 Mamba2 layers) at full width and depth
@@ -1569,7 +1651,7 @@ def drive_ssm(arch: str, seed: int, card: str, out_dir: Path) -> int:
         f"{sum(cache.values())} bytes "
         f"({', '.join(f'{k} {v}' for k, v in cache.items())}), flash_attention launches "
         f"{decode_launches} (decode attends with the plain gqa_attention); {serve_wall:.3f} s "
-        f"for the whole CLI, the weights' draw on the host included ({card})")
+        f"for the whole CLI, the weights' draw on the card included ({card})")
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
     prefill_launches = timed_prefills(model, params, tokens, tag, card)
@@ -1620,12 +1702,8 @@ def _ssm_run(cfg, weights, tokens: torch.Tensor, where: str) -> tuple:
     t = tokens.to(model.device)
     last = make_prefill_step(model)(params, {"tokens": t})
     with torch.no_grad():
-        h = params["embed"][t].to(dt(cfg))
-        if cfg.family == "ssm":
-            h = model._run_ssm_stack(params, h)
-        else:
-            positions = torch.arange(t.shape[1], device=t.device)[None].expand(t.shape)
-            h = model._run_hybrid_stack(params, h, positions=positions)
+        positions = torch.arange(t.shape[1], device=t.device)[None].expand(t.shape)
+        h, _ = model._run_stack(params, params["embed"][t].to(dt(cfg)), positions=positions)
         greedy = model._head(params, h).argmax(dim=-1)
     cache, steps = model.init_cache(*t.shape), []
     for i in range(SSM_DECODE_STEPS):
@@ -1928,12 +2006,16 @@ def account_blocks(fm_stats: list, blob2: bytes, blob4: bytes, chunks4: int) -> 
 def _train_step_both(cfg, batch: dict, seed: int, lr: float) -> dict:
     """One train step (its two halves: loss and gradients, then AdamW) on
     the CPU and on the card from the same weights: the seeded bf16 weights
-    (one CPU generator), upcast for a float32 ``cfg``. On the card AdamW
-    also runs once more from the CPU's gradients. Returns {"cpu" | "cuda" |
-    "cuda from CPU gradients": (loss, grads, params, opt, gradient norm)}
-    as numpy."""
+    (one CPU generator, one draw), upcast for a float32 ``cfg``. On the card
+    AdamW also runs once more from the CPU's gradients; for the SSD families
+    in bf16 the CPU's step runs again with every SSD output nudged one f32
+    ulp up and down (``ssd_nudged``). Returns {"cpu" | "cuda" | "cuda from
+    CPU gradients" | "cpu nudged up" | "cpu nudged down": (loss, grads,
+    params, opt, gradient norm, the loss's ``_route`` calls)}, the trees
+    left on their device."""
     import dataclasses
 
+    import _torch_moe_criteria as mc
     import _torch_train_criteria as crit
 
     from repro_torch.models.registry import build_model
@@ -1942,26 +2024,122 @@ def _train_step_both(cfg, batch: dict, seed: int, lr: float) -> dict:
     from repro_torch.tree import tree_leaves, tree_map
 
     bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    weights = build_model(bf16, device="cpu").init_params(torch.Generator().manual_seed(seed))
+    if cfg.dtype != "bfloat16":
+        weights = tree_map(lambda p: p.float(), weights)
+    runs = [("cpu", "cpu", None), ("cuda", "cuda", None)]
+    if cfg.is_ssm and cfg.dtype == "bfloat16":
+        runs[1:1] = [("cpu nudged up", "cpu", math.inf), ("cpu nudged down", "cpu", -math.inf)]
     seen, cpu_grads = {}, None
-    for where in ("cpu", "cuda"):
+    for label, where, to in runs:
         model = build_model(cfg, device=where)
-        params = build_model(bf16, device=where).init_params(torch.Generator().manual_seed(seed))
-        if cfg.dtype != "bfloat16":
-            params = tree_map(lambda p: p.float(), params)
+        params = tree_map(lambda p: p.to(model.device), weights)
         b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
-        loss, grads = loss_and_grads(model, params, b)
+        with mc.RouteLog() as routes, (crit.ssd_nudged(to) if to else contextlib.nullcontext()):
+            loss, grads = loss_and_grads(model, params, b)
         new, opt = adamw_update(params, grads, adamw_init(params), AdamWConfig(lr=lr))
         norm = float(sum(torch.sum(g.float() ** 2) for g in tree_leaves(grads))) ** 0.5
-        seen[where] = (float(loss), crit.to_np(grads), crit.to_np(new), crit.to_np(opt), norm)
-        if where == "cpu":
+        seen[label] = (float(loss), grads, new, opt, norm, routes.calls)
+        if label == "cpu":
             cpu_grads = grads
-        else:
+        elif label == "cuda":
             g = tree_map(lambda x: x.to(model.device), cpu_grads)
             new, opt = adamw_update(params, g, adamw_init(params), AdamWConfig(lr=lr))
-            seen["cuda from CPU gradients"] = (None, None, crit.to_np(new), crit.to_np(opt),
-                                               seen["cpu"][4])
+            seen["cuda from CPU gradients"] = (None, None, new, opt, seen["cpu"][4], None)
         del model, params, grads, new, opt
     return seen
+
+
+def _step_summary(m: dict) -> str:
+    pooled = sum(x["within"] for x in m.values()) / sum(x["size"] for x in m.values())
+    return (f"m {max(x['m'] for x in m.values()):.4f}, v {max(x['v'] for x in m.values()):.4f}; "
+            f"within 1 bf16 ulp {pooled:.4f} of all parameters (least leaf "
+            f"{min(x['share'] for x in m.values()):.4f}); largest |diff| / (ulp + 2 lr) "
+            f"{max(x['ratio'] for x in m.values()):.4f}")
+
+
+def train_check(cfg, width: str, B: int, S: int, lr: float, data_seed: int, seed: int,
+                criteria: bool, pooled: bool = False) -> bool:
+    """One train step of ``cfg`` on the card against the CPU
+    (``_train_step_both``), printed, and held to the criteria of
+    ``tests/_torch_train_criteria.py`` where ``criteria``. Always held: the
+    loss, step, the final norm's gradient and AdamW on the card from the
+    CPU's gradients. MoE: on each device the backward's recompute routes as
+    the forward did, and the forward's routes meet
+    ``tests/_torch_moe_criteria.py``; the gradients and the step are held
+    only if no route differs (else printed). SSD families: where the CPU's
+    own step misses the criteria with every SSD output nudged one f32 ulp up
+    or down, the step is ill-conditioned, and the criteria are widened by
+    that distance (leaf by leaf, the farther nudge), as the CPU tests hold
+    reduced zamba2's second step. ``pooled`` takes the 1-ulp share of the
+    updated parameters over all of them instead of leaf by leaf (the CPU
+    tests' second step). The trees are compared on the card. Returns
+    whether the step was held."""
+    import _torch_moe_criteria as mc
+    import _torch_train_criteria as crit
+
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    t0 = time.perf_counter()
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
+                                   seed=data_seed)).next_batch()
+    seen = _train_step_both(cfg, batch, seed, lr)
+    tag = (f"{cfg.name} {width}, {cfg.n_layers} layer{'s' if cfg.n_layers > 1 else ''}, "
+           f"{cfg.dtype}, {B} x {S} tokens, lr {lr}")
+    (lc, gc, pc, oc, nc, rc), (lh, gh, ph, oh, nh, rh) = seen["cuda"], seen["cpu"]
+    gerr = crit.grad_errors(gc, gh)
+    m = crit.step_metrics(pc, oc, ph, oh, lr)
+    mx = crit.step_metrics(*seen["cuda from CPU gradients"][2:4], ph, oh, lr)
+    verdict = "held" if criteria else "not met here, not held (see train_card_vs_cpu)"
+    if cfg.family == "moe":
+        L = cfg.n_layers
+        for where, calls in (("card", rc), ("CPU", rh)):
+            again = calls[L:][::-1]  # the backward recomputes from the last layer back
+            if len(calls) != 2 * L or not all(
+                    np.array_equal(a[k], b[k]) for a, b in zip(calls[:L], again)
+                    for k in ("probs", "routed", "kept")):
+                raise AssertionError(f"train card vs CPU {tag}: the {where}'s recompute routed "
+                                     f"otherwise than its forward")
+        res = mc.compare_routes(rc[:L], rh[:L], cfg.moe_top_k, B)
+        flips = sum(lay["flips_below_delta"] + lay["flips_after_upstream_flip"]
+                    + lay["drop_changes"] for lay in res["layers"])
+        log(f"train card vs CPU: {tag}: routes: the recompute routed as the forward on both "
+            f"devices; {flips} tokens' expert sets or drops differ (all below delta "
+            f"{mc.ROUTE_DELTA}), largest margin shift {res['max_shift']:.3e}")
+        if flips and criteria:
+            verdict = f"not held: {flips} routes differ between the devices (printed)"
+    floor = gfloor = None
+    nudged = [label for label in ("cpu nudged up", "cpu nudged down") if label in seen]
+    if nudged:
+        mns = [crit.step_metrics(*seen[label][2:4], ph, oh, lr) for label in nudged]
+        gens = [crit.grad_errors(seen[label][1], gh) for label in nudged]
+        for label, mn, gen in zip(nudged, mns, gens):
+            log(f"train card vs CPU: {tag}: the CPU against itself with the SSD {label[4:]}: "
+                f"gradients within {max(gen.values()):.4f}; {_step_summary(mn)}; the criteria "
+                f"{'met' if crit.meets(mn, gen) else 'missed: ill-conditioned'}")
+        if not all(crit.meets(mn, gen) for mn, gen in zip(mns, gens)) and criteria:
+            floor = crit.widest(mns)
+            gfloor = {n: max(gen[n] for gen in gens) for n in gens[0]}
+            verdict = ("held, widened by the CPU's own distance under the SSD nudge "
+                       "(ill-conditioned)")
+    log(f"train card vs CPU: {tag}: loss {lc:.6f} / {lh:.6f} (|diff| {abs(lc - lh):.3e}); "
+        f"gradient norm {nc:.4f} / {nh:.4f}; gradients within {max(gerr.values()):.4f} "
+        f"relative L2 (final norm {gerr['final_ln']:.4f}); the step: {_step_summary(m)}; AdamW "
+        f"on the card from the CPU's gradients: {_step_summary(mx)}; the criteria {verdict}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (np.isfinite(lc) and abs(lc - lh) <= crit.LOSS_ATOL):
+        raise AssertionError(f"train card vs CPU {tag}: loss {lc} against {lh}")
+    if int(oc["step"]) != int(oh["step"]) or int(oc["step"]) != 1:
+        raise AssertionError(f"train card vs CPU {tag}: step differs")
+    if gerr["final_ln"] > crit.GRAD_RTOL + (gfloor["final_ln"] if gfloor else 0.0):
+        raise AssertionError(f"train card vs CPU {tag}: final norm gradient {gerr['final_ln']}")
+    crit.assert_step_close(mx)
+    if verdict.startswith("held"):
+        for n, e in gerr.items():
+            if e > crit.GRAD_RTOL + (gfloor[n] if gfloor else 0.0):
+                raise AssertionError(f"train card vs CPU {tag}: gradient {n} {e}")
+        crit.assert_step_close(m, floor, pooled=pooled)
+    return verdict.startswith("held")
 
 
 def train_card_vs_cpu(seed: int) -> None:
@@ -1991,56 +2169,268 @@ def train_card_vs_cpu(seed: int) -> None:
     import dataclasses
 
     sys.path.insert(0, str(ROOT / "tests"))
-    import _torch_train_criteria as crit
-
     from repro_torch.configs import get_arch
-    from repro_torch.train.data import DataConfig, SyntheticLM
-
-    def summary(m: dict) -> str:
-        pooled = sum(x["within"] for x in m.values()) / sum(x["size"] for x in m.values())
-        return (f"m {max(x['m'] for x in m.values()):.4f}, v {max(x['v'] for x in m.values()):.4f}; "
-                f"within 1 bf16 ulp {pooled:.4f} of all parameters (least leaf "
-                f"{min(x['share'] for x in m.values()):.4f}); largest |diff| / (ulp + 2 lr) "
-                f"{max(x['ratio'] for x in m.values()):.4f}")
-
-    def check(cfg, B: int, S: int, lr: float, data_seed: int, criteria: bool) -> None:
-        batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
-                                       seed=data_seed)).next_batch()
-        seen = _train_step_both(cfg, batch, seed, lr)
-        width = "full width" if cfg.d_model == get_arch(MODEL).d_model else "reduced"
-        tag = (f"{cfg.name} {width}, {cfg.n_layers} layer{'s' if cfg.n_layers > 1 else ''}, "
-               f"{cfg.dtype}, {B} x {S} tokens, lr {lr}")
-        (lc, gc, pc, oc, nc), (lh, gh, ph, oh, nh) = seen["cuda"], seen["cpu"]
-        gerr = crit.grad_errors(gc, gh)
-        m = crit.step_metrics(pc, oc, ph, oh, lr)
-        _, _, px, ox, _ = seen["cuda from CPU gradients"]
-        mx = crit.step_metrics(px, ox, ph, oh, lr)
-        log(f"train card vs CPU: {tag}: loss {lc:.6f} / {lh:.6f} (|diff| {abs(lc - lh):.3e}); "
-            f"gradient norm {nc:.4f} / {nh:.4f}; gradients within {max(gerr.values()):.4f} "
-            f"relative L2 (final norm {gerr['final_ln']:.4f}); the step: {summary(m)}; AdamW on "
-            f"the card from the CPU's gradients: {summary(mx)}; the criteria "
-            f"{'held' if criteria else 'not met here, not held (see the docstring)'}")
-        if not (np.isfinite(lc) and abs(lc - lh) <= crit.LOSS_ATOL):
-            raise AssertionError(f"train card vs CPU {tag}: loss {lc} against {lh}")
-        if int(oc["step"]) != int(oh["step"]) or int(oc["step"]) != 1:
-            raise AssertionError(f"train card vs CPU {tag}: step differs")
-        if gerr["final_ln"] > crit.GRAD_RTOL:
-            raise AssertionError(f"train card vs CPU {tag}: final norm gradient {gerr['final_ln']}")
-        crit.assert_step_close(mx)
-        if criteria:
-            if max(gerr.values()) > crit.GRAD_RTOL:
-                raise AssertionError(f"train card vs CPU {tag}: gradient errors {gerr}")
-            crit.assert_step_close(m)
 
     for arch in ("qwen2_0_5b", "gemma3_1b"):
         cfg = get_arch(arch).reduced()
-        check(cfg, 2, 64, 3e-4, seed, criteria=True)
-        check(cfg, 1, TRAIN_S, 3e-4, seed, criteria=True)
+        train_check(cfg, "reduced", 2, 64, 3e-4, seed, seed, criteria=True)
+        train_check(cfg, "reduced", 1, TRAIN_S, 3e-4, seed, seed, criteria=True)
     full = get_arch(MODEL)
-    check(dataclasses.replace(full, n_layers=1, dtype="float32"), 1, TRAIN_S, TRAIN_LR,
-          seed + 3, criteria=True)
-    check(dataclasses.replace(full, n_layers=TRAIN_SMALL_LAYERS), TRAIN_SMALL_B, TRAIN_SMALL_S,
-          TRAIN_LR, seed + 3, criteria=False)
+    train_check(dataclasses.replace(full, n_layers=1, dtype="float32"), "full width", 1, TRAIN_S,
+                TRAIN_LR, seed + 3, seed, criteria=True)
+    train_check(dataclasses.replace(full, n_layers=TRAIN_SMALL_LAYERS), "full width",
+                TRAIN_SMALL_B, TRAIN_SMALL_S, TRAIN_LR, seed + 3, seed, criteria=False)
+
+
+# ---------------------------------------------------------------- phase 7b
+# the MoE, SSM and hybrid families trained at the architectures' published
+# widths on one card, at the most layers whose measured peak stays under
+# ~70 GB (full depth does not fit: AdamW here is functional, so the old and
+# the new params/m/v are alive together during the update, ~22 bytes a
+# parameter with the bf16 gradients)
+FAMILY_TRAIN_DEPTHS = {"olmoe_1b_7b": 5, "mamba2_2_7b": 56, "zamba2_7b": 27}
+FAMILY_TIMED_STEPS = 3
+# card vs CPU at full width in f32: the fewest layers that hold each part
+FAMILY_CHECK_LAYERS = {"olmoe_1b_7b": 1, "mamba2_2_7b": 1, "zamba2_7b": 7}
+FAMILY_CHECK_S = 256
+# the launcher at the reduced configs, each family: crash at step 8, one
+# checkpoint host down, restore from the step-5 save, steps 6-8 redone
+LAUNCHER_ARGS = ["--steps", "12", "--ckpt-every", "5", "--crash-at", "8", "--kill-hosts", "1",
+                 "--ckpt-hosts", "6", "--ckpt-parity", "2", "--batch", "2", "--seq", "32"]
+
+
+def train_ranges(family: str) -> contextlib.ExitStack:
+    """The ranges of a train step's profile: ``forward`` (the whole
+    ``loss_fn``, on the calling thread), ``layer`` (each checkpointed layer:
+    the forward's and, on the backward's thread, its recompute), ``adamw``
+    (the update), and the family's parts (``moe_ranges``, ``ssm_ranges``)."""
+    from repro_torch.models import lm
+    from repro_torch.train import steps
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(ranges([(lm.LM, "loss_fn", "forward"), (steps, "adamw_update", "adamw"),
+                                (lm.LM, "_dense_block", "layer"),
+                                (lm.LM, "_mamba_layer", "layer")]))
+    stack.enter_context(moe_ranges() if family == "moe" else ssm_ranges())
+    return stack
+
+
+def train_part(family_part):
+    """``part_of`` for a train step: forward, recompute (a checkpointed
+    layer run again on the backward's thread), backward (everything else on
+    that thread) and AdamW, the first two split by ``family_part``."""
+    def part_of(kind: str, where: tuple) -> str:
+        if "adamw" in where:
+            return f"AdamW: {kind}"
+        if "forward" in where:
+            return f"forward: {family_part(kind, where)}"
+        if "layer" in where:
+            return f"recompute: {family_part(kind, where)}"
+        return f"backward: {kind}"
+
+    return part_of
+
+
+def drive_family_training(arch: str, seed: int, card: str, out_dir: Path) -> dict:
+    """``arch`` at its published widths and FAMILY_TRAIN_DEPTHS layers,
+    weights drawn on the card from the seed, B=TRAIN_B x TRAIN_S from
+    ``SyntheticLM``, AdamW at lr TRAIN_LR: a warm-up step, then
+    FAMILY_TIMED_STEPS timed steps (finite losses, median train tokens/s,
+    peak device memory), the gradient's norm on the next batch (MoE: its
+    routes recorded, the recompute's checked equal to the forward's, the
+    drop share of the first and last layer), then one more step under
+    ``torch.profiler``, split into forward, recompute, backward and AdamW
+    and by the family's parts. Returns the numbers for the summary line."""
+    import dataclasses
+    import gc
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_moe_criteria as mc
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.layers import _capacity
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+    from repro_torch.tree import tree_leaves
+
+    full = get_arch(arch)
+    depth = FAMILY_TRAIN_DEPTHS[arch]
+    cfg = dataclasses.replace(full, n_layers=depth)
+    tag = f"train {arch.split('_')[0]}"
+    log(f"reduced: n_layers {full.n_layers} -> {depth} ({cfg.name} training on one card)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = build_model(cfg, max_pos=TRAIN_S, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    log(f"{tag}: {cfg.name} {model.n_params()} parameters ({depth} of {full.n_layers} layers, "
+        f"full width d {cfg.d_model}), B={TRAIN_B} x S={TRAIN_S}, AdamW lr {TRAIN_LR}, random "
+        f"weights drawn on the card (seed {seed}) in {time.perf_counter() - t0:.3f} s; {held} "
+        f"bytes held before the phase")
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                  seed=seed))
+    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+    next_batch = lambda: {k: torch.from_numpy(v).to("cuda")  # noqa: E731
+                          for k, v in data.next_batch().items()}
+    losses, walls = [], []
+    for _ in range(1 + FAMILY_TIMED_STEPS):
+        batch = next_batch()
+        t = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, batch)
+        loss = float(loss)  # waits for the step
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if not np.isfinite(loss):
+            raise AssertionError(f"{tag}: loss {loss} is not finite")
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    timed = walls[1:]
+    median = sorted(timed)[len(timed) // 2]
+    tps = TRAIN_B * TRAIN_S / median
+    log(f"{tag}: {tps:.1f} train tokens/s (median step {median:.4f} s of "
+        f"{', '.join(f'{w:.4f}' for w in timed)} after a {walls[0]:.4f} s warm-up step); losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; peak device memory {peak} bytes "
+        f"({peak / 1e9:.3f} GB) ({card})")
+
+    batch = next_batch()
+    with mc.RouteLog() as routes:
+        loss, grads = loss_and_grads(model, params, batch)
+    norm = float(sum(torch.sum(g.float() ** 2) for g in tree_leaves(grads))) ** 0.5
+    del grads
+    log(f"{tag}: gradient norm {norm:.4e} on the next batch (loss {float(loss):.6f}), so the "
+        f"clip scales the step by {min(1.0, 1 / norm):.4e}")
+    drops = {}
+    if cfg.family == "moe":
+        L, T = cfg.n_layers, TRAIN_B * TRAIN_S
+        fwd, again = routes.calls[:L], routes.calls[L:][::-1]
+        if len(routes.calls) != 2 * L:
+            raise AssertionError(f"{tag}: {len(routes.calls)} routings for {L} layers")
+        for i, (a, b) in enumerate(zip(fwd, again)):
+            if not all(np.array_equal(a[k], b[k]) for k in ("probs", "routed", "kept")):
+                raise AssertionError(f"{tag}: layer {i}'s recompute routed otherwise")
+        C = _capacity(T, cfg.moe_top_k, cfg.moe_experts, cfg.capacity_factor)
+        for i in (0, L - 1):
+            n, kept = int(fwd[i]["routed"].sum()), int(fwd[i]["kept"].sum())
+            drops[i] = 100 * (n - kept) / n
+            log(f"{tag}: layer {i}: {n - kept} of {n} assignments dropped at capacity C={C} "
+                f"({drops[i]:.3f} %)")
+        log(f"{tag}: the backward's recompute routed every layer as the forward did "
+            f"(probabilities, expert sets and drops equal bit for bit)")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            train_ranges(cfg.family):
+        t = time.perf_counter()
+        params, opt, loss = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    if not torch.isfinite(loss):
+        raise AssertionError(f"{tag}: the profiled step's loss is not finite")
+    name = arch.split("_")[0]
+    events = device_busy(prof, out_dir / f"train_{name}_trace.json", wall,
+                         f"profile {tag} step:")
+    split_device_time(events, f"profile {tag} step:", "train",
+                      train_part(moe_part if cfg.family == "moe" else ssm_part))
+    del model, params, opt, prof, events, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "depth": depth, "tokens_per_s": tps, "peak": peak, "norm": norm,
+            "drops": drops}
+
+
+def drive_train_launcher(arch: str, card: str, totals: dict) -> None:
+    """``repro_torch.launch.train`` on the card at ``arch``'s reduced
+    config with LAUNCHER_ARGS: the restored state must equal the step-5
+    save bit for bit (parameters, AdamW state, data state) and the redone
+    steps 6-8 must repeat their losses bit for bit. The storage kernels are
+    counted from 0 and added to ``totals``."""
+    from repro_torch.kernels.cdc_gearhash import ops as cdc
+    from repro_torch.kernels.gf256_matmul import ops as gf
+    from repro_torch.launch import train
+    from repro_torch.train.checkpoint import ECCheckpointStore
+    from repro_torch.tree import named_leaves
+
+    saved, restored = {}, []
+    real_save, real_restore = ECCheckpointStore.save, ECCheckpointStore.restore
+
+    def save(self, step, state, *a, **kw):
+        saved[step] = {part: {n: v.clone() for n, v in named_leaves(state[part])}
+                       for part in ("params", "opt")}
+        saved[step]["data"] = dict(state["data"])
+        return real_save(self, step, state, *a, **kw)
+
+    def restore(self, *a, **kw):
+        out = real_restore(self, *a, **kw)
+        restored.append(out)
+        return out
+
+    cdc.launches = 0
+    gf.launches = 0
+    ECCheckpointStore.save, ECCheckpointStore.restore = save, restore
+    try:
+        t = time.perf_counter()
+        out = train.main(["--arch", arch] + LAUNCHER_ARGS)
+        wall = time.perf_counter() - t
+    finally:
+        ECCheckpointStore.save, ECCheckpointStore.restore = real_save, real_restore
+    counts = {"cdc_gearhash": cdc.launches, "gf256_matmul": gf.launches}
+    losses = out["losses"]
+    (step, state), = restored
+    for part in ("params", "opt"):
+        got = dict(named_leaves(state[part]))
+        for n, value in saved[step][part].items():
+            if got[n].device != value.device or not torch.equal(got[n], value):
+                raise AssertionError(f"launcher {arch}: restored {part} {n} differs")
+    if {k: int(v) for k, v in state["data"].items()} != saved[step]["data"]:
+        raise AssertionError(f"launcher {arch}: restored data state differs")
+    if step != 5 or losses[5:8] != losses[8:11] or not np.isfinite(losses).all():
+        raise AssertionError(f"launcher {arch}: restored step {step}, losses {losses}")
+    for n, c in counts.items():
+        if not c:
+            raise AssertionError(f"launcher {arch}: the checkpoints never launched {n}")
+        totals[n] = totals.get(n, 0) + c
+    log(f"launcher {arch} (reduced, {' '.join(LAUNCHER_ARGS)}): {wall:.3f} s; saves at steps "
+        f"{[st.step for st in out['ckpts']]}; restored step {step} with one host down, bit for "
+        f"bit on the card; steps 6-8 redone with equal losses "
+        f"({', '.join(f'{x:.6f}' for x in losses[5:8])}); launches {counts} ({card})")
+
+
+def family_train_card_vs_cpu(seed: int) -> None:
+    """One train step of the MoE, SSM and hybrid families on the card
+    against the CPU (``train_check``): the reduced configs of olmoe-1b-7b,
+    qwen3-moe-30b-a3b, mamba2-2.7b and zamba2-7b at B=2 x 64 in bf16 at
+    ``AdamWConfig()``'s lr; and at full width in f32 (``dtype="float32"``,
+    the bf16 weights upcast) at the fewest layers that hold each part, B=1 x
+    FAMILY_CHECK_S at lr TRAIN_LR: olmoe and mamba2 at one layer, zamba2 at
+    seven (a group of six, the shared block, a trailing layer). The f32
+    steps must hold: they are the precise witnesses of the bf16 ones
+    (zamba2's with its 1-ulp share taken over all parameters: see below)."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from repro_torch.configs import get_arch
+
+    for arch in ("olmoe_1b_7b", "qwen3_moe_30b_a3b", "mamba2_2_7b", "zamba2_7b"):
+        train_check(get_arch(arch).reduced(), "reduced", 2, 64, 3e-4, seed, seed, criteria=True)
+    for arch, layers in FAMILY_CHECK_LAYERS.items():
+        cfg = dataclasses.replace(get_arch(arch), n_layers=layers, dtype="float32")
+        # zamba2: shared.ln2 starts at 0 and its clipped gradients (global
+        # norm ~2.2e3) sit near Adam's eps, where the f32 update follows the
+        # gradient; the near-argmax shared attention moves the card's norm
+        # 0.15 % from the CPU's (an H100's), so ~2.3 % of that leaf's updates land
+        # more than a bf16 ulp of themselves apart (all within 3e-4 of
+        # ulp + 2 lr): its 1-ulp share is held over all parameters
+        if not train_check(cfg, "full width", 1, FAMILY_CHECK_S, TRAIN_LR, seed + 3, seed,
+                           criteria=True, pooled=arch == "zamba2_7b"):
+            raise AssertionError(f"train card vs CPU: {arch} at full width in f32 not held")
 
 
 def main() -> int:
@@ -2056,6 +2446,7 @@ def main() -> int:
     # the plain versions run their f32 products in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.configs import get_arch
     from repro_torch.configs.paper_store import EMULAB  # fails outside a checkout
     from repro_torch.kernels.cdc_gearhash import ops as cdc
     from repro_torch.kernels.gf256_matmul import ops as gf
@@ -2084,6 +2475,14 @@ def main() -> int:
         f"CPU for {MODEL}, {', '.join(MOE_CHECK_ARCHS)} at full width, {SMALL_LAYERS} layers (cut "
         f"from the depth), {SMALL_B} x {SMALL_S} tokens; for "
         f"{', '.join(f'{a} at {n} layers' for a, n in SSM_CHECK_LAYERS.items())}")
+    log(f"config: training {', '.join(FAMILY_TRAIN_DEPTHS)} at full width, B={TRAIN_B} x "
+        f"S={TRAIN_S}, AdamW lr {TRAIN_LR}; cuts: "
+        + ", ".join(f"{a} n_layers {get_arch(a).n_layers} -> {d}"
+                    for a, d in FAMILY_TRAIN_DEPTHS.items())
+        + " (one card's 80 GB); their launcher runs at the reduced configs")
+    def elapsed(after: str) -> None:
+        log(f"elapsed: {time.perf_counter() - t_start:.3f} s after {after} ({card})")
+
     # phase 2
     build(args.out)
     # phase 3
@@ -2096,6 +2495,7 @@ def main() -> int:
     kernels = [check_gf256(path_L, rng, card), check_gearhash(data, rng, card),
                check_flash(rng, card)]
     torch.cuda.empty_cache()
+    elapsed("phases 1-3")
     # phase 4: the storage path, counted from zero
     payload = data.tobytes()
     del data, chunks
@@ -2124,10 +2524,12 @@ def main() -> int:
                                  f"{on_card[key]!r} != {on_cpu[key]!r}")
     log(f"path: {SMALL_FILE}-byte file gives the same stats and trace on the card as on the CPU")
     torch.cuda.empty_cache()
+    elapsed("phase 4")
     # phase 5: the model path, counted from zero inside drive_model
     counts["flash_attention"] = drive_model(args.seed, card, args.out)
     torch.cuda.empty_cache()
     card_vs_cpu(args.seed)
+    elapsed("phase 5")
     # phase 5b: the MoE family, flash_attention counted from zero inside drive_moe
     counts["flash_attention"] += drive_moe(args.seed, card, args.out)
     torch.cuda.empty_cache()
@@ -2135,6 +2537,7 @@ def main() -> int:
         card_vs_cpu(args.seed, arch)
     moe_layer_card_vs_cpu(args.seed, card)
     torch.cuda.empty_cache()
+    elapsed("phase 5b")
     # phase 5c: the SSM and hybrid families, one model at a time, flash_attention counted
     # from zero inside drive_ssm
     for arch in SSM_MODELS:
@@ -2145,6 +2548,7 @@ def main() -> int:
             raise AssertionError(f"{arch}: the f32 card-vs-CPU check did not hold every "
                                  f"criterion")
     torch.cuda.empty_cache()
+    elapsed("phase 5c")
     # phase 6: the store's users, each path counted from zero inside counted_phase
     worst = {"gf256_matmul": 0, "cdc_gearhash": 0}
     check_ycsb_shapes(args.seed, card, worst)
@@ -2152,9 +2556,23 @@ def main() -> int:
     drive_sanitized(args.seed, args.out, card, counts)
     ycsb_card_vs_cpu(args.seed)
     drive_checkpoint(args.seed, args.out, card, counts, worst)
+    elapsed("phase 6")
     # phase 7: training with checkpoints, the storage kernels counted from zero inside
     drive_training(args.seed, args.out, card, counts, worst)
     train_card_vs_cpu(args.seed)
+    elapsed("phase 7")
+    # phase 7b: the MoE, SSM and hybrid families trained at full width (depth cut to fit),
+    # the storage kernels counted from zero inside each launcher run
+    t7b = time.perf_counter()
+    trained = [drive_family_training(arch, args.seed, card, args.out)
+               for arch in FAMILY_TRAIN_DEPTHS]
+    moe_gather_backward_card_vs_cpu(args.seed, card)
+    family_train_card_vs_cpu(args.seed)
+    for arch in FAMILY_TRAIN_DEPTHS:
+        drive_train_launcher(arch, card, counts)
+    log(f"phase 7b: {time.perf_counter() - t7b:.3f} s; "
+        + "; ".join(f"{t['arch']} at {t['depth']} layers {t['tokens_per_s']:.1f} train tokens/s, "
+                    f"peak {t['peak'] / 1e9:.3f} GB" for t in trained) + f" ({card})")
 
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]

@@ -9,11 +9,19 @@ trains an LM while it checkpoints the whole state (parameters, AdamW state,
 data-pipeline state) to an ``ECCheckpointStore`` every ``--ckpt-every``
 steps, crashes the trainer and ``--kill-hosts`` checkpoint hosts at
 ``--crash-at``, restores from the surviving hosts (k-of-n decode) and
-finishes. ``--full`` takes the architecture at full width and depth, on the
-GPU (the default ``--device cuda``; it raises where there is none), e.g.
-``--arch qwen2_0_5b --full --batch 4 --seq 2048``. Weights come from
-``torch.Generator().manual_seed(0)``; ``main(argv, params=...)`` starts from
-given parameters instead.
+finishes. ``--arch`` takes every ported family: dense (``qwen2_0_5b``,
+``qwen3_0_6b``, ``gemma3_1b``, ``chatglm3_6b``), MoE (``olmoe_1b_7b``,
+``qwen3_moe_30b_a3b``; the loss adds ``0.01`` times the auxiliary loss), SSM
+(``mamba2_2_7b``) and hybrid (``zamba2_7b``). ``--full`` takes the
+architecture at full width and depth, on the GPU (the default ``--device
+cuda``; it raises where there is none), e.g. ``--arch qwen2_0_5b --full
+--batch 4 --seq 2048``. At full depth the MoE, SSM and hybrid models do
+not fit one 80 GB card: AdamW keeps f32 moments, and the old and the new
+parameters and moments are alive together during the update (~22 bytes a
+parameter with the bf16 gradients). There is no flag to cut the depth;
+``chip_smoke.py`` trains them at full width with fewer layers.
+Weights come from ``torch.Generator().manual_seed(0)``; ``main(argv,
+params=...)`` starts from given parameters instead.
 """
 from __future__ import annotations
 

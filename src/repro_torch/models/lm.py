@@ -10,9 +10,9 @@ for ``family="ssm"`` (mamba2), a stack of Mamba2 mixers
 (``models/ssd.py``) with no attention; and for ``family="hybrid"``
 (zamba2), groups of ``shared_attn_every`` Mamba2 layers, each followed by
 the one shared attention + SwiGLU block (its weights reused), then the
-trailing layers with none. Serving drops the MoE layers' auxiliary loss,
-as the reference's does. Only the dense family's training loss is ported;
-the others raise (ROADMAP A2).
+trailing layers with none. The training loss of every family is the
+reference's: cross-entropy, plus ``0.01`` times the MoE layers' summed
+auxiliary loss, which serving drops.
 
 Parameters are a nested dict of tensors with the reference's names and
 shapes, stacked layers included (leading L axis); every method takes them
@@ -22,9 +22,10 @@ computes each attention with the flash-attention kernel (f32 scores; one
 launch per attention layer on the card, and per group for the hybrid). The
 training loss (``loss_fn``) attends with the plain ``gqa_attention`` (bf16
 score chain), as the reference's ``_attn`` does, since the kernel has no
-backward, and runs each layer under ``torch.utils.checkpoint``, the
+backward, and runs each layer (each Mamba2 layer and each application of
+the hybrid's shared block) under ``torch.utils.checkpoint``, the
 counterpart of the reference's ``jax.checkpoint(nothing_saveable)`` over its
-layer scan. The decode step writes the new K/V, conv windows and SSM
+layer scans. The decode step writes the new K/V, conv windows and SSM
 states into the cache in place and attends with ``gqa_attention`` too, as
 the reference does: its query sits at ``cur_len`` against an S-long cache,
 which the kernel's positions (both from 0) cannot express.
@@ -60,16 +61,6 @@ _NOT_PORTED = {
     "encdec": "the encoder-decoder family waits for its stack and gelu_mlp (ROADMAP A2)",
     "vlm": "the VLM family waits for mrope and embeddings input (ROADMAP A2)",
 }
-
-_NO_LOSS = {
-    "moe": "the MoE training loss (its aux term and the backward of the dispatch) waits "
-           "for its own slice (ROADMAP A2)",
-    "ssm": "the SSM training loss (the backward of models/ssd.py) waits for its own slice "
-           "(ROADMAP A2)",
-    "hybrid": "the hybrid training loss (the backward of models/ssd.py and of the shared "
-              "block) waits for its own slice (ROADMAP A2)",
-}
-
 
 def _attn_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
     """The attention's weights, each with the leading dims ``lead`` ((L,)
@@ -224,10 +215,11 @@ class LM(nn.Module):
         B, S = o.shape[:2]
         return (o.reshape(B * S, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)).reshape(B, S, -1)
 
-    def _attn(self, lp: dict, x: torch.Tensor, *, cos, sin, window: int,
+    def _attn(self, lp: dict, x: torch.Tensor, *, cos, sin, window: int | None,
               train_pos: torch.Tensor | None) -> torch.Tensor:
-        """The layer's attention: the flash kernel, or with ``train_pos``
-        (the query and key positions) the differentiable ``gqa_attention``."""
+        """The layer's attention: the flash kernel (``window`` 0 for none),
+        or with ``train_pos`` (the query and key positions) the
+        differentiable ``gqa_attention`` (``window`` None for none)."""
         q, k, v = self._qkv(lp, x, cos, sin)
         if train_pos is not None:
             o = gqa_attention(q, k, v, q_pos=train_pos, k_pos=train_pos, causal=True,
@@ -237,62 +229,88 @@ class LM(nn.Module):
                             v.transpose(1, 2).contiguous(), causal=True, window=window)
         return self._out_proj(lp, o.transpose(1, 2))
 
-    def _dense_block(self, lp: dict, h: torch.Tensor, *, cos, sin, window: int,
-                     train_pos: torch.Tensor | None = None) -> torch.Tensor:
+    def _dense_block(self, lp: dict, h: torch.Tensor, *, cos, sin, window: int | None,
+                     train_pos: torch.Tensor | None = None
+                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """(h, the MLP's auxiliary loss: ``_mlp``)."""
         cfg = self.cfg
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
         h = h + self._attn(lp, x, cos=cos, sin=sin, window=window, train_pos=train_pos)
-        return h + self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+        y, aux = self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+        return h + y, aux
 
-    def _mlp(self, lp: dict, x: torch.Tensor) -> torch.Tensor:
-        """The block's MLP: SwiGLU, or for MoE ``moe_layer``, whose auxiliary
-        loss serving drops (as the reference's prefill and decode do)."""
+    def _mlp(self, lp: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The block's MLP and its auxiliary loss: SwiGLU (None), or for MoE
+        ``moe_layer`` (aux = E * sum(me * ce), f32)."""
         cfg = self.cfg
         if cfg.family == "moe":
-            y, _aux = moe_layer(x, lp["wr"], lp["w_gate"], lp["w_up"], lp["w_down"],
-                                top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
-            return y
-        return swiglu_mlp(x, lp["wg"], lp["wu"], lp["wd"])
+            return moe_layer(x, lp["wr"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                             top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
+        return swiglu_mlp(x, lp["wg"], lp["wu"], lp["wd"]), None
 
-    def _run_decoder_stack(self, params: Params, h: torch.Tensor, *,
-                           positions: torch.Tensor, train: bool = False) -> torch.Tensor:
+    def _mamba_layer(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
+        return h + ssd.mamba2_mixer(lp, rms_norm(h, lp["ln"], self.cfg.norm_eps), self.cfg)
+
+    def _run_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
+                   train: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The family's layer stack over the embedded tokens h (B, S, D),
+        positions (B, S): (h, the MoE layers' summed auxiliary loss, None
+        for the other families)."""
+        family = self.cfg.family
+        if family == "ssm":
+            return self._run_ssm_stack(params, h, train=train), None
+        if family == "hybrid":
+            return self._run_hybrid_stack(params, h, positions=positions, train=train), None
+        return self._run_decoder_stack(params, h, positions=positions, train=train)
+
+    def _run_decoder_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
+                           train: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layer stack: h (B, S, D) bf16, positions (B, S). Query and key
         positions are ``positions[0]``, which the flash kernel takes to be
         0..S-1. With ``train``, every layer attends with ``gqa_attention``
         and runs under ``torch.utils.checkpoint`` (its activations are
-        recomputed in the backward)."""
+        recomputed in the backward). Returns (h, aux): the MoE layers'
+        auxiliary losses added in layer order (the reference's f32 carry
+        from 0), None for the dense family."""
         S = h.shape[1]
         cos, sin = self._rope(positions)
-        # unbind, not w[i]: the backward then stacks each leaf's layer
-        # gradients once instead of adding L zero-padded copies
-        layers = {name: w.unbind(0) for name, w in params["layers"].items()}
-        for i, window in enumerate(self._windows(S)):
-            lp = {name: w[i] for name, w in layers.items()}
-            if train:
-                h = checkpoint(self._dense_block, lp, h, cos=cos, sin=sin, window=window,
-                               train_pos=positions[0], use_reentrant=False)
-            else:
-                h = self._dense_block(lp, h, cos=cos, sin=sin, window=window)
-        return h
+        train_pos = {"train_pos": positions[0]} if train else {}
+        aux = None
+        for lp, window in zip(_layers(params["layers"]), self._windows(S)):
+            h, a = _checkpointed(self._dense_block, lp, h, train=train, cos=cos, sin=sin,
+                                 window=window, **train_pos)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return h, aux
 
-    def _run_ssm_stack(self, params: Params, h: torch.Tensor) -> torch.Tensor:
-        """The SSM stack: h + mamba2_mixer(rms_norm(h)) for each layer."""
+    def _run_ssm_stack(self, params: Params, h: torch.Tensor, *,
+                       train: bool = False) -> torch.Tensor:
+        """The SSM stack: h + mamba2_mixer(rms_norm(h)) for each layer; with
+        ``train``, each layer under ``torch.utils.checkpoint``."""
         for lp in _layers(params["layers"]):
-            h = h + ssd.mamba2_mixer(lp, rms_norm(h, lp["ln"], self.cfg.norm_eps), self.cfg)
+            h = _checkpointed(self._mamba_layer, lp, h, train=train)
         return h
 
-    def _run_hybrid_stack(self, params: Params, h: torch.Tensor, *,
-                          positions: torch.Tensor) -> torch.Tensor:
+    def _run_hybrid_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
+                          train: bool = False) -> torch.Tensor:
         """Zamba2: after every ``shared_attn_every`` Mamba2 layers, the one
-        shared block (attention on the flash kernel, causal and unwindowed,
-        then its SwiGLU MLP); the trailing ``n_layers mod shared_attn_every``
-        layers run with no shared block after them."""
+        shared block (causal, unwindowed attention, then its SwiGLU MLP); the
+        trailing ``n_layers mod shared_attn_every`` layers run with no shared
+        block after them. The shared block attends with the flash kernel, or
+        with ``train`` with ``gqa_attention``; then each Mamba2 layer and
+        each application of the shared block runs under
+        ``torch.utils.checkpoint`` (the reference checkpoints per group and
+        per layer: the same numbers)."""
         cos, sin = self._rope(positions)
         E = self.cfg.shared_attn_every
+        # "no window" is 0 for the flash kernel, None for gqa_attention (to
+        # which 0 would mask every key)
+        attn = dict(cos=cos, sin=sin, window=None, train_pos=positions[0]) if train else \
+            dict(cos=cos, sin=sin, window=0)
         for i, lp in enumerate(_layers(params["layers"])):
-            h = h + ssd.mamba2_mixer(lp, rms_norm(h, lp["ln"], self.cfg.norm_eps), self.cfg)
+            h = _checkpointed(self._mamba_layer, lp, h, train=train)
             if (i + 1) % E == 0:
-                h = self._dense_block(params["shared"], h, cos=cos, sin=sin, window=0)
+                h, _ = _checkpointed(self._dense_block, params["shared"], h, train=train, **attn)
         return h
 
     def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
@@ -303,9 +321,11 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- training
     def loss_fn(self, params: Params, batch: dict) -> torch.Tensor:
-        """Mean next-token cross-entropy (f32 0-d) of ``batch`` = {"tokens",
-        "labels"} (B, S) int: the reference's ``loss_fn`` with ``ctx=None``.
-        The dense family has no auxiliary loss (the reference adds
+        """The training loss (f32 0-d) of ``batch`` = {"tokens", "labels"}
+        (B, S) int: the reference's ``loss_fn`` with ``ctx=None``, the mean
+        next-token cross-entropy, plus ``0.01 * aux`` for the MoE family (aux
+        summed over its layers). The dense, SSM and hybrid families have no
+        auxiliary loss and return the cross-entropy (the reference adds
         ``0.01 * 0``). The embedding's output and the attention's score
         chain take the configuration's dtype: bf16 for every configuration
         of the catalog, as in the reference. A ``dtype="float32"``
@@ -313,17 +333,15 @@ class LM(nn.Module):
         keeps both in bf16 there), which makes it a precise witness of a
         bf16 step from the same weights.
 
-        The other families' losses are not ported yet: they raise (the MoE
-        loss adds ``0.01 * aux`` and differentiates through the dispatch; the
-        SSM and hybrid losses differentiate through ``models/ssd.py``)."""
-        if self.cfg.family != "dense":
-            raise NotImplementedError(f"{self.cfg.name}: {_NO_LOSS[self.cfg.family]}")
+        The MoE forward is deterministic (stable sorts, no atomics), so the
+        recompute in the backward routes exactly as the forward did."""
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = params["embed"][tokens].to(dt(self.cfg))
         positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
-        h = self._run_decoder_stack(params, h, positions=positions, train=True)
-        return self._cross_entropy(params, h, batch["labels"])
+        h, aux = self._run_stack(params, h, positions=positions, train=True)
+        ce = self._cross_entropy(params, h, batch["labels"])
+        return ce if aux is None else ce + 0.01 * aux
 
     def _cross_entropy(self, params: Params, h: torch.Tensor,
                        labels: torch.Tensor) -> torch.Tensor:
@@ -403,7 +421,7 @@ class LM(nn.Module):
         cache, then its MLP."""
         x = rms_norm(h, lp["ln1"], self.cfg.norm_eps)
         h = h + self._decode_attn(lp, x, k_cache, v_cache, cur, **attn)
-        return h + self._mlp(lp, rms_norm(h, lp["ln2"], self.cfg.norm_eps))
+        return h + self._mlp(lp, rms_norm(h, lp["ln2"], self.cfg.norm_eps))[0]
 
     def _decode_rope(self, h: torch.Tensor, cur: int) -> dict:
         """Position ``cur`` and its RoPE, the same for every layer."""
@@ -453,6 +471,18 @@ class LM(nn.Module):
 
 
 def _layers(stacked: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
-    """Each layer's parameters, from the stacked (leading L axis) leaves."""
-    n = len(next(iter(stacked.values())))
-    return [{name: w[i] for name, w in stacked.items()} for i in range(n)]
+    """Each layer's parameters, from the stacked (leading L axis) leaves.
+    ``unbind``, not ``w[i]``: under autograd each ``w[i]`` adds a zero-padded
+    copy of the whole leaf to its gradient (L of them a leaf), ``unbind``
+    stacks the layers' gradients once."""
+    per_leaf = {name: w.unbind(0) for name, w in stacked.items()}
+    n = len(next(iter(per_leaf.values())))
+    return [{name: ws[i] for name, ws in per_leaf.items()} for i in range(n)]
+
+
+def _checkpointed(fn, *args, train: bool, **kw):
+    """``fn(*args, **kw)``; with ``train``, under ``torch.utils.checkpoint``
+    (its activations recomputed in the backward)."""
+    if train:
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return fn(*args, **kw)

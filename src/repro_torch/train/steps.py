@@ -52,13 +52,7 @@ def make_prefill_step(model: LM):
         B, S = tokens.shape
         h = params["embed"][tokens].to(dt(model.cfg))
         positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
-        family = model.cfg.family
-        if family == "ssm":
-            h = model._run_ssm_stack(params, h)
-        elif family == "hybrid":
-            h = model._run_hybrid_stack(params, h, positions=positions)
-        else:
-            h = model._run_decoder_stack(params, h, positions=positions)
+        h, _ = model._run_stack(params, h, positions=positions)
         return model._head(params, h[:, -1:, :])[:, 0].float()
 
     return prefill_step

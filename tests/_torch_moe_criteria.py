@@ -72,7 +72,7 @@ def _to_host(r) -> dict:
     routed[r.st, r.se] = True
     kept = torch.zeros_like(routed)
     kept[r.st, r.se] = r.keep
-    return {"probs": r.probs.float().cpu().numpy(), "routed": routed.cpu().numpy(),
+    return {"probs": r.probs.detach().float().cpu().numpy(), "routed": routed.cpu().numpy(),
             "kept": kept.cpu().numpy()}
 
 

@@ -13,6 +13,8 @@ within 2e-2 in bf16 (one bf16 rounding of outputs near 1, plus f32 sums in
 another order) and 1e-4 in f32 (f32 sums in another order, and exp of
 scores up to ~1e3 in the extreme-logit case).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -370,21 +372,50 @@ def test_checkpoint_of_a_reduced_model_round_trips_on_the_card(cuda):
     assert store.dss.net.stuck_ops() == []
 
 
+def _train_step(model, params, batch: dict) -> tuple:
+    """``loss_and_grads`` then one ``make_train_step`` from the same state
+    (``AdamWConfig()``), as (loss, grads, params, opt, the step's loss) on
+    the host, with each ``_route`` call of both (``RouteLog``)."""
+    import _torch_train_criteria as crit
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step
+
+    from _torch_moe_criteria import RouteLog
+
+    with RouteLog() as routes:
+        loss, grads = loss_and_grads(model, params, batch)
+        new, opt, loss2 = make_train_step(model)(params, adamw_init(params), batch)
+    assert new["embed"].device.type == model.device.type and opt["step"].dtype == torch.int32
+    return (float(loss), crit.to_np(grads), crit.to_np(new), crit.to_np(opt), float(loss2),
+            routes.calls)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,S", [(2, 64), (1, 2048)])
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "gemma3_1b"])
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "gemma3_1b", "olmoe_1b_7b", "qwen3_moe_30b_a3b",
+                                  "mamba2_2_7b", "zamba2_7b"])
 def test_train_step_on_the_card_matches_the_cpu(cuda, arch, B, S):
     """One train step (reduced config, ``AdamWConfig()``) on the card and on
     the CPU, same weights (one seeded generator) and batch, held to the
     criteria of ``tests/_torch_train_criteria.py``: the loss, every gradient
     leaf, m, v, step and the updated parameters. At S=2048 the attention
-    runs in q_chunk chunks, each under its own checkpoint."""
+    runs in q_chunk chunks, each under its own checkpoint.
+
+    MoE: on each device the recompute in the backward routes exactly as the
+    forward did (probabilities, expert sets and drops equal); between the
+    devices the forward's routes meet ``tests/_torch_moe_criteria.py``, and
+    the gradients and the step are held where no route differs. SSM and
+    hybrid: the gradients and the step are held where the CPU's own step
+    meets the criteria with every SSD output nudged one f32 ulp up and down
+    (``ssd_nudged``); where it does not, the step is ill-conditioned and only
+    its loss is held."""
     import _torch_train_criteria as crit
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import build_model
     from repro_torch.train.data import DataConfig, SyntheticLM
-    from repro_torch.train.optimizer import AdamWConfig, adamw_init
-    from repro_torch.train.steps import loss_and_grads, make_train_step
+    from repro_torch.train.optimizer import AdamWConfig
+
+    from _torch_moe_criteria import compare_routes
 
     cfg = get_arch(arch).reduced()
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)).next_batch()
@@ -393,16 +424,31 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch, B, S):
         model = build_model(cfg, device=dev)
         params = model.init_params(torch.Generator().manual_seed(0))
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-        loss, grads = loss_and_grads(model, params, b)
-        new, opt, loss2 = make_train_step(model)(params, adamw_init(params), b)
-        assert new["embed"].device.type == dev and opt["step"].dtype == torch.int32
-        seen[dev] = (float(loss), crit.to_np(grads), crit.to_np(new), crit.to_np(opt),
-                     float(loss2))
-    (lc, gc, pc, oc, lc2), (lh, gh, ph, oh, lh2) = seen["cuda"], seen["cpu"]
+        seen[dev] = _train_step(model, params, b)
+        if dev == "cpu" and cfg.is_ssm:
+            nudged = []
+            for to in (math.inf, -math.inf):
+                with crit.ssd_nudged(to):
+                    nudged.append(_train_step(model, params, b))
+    (lc, gc, pc, oc, lc2, rc), (lh, gh, ph, oh, lh2, rh) = seen["cuda"], seen["cpu"]
     assert np.isfinite(lc) and abs(lc - lh) <= crit.LOSS_ATOL and abs(lc2 - lh2) <= crit.LOSS_ATOL
-    assert max(crit.grad_errors(gc, gh).values()) <= crit.GRAD_RTOL
     assert int(oc["step"]) == int(oh["step"]) == 1
-    crit.assert_step_close(crit.step_metrics(pc, oc, ph, oh, AdamWConfig().lr))
+    held = True
+    if cfg.family == "moe":
+        L = cfg.n_layers
+        for calls in (rc, rh):  # loss_and_grads, then the train step: forward, recompute each
+            assert len(calls) == 4 * L
+            # the backward recomputes the layers from the last one back
+            for fwd, again in zip(2 * (calls[:L] + calls[:L][::-1]), calls):
+                assert all(np.array_equal(fwd[k], again[k]) for k in ("probs", "routed", "kept"))
+        res = compare_routes(rc[:L], rh[:L], cfg.moe_top_k, B)
+        held = bool(res["agree"].all())
+    if cfg.is_ssm:
+        held = all(crit.meets(crit.step_metrics(p, o, ph, oh, AdamWConfig().lr),
+                              crit.grad_errors(g, gh)) for _, g, p, o, _, _ in nudged)
+    if held:
+        assert max(crit.grad_errors(gc, gh).values()) <= crit.GRAD_RTOL
+        crit.assert_step_close(crit.step_metrics(pc, oc, ph, oh, AdamWConfig().lr))
 
 
 @pytest.mark.cuda

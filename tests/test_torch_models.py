@@ -461,18 +461,6 @@ def test_unported_families_name_their_roadmap_item(arch):
         build_model(get_arch(arch).reduced(), device="cpu")
 
 
-@pytest.mark.parametrize("arch", [*MOE_ARCHS, *SSM_ARCHS])
-def test_moe_loss_names_its_roadmap_item(arch):
-    """The MoE, SSM and hybrid families serve, but their training losses
-    (MoE: dense CE + 0.01 * aux; SSM and hybrid: through the SSD's backward)
-    are not ported: ``loss_fn`` raises rather than return the dense loss."""
-    model = build_model(get_arch(arch).reduced(), device="cpu")
-    params = model.init_params(torch.Generator().manual_seed(0))
-    tokens = torch.zeros((1, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        model.loss_fn(params, {"tokens": tokens, "labels": tokens})
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_full_width_parameter_counts_equal_reference(arch):
     """Total and active (MoE: top_k of E experts) parameters at full width,

@@ -3,7 +3,11 @@
 Both packages start from the reference's parameters
 (``init_params(PRNGKey(0))``, carried across with ``params_from_numpy``) and
 the same ``SyntheticLM`` batch (B=2, S=64), and take one step of
-``make_train_step(model, None)`` (``AdamWConfig()``: lr 3e-4).
+``make_train_step(model, None)`` (``AdamWConfig()``: lr 3e-4), for every
+ported family: dense (qwen2-0.5b, gemma3-1b), MoE (olmoe-1b-7b,
+qwen3-moe-30b-a3b: the loss adds ``0.01 * aux``, through the backward of
+the dispatch), SSM (mamba2-2.7b) and hybrid (zamba2-7b: the backward of
+``models/ssd.py`` and of the shared block).
 
 The oracle is the reference's jitted step. XLA compiles it by default with
 ``xla_allow_excess_precision``, which lets a fusion skip the bf16 roundings
@@ -11,22 +15,29 @@ that the code writes between ops. The port, like the reference run op by op
 (``jax.disable_jit``), rounds at every op. So each comparison is made twice:
 
 - against the same jitted step compiled with ``xla_allow_excess_precision``
-  off (``exact_jit``), at the tolerances below, on both configs;
-- against the default compile. On reduced gemma3-1b that meets the same
-  tolerances. On reduced qwen2-0.5b it does not, and it is as far from its
-  own exact compile as from the port: its random QKV biases (std
-  1/sqrt(H) = 0.5) make the attention sharp, and the skipped roundings move
-  the gradients by up to 9.5 % (relative L2; ``m`` 9.5 %, ``v`` 13.6 %; 3 of
-  bq's 128 updated elements more than 1 ulp off). The reference run op by op
-  agrees with its exact compile to within 1 % and with the port to the same
-  degree. There the port is held to the default compile's own distance from
-  the exact one, plus the tolerance.
+  off (``exact_jit``), at the tolerances below, on every config;
+- against the default compile. On reduced gemma3-1b, olmoe, qwen3-moe and
+  mamba2 that meets the same tolerances. On reduced qwen2-0.5b it does not,
+  and it is as far from its own exact compile as from the port: its random
+  QKV biases (std 1/sqrt(H) = 0.5) make the attention sharp, and the
+  skipped roundings move the gradients by up to 9.5 % (relative L2; ``m``
+  9.5 %, ``v`` 13.6 %; 3 of bq's 128 updated elements more than 1 ulp off).
+  On reduced zamba2 the default compile is 104 % from its exact one in the
+  gradients (``m`` 125 %, ``v`` 318 %, 86.4 % of the parameters within 1
+  ulp): its sharp shared attention turns the skipped roundings into another
+  step. The reference run op by op agrees with its exact compile to within
+  1 % and with the port to the same degree. There the port is held to the
+  default compile's own distance from the exact one, plus the tolerance.
 
 Tolerances: the slice's acceptance criteria, in ``_torch_train_criteria``
 (loss 2e-2 absolute; gradients and ``m`` 5e-2, ``v`` 1e-1 relative L2;
 updated parameters within 1 bf16 ulp + 2 lr, and within 1 ulp on 98 % of
-each leaf). Measured against the exact compile: loss 5e-7, gradients at
-most 1.4e-2, ``m`` 1.4e-2, ``v`` 2.0e-2, 99.90 % within 1 ulp.
+each leaf). Measured against the exact compile (loss; gradients, ``m``,
+``v`` at most; parameters within 1 ulp): qwen2 5e-7; 9.6e-3, 9.6e-3,
+2.0e-2; 99.96 %. gemma3 0; 1.4e-2, 1.4e-2, 1.7e-2; 99.93 %. olmoe 0;
+1.4e-2, 1.4e-2, 1.9e-2; 99.94 %. qwen3-moe 1.0e-5; 1.3e-2, 1.3e-2,
+2.3e-2; 99.93 %. mamba2 3.1e-5; 3.9e-3, 3.9e-3, 7.9e-3; 99.99 %. zamba2
+2.8e-4; 3.1e-2, 3.1e-2, 3.7e-2; 99.64 %.
 """
 import jax
 import jax.numpy as jnp
@@ -36,6 +47,7 @@ import torch
 
 from repro.configs import get_arch as jax_get_arch
 from repro.models import layers as jax_layers
+from repro.models import ssd as jax_ssd
 from repro.models.lm import LM as JaxLM
 from repro.train import compress as jax_compress
 from repro.train.data import DataConfig as JaxDataConfig
@@ -64,12 +76,14 @@ from _torch_train_criteria import (  # noqa: I001  (tests/ helper)
     LOSS_ATOL,
     assert_step_close,
     bf16_ulp,
+    meets,
     rel_l2,
     step_metrics,
     to_np,
+    widest,
 )
 
-ARCHS = ["qwen2_0_5b", "gemma3_1b"]
+ARCHS = ["qwen2_0_5b", "gemma3_1b", "olmoe_1b_7b", "qwen3_moe_30b_a3b", "mamba2_2_7b", "zamba2_7b"]
 B, S = 2, 64
 LR = AdamWConfig().lr
 
@@ -119,12 +133,7 @@ def pair(request) -> TrainPair:
 def _default_is_exact(pair: TrainPair) -> bool:
     """Whether the default compile meets the criteria against the exact one
     (gemma3: yes; qwen2: no, see the module's docstring)."""
-    floor = step_metrics(*_np_step(pair.j_step_exact), *_np_step(pair.j_step), LR)
-    try:
-        assert_step_close(floor)
-        return True
-    except AssertionError:
-        return False
+    return meets(step_metrics(*_np_step(pair.j_step_exact), *_np_step(pair.j_step), LR))
 
 
 def _np_step(step):
@@ -206,10 +215,12 @@ def test_adamw_decays_by_rank_and_keeps_the_rounding_order():
     assert torch.allclose(p1["ln"], torch.from_numpy(tree["ln"]) * (1 - 1e-2 * 5.0))
 
 
-def test_training_state_shapes_match_reference():
-    cfg = jax_get_arch("gemma3_1b").reduced()
+@pytest.mark.parametrize("arch", ["gemma3_1b", "olmoe_1b_7b", "qwen3_moe_30b_a3b", "mamba2_2_7b",
+                                  "zamba2_7b"])
+def test_training_state_shapes_match_reference(arch):
+    cfg = jax_get_arch(arch).reduced()
     jps, jos = jax_training_state_shapes(JaxLM(cfg))
-    tps, tos = training_state_shapes(build_model(get_arch("gemma3_1b").reduced(), device="cpu"))
+    tps, tos = training_state_shapes(build_model(get_arch(arch).reduced(), device="cpu"))
     as_pair = lambda sd: (tuple(sd.shape), jnp.dtype(sd.dtype).name)  # noqa: E731
     want = jax.tree.map(as_pair, jos)
     got = {k: ({n: (s, str(d).removeprefix("torch.")) for n, (s, d) in named_leaves(v)}
@@ -270,6 +281,70 @@ def test_float32_config_computes_the_step_in_f32(monkeypatch):
     assert set(seen) == {(torch.float32, torch.float32)}
     assert all(g.dtype == torch.float32 for g in tree_leaves(grads))
     assert abs(float(loss32) - float(loss)) <= LOSS_ATOL
+
+
+def test_moe_loss_adds_the_layers_aux():
+    """The MoE loss is ``ce + 0.01 * aux`` with aux the layers' ``moe_layer``
+    auxiliary losses added in layer order (the reference's f32 carry), equal
+    bit for bit; the dense loss is the cross-entropy alone."""
+    import repro_torch.models.lm as lm
+
+    for arch in ("olmoe_1b_7b", "qwen2_0_5b"):
+        model = build_model(get_arch(arch).reduced(), device="cpu")
+        params = model.init_params(torch.Generator().manual_seed(0))
+        batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(DataConfig(
+            vocab=model.cfg.vocab, seq_len=32, global_batch=2)).next_batch().items()}
+        auxes, ces = [], []
+        real_moe, real_ce = lm.moe_layer, lm.LM._cross_entropy
+
+        def moe(*a, **k):
+            y, aux = real_moe(*a, **k)
+            auxes.append(aux)
+            return y, aux
+
+        def ce(self, *a):
+            ces.append(real_ce(self, *a))
+            return ces[-1]
+
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(lm, "moe_layer", moe)
+            mp.setattr(lm.LM, "_cross_entropy", ce)
+            with torch.no_grad():
+                loss = model.loss_fn(params, batch)
+        (want,) = ces
+        if model.cfg.family == "moe":
+            assert len(auxes) == model.cfg.n_layers == 2 and all(float(a) > 0 for a in auxes)
+            want = want + 0.01 * (auxes[0] + auxes[1])
+        else:
+            assert auxes == []
+        assert loss.dtype == torch.float32 and torch.equal(loss, want), arch
+
+
+def test_hybrid_training_attention_does_not_see_the_future(monkeypatch):
+    """The loss of the first S-1 positions of reduced zamba2 (its shared
+    block's attention in training: ``gqa_attention``, causal, no window),
+    and its gradients, are equal bit for bit whatever the last token is.
+    Passing the flash kernel's "no window" (0) to ``gqa_attention`` would
+    mask every key and let every position attend to all of them, the last
+    one included."""
+    import repro_torch.models.lm as lm
+
+    model = build_model(get_arch("zamba2_7b").reduced(), device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(DataConfig(
+        vocab=model.cfg.vocab, seq_len=S, global_batch=B)).next_batch().items()}
+    real_ce = lm.LM._cross_entropy
+    monkeypatch.setattr(lm.LM, "_cross_entropy",
+                        lambda self, p, h, labels: real_ce(self, p, h[:, :-1], labels[:, :-1]))
+    seen = []
+    for last in (0, 1):
+        tokens = batch["tokens"].clone()
+        tokens[:, -1] = (tokens[:, -1] + last) % model.cfg.vocab
+        seen.append(loss_and_grads(model, params, {"tokens": tokens, "labels": batch["labels"]}))
+    (l0, g0), (l1, g1) = seen
+    assert torch.equal(l0, l1)
+    for (name, a), (_, b) in zip(named_leaves(g0), named_leaves(g1)):
+        assert torch.equal(a, b), name
 
 
 # ------------------------------------------------------------- compression
@@ -372,7 +447,7 @@ def test_train_step_matches_reference(pair):
     assert_step_close(step_metrics(*got, *_np_step(pair.j_step), LR), floor)
 
 
-def test_second_step_from_the_carried_state(pair):
+def test_second_step_from_the_carried_state(pair, monkeypatch):
     """The reference's state after its (exact) first step carried across
     bit for bit (f32 moments, int32 step, bf16 and f32 parameters), then a
     second step on both sides with the next batch, where Adam's update is no
@@ -380,7 +455,16 @@ def test_second_step_from_the_carried_state(pair):
     1-ulp share, taken over all parameters (measured 0.9997 on both).
     Leaf by leaf it can fall short on a small leaf: an element whose first
     two gradients nearly cancel in ``m`` moves by a different fraction of lr
-    (2 of reduced qwen2's 64 ``bk`` elements, within 0.37 of ulp + 2 lr)."""
+    (2 of reduced qwen2's 64 ``bk`` elements, within 0.37 of ulp + 2 lr).
+
+    Where the model has an SSD (mamba2, zamba2), the criteria are widened by
+    how far the reference's own exact step moves when every SSD output moves
+    one f32 ulp up, or down (``_ssd_nudged_step``): that flips a few bf16
+    roundings, as any other correct order of the SSD's f32 sums does. At
+    these parameters reduced zamba2 is ill-conditioned: its shared attention
+    is sharp, and the nudge up moves the reference's ``m`` by up to 16.4 %
+    (``shared.ln2``; ``v`` 20.2 %), the port's step is 16.6 % from it
+    (``v`` 16.6 %). mamba2: the nudge down moves ``m`` by 0.25 %."""
     jp1, jo1, _ = pair.j_step_exact
     np_p, np_o = jax.tree.map(np.asarray, jp1), jax.tree.map(np.asarray, jo1)
     tp1, to1 = params_from_numpy(np_p), params_from_numpy(np_o)
@@ -398,7 +482,27 @@ def test_second_step_from_the_carried_state(pair):
     got = make_train_step(pair.tm)(tp1, to1, pair.torch_batch(1))
     assert abs(float(got[2]) - float(want[2])) <= LOSS_ATOL
     assert int(got[1]["step"]) == 2
-    assert_step_close(step_metrics(*_np_step(got), *_np_step(want), LR), pooled=True)
+    floor = None
+    if pair.cfg.is_ssm:
+        floor = widest([step_metrics(*_np_step(_ssd_nudged_step(pair, (jp1, jo1, jb), to,
+                                                                monkeypatch)),
+                                     *_np_step(want), LR) for to in (np.inf, -np.inf)])
+    assert_step_close(step_metrics(*_np_step(got), *_np_step(want), LR), floor, pooled=True)
+
+
+def _ssd_nudged_step(pair: TrainPair, args: tuple, to: float, monkeypatch):
+    """The reference's exact step with every ``_ssd_chunked`` output moved
+    one f32 ulp toward ``to`` (the gradient passes through unchanged)."""
+    real = jax_ssd._ssd_chunked
+
+    def nudged(*a, **kw):
+        y = real(*a, **kw)
+        ys = jax.lax.stop_gradient(y)
+        return y + (jnp.nextafter(ys, jnp.asarray(to, y.dtype)) - ys)
+
+    with monkeypatch.context() as m:
+        m.setattr(jax_ssd, "_ssd_chunked", nudged)
+        return exact_jit(jax_make_train_step(pair.jm, None), *args)
 
 
 def test_train_step_leaves_the_served_parameters_alone():
@@ -416,11 +520,13 @@ def test_train_step_leaves_the_served_parameters_alone():
     assert torch.isfinite(loss)
 
 
-def test_train_loop_reduces_loss():
-    """12 steps at lr 2e-3 on reduced qwen2-0.5b (the reference's
-    ``test_train_loop_reduces_loss``): finite losses, the last four below
-    the first four on average."""
-    model = build_model(get_arch("qwen2_0_5b").reduced(), max_pos=64, device="cpu")
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "olmoe_1b_7b", "qwen3_moe_30b_a3b", "mamba2_2_7b",
+                                  "zamba2_7b"])
+def test_train_loop_reduces_loss(arch):
+    """12 steps at lr 2e-3 on the reduced config (the reference's
+    ``test_train_loop_reduces_loss``, which trains qwen2, olmoe and
+    mamba2): finite losses, the last four below the first four on average."""
+    model = build_model(get_arch(arch).reduced(), max_pos=64, device="cpu")
     data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=64, global_batch=4, seed=0))
     params = model.init_params(torch.Generator().manual_seed(0))
     opt = adamw_init(params)
@@ -441,12 +547,14 @@ DRIVER_ARGS = ["--arch", "qwen2_0_5b", "--steps", "12", "--ckpt-every", "5", "--
                "--seq", "32"]
 
 
-def test_train_driver_crash_restore_is_bit_for_bit(monkeypatch):
+@pytest.mark.parametrize("arch", ["qwen2_0_5b", "olmoe_1b_7b", "zamba2_7b"])
+def test_train_driver_crash_restore_is_bit_for_bit(monkeypatch, arch):
     """The reference test's driver run (crash at 8, one host down, restore
-    from the step-5 checkpoint) on the port: two saves at least; the
-    restored state equals the saved one bit for bit (parameters, AdamW
-    state, data state); the replayed steps 6-8 repeat their losses bit for
-    bit."""
+    from the step-5 checkpoint) on the port, for the dense, MoE and hybrid
+    families: two saves at least; the restored state equals the saved one
+    bit for bit (parameters, AdamW state, data state); the replayed steps
+    6-8 repeat their losses bit for bit (the MoE recompute routes as its
+    forward did)."""
     from repro_torch.launch import train
     from repro_torch.train.checkpoint import ECCheckpointStore
 
@@ -466,7 +574,9 @@ def test_train_driver_crash_restore_is_bit_for_bit(monkeypatch):
 
     monkeypatch.setattr(ECCheckpointStore, "save", save)
     monkeypatch.setattr(ECCheckpointStore, "restore", restore)
-    out = train.main(DRIVER_ARGS + ["--device", "cpu"])
+    args = list(DRIVER_ARGS)
+    args[args.index("--arch") + 1] = arch
+    out = train.main(args + ["--device", "cpu"])
     assert len(out["ckpts"]) >= 2 and all(st.success for st in out["ckpts"])
     assert [st.step for st in out["ckpts"]] == [5, 10]
     losses = out["losses"]
