@@ -112,14 +112,15 @@ Phases, each of which fails the run (non-zero exit) on any error:
    recompute, backward and AdamW and by the family's parts. The backward of
    the MoE dispatch gather on identical inputs, bit for bit against the
    CPU. One train step on the card against the CPU: the four reduced
-   configs at 2 x 64 in bf16 (MoE routes held to their criteria, the
-   gradients held where no route differs; the SSD families held where the
-   CPU meets the criteria against itself with the SSD nudged one f32 ulp,
-   printed where it is ill-conditioned) and at full width in f32, olmoe and
-   mamba2 at 1 layer, zamba2 at 7, at 1 x 256, held. Then
+   configs at 2 x 64 in bf16 (MoE routes held to their criteria; where a
+   route differs, the step held against the CPU's on the card's routes;
+   the SSD families held, widened or printed as the CPU's own step under a
+   one-ulp SSD nudge decides: ``hold_step``) and at full width in f32,
+   olmoe and mamba2 at 1 layer, zamba2 at 7, at 1 x 256, held. Then
    ``repro_torch.launch.train`` at each family's reduced config, with
    checkpoints, a crash, one host down and a restore: bit for bit, the
-   redone steps' losses equal; the storage kernels counted.
+   redone steps' losses equal; the storage kernels counted, then held
+   against their plain versions on the restored save's bytes.
 
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
@@ -898,21 +899,25 @@ def _bitmap_ref(data: torch.Tensor, mask: int, s: int, e: int) -> torch.Tensor:
 
 
 def check_storage_kernels_at(label: str, data: torch.Tensor, n_servers: tuple[int, ...],
-                             card: str, worst: dict) -> int:
+                             card: str, worst: dict, k: int = 6,
+                             blocks: tuple[int, int, int] = (MIN_BLOCK, AVG_BLOCK, MAX_BLOCK)
+                             ) -> int:
     """The storage kernels at one of this slice's shapes, against their plain
     versions (tolerance 0), and timed beside them: the gear hash's
-    bitmap-only form over ``data`` (what the chunker launches), then the
-    encode for each of ``n_servers`` (k = 6) and the decode without s0 of the
-    first, all at the width of the file's one batch, the sum over its blocks
-    of ceil(block / k). The plain versions run, and are compared and timed,
-    in slices of ``PLAIN_SPAN`` positions: the memory of one slice, the
-    bytes of the whole. Returns the blocks the chunker cuts ``data`` into."""
+    bitmap-only form over ``data`` (what the chunker launches, at the
+    ``blocks`` sizes min/avg/max), then the encode for each of ``n_servers``
+    (k data fragments) and the decode without s0 of the first, all at the
+    width of the file's one batch, the sum over its blocks of ceil(block /
+    k). The plain versions run, and are compared and timed, in slices of
+    ``PLAIN_SPAN`` positions: the memory of one slice, the bytes of the
+    whole. Returns the blocks the chunker cuts ``data`` into."""
     from repro_torch.erasure.rs import _decoder_cached, _parity_cached
     from repro_torch.kernels.cdc_gearhash import ops as cdc
     from repro_torch.kernels.gf256_matmul import ops as gf
     from repro_torch.kernels.gf256_matmul.ref import gf256_matmul_ref
 
-    mask = cdc._mask_for_avg(AVG_BLOCK)
+    min_block, avg_block, max_block = blocks
+    mask = cdc._mask_for_avg(avg_block)
     L = int(data.numel())
     got = cdc.gearhash_bitmap(data, mask=mask)
     torch.cuda.synchronize()
@@ -922,11 +927,10 @@ def check_storage_kernels_at(label: str, data: torch.Tensor, n_servers: tuple[in
         raise AssertionError(f"gearhash bitmap at {label} differs from the plain version")
     cand = torch.nonzero(got).flatten().cpu().numpy()
     del got
-    k = 6
-    blocks, start, n = 0, 0, 0
+    n_blocks, start, n = 0, 0, 0
     ci = 0
     while start < L:  # the chunker's min/max pass over the candidates
-        lo, hi = start + MIN_BLOCK, start + MAX_BLOCK
+        lo, hi = start + min_block, start + max_block
         while ci < len(cand) and cand[ci] < lo:
             ci += 1
         if ci < len(cand) and cand[ci] < hi and cand[ci] + 1 < L:
@@ -935,7 +939,7 @@ def check_storage_kernels_at(label: str, data: torch.Tensor, n_servers: tuple[in
         else:
             end = min(hi, L)
         n += (end - start + k - 1) // k
-        blocks += 1
+        n_blocks += 1
         start = end
 
     def plain_bitmap():
@@ -944,7 +948,7 @@ def check_storage_kernels_at(label: str, data: torch.Tensor, n_servers: tuple[in
 
     ms = cuda_ms(lambda: cdc.gearhash_bitmap(data, mask=mask), 10)
     plain_ms = cuda_ms(plain_bitmap, 1)
-    log(f"kernels: at {label}: gearhash bitmap only L={L} ({blocks} blocks): {ms:.4f} ms, plain "
+    log(f"kernels: at {label}: gearhash bitmap only L={L} ({n_blocks} blocks): {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {2 * L / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes); byte-identical "
         f"to the plain version ({card})")
     B = torch.empty((k, n), dtype=torch.uint8, device=data.device)
@@ -970,12 +974,12 @@ def check_storage_kernels_at(label: str, data: torch.Tensor, n_servers: tuple[in
         ms = cuda_ms(lambda: gf.gf256_matmul(A, B), 10)
         plain_ms = cuda_ms(plain_product, 1)
         bound = (A.shape[0] + k) * n / HBM_BYTES_PER_S * 1e3
-        log(f"kernels: at {label}: gf256_matmul {name} {A.shape} x (6, {n}): {ms:.4f} ms, plain "
+        log(f"kernels: at {label}: gf256_matmul {name} {A.shape} x ({k}, {n}): {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes), {100 * bound / ms:.2f} % of its "
             f"bound; byte-identical to the plain version ({card})")
     del B
     torch.cuda.empty_cache()
-    return blocks
+    return n_blocks
 
 
 def drive_checkpoint(seed: int, out_dir: Path, card: str, totals: dict, worst: dict) -> None:
@@ -1394,7 +1398,7 @@ def drive_moe(seed: int, card: str, out_dir: Path) -> int:
         f"{out['warmup_seconds']:.4f} s warm-up step, {out['tokens'].size / out['seconds']:.1f} "
         f"tokens/s, {1e3 * out['seconds'] / 32:.3f} ms per step, peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes, flash_attention launches {decode_launches}; "
-        f"{serve_wall:.3f} s for the whole CLI, the weights' draw on the card included ({card})")
+        f"{serve_wall:.3f} s for the whole CLI, the weights' draw on the host included ({card})")
 
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
@@ -1651,7 +1655,7 @@ def drive_ssm(arch: str, seed: int, card: str, out_dir: Path) -> int:
         f"{sum(cache.values())} bytes "
         f"({', '.join(f'{k} {v}' for k, v in cache.items())}), flash_attention launches "
         f"{decode_launches} (decode attends with the plain gqa_attention); {serve_wall:.3f} s "
-        f"for the whole CLI, the weights' draw on the card included ({card})")
+        f"for the whole CLI, the weights' draw on the host included ({card})")
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
     prefill_launches = timed_prefills(model, params, tokens, tag, card)
@@ -2009,10 +2013,12 @@ def _train_step_both(cfg, batch: dict, seed: int, lr: float) -> dict:
     (one CPU generator, one draw), upcast for a float32 ``cfg``. On the card
     AdamW also runs once more from the CPU's gradients; for the SSD families
     in bf16 the CPU's step runs again with every SSD output nudged one f32
-    ulp up and down (``ssd_nudged``). Returns {"cpu" | "cuda" | "cuda from
-    CPU gradients" | "cpu nudged up" | "cpu nudged down": (loss, grads,
-    params, opt, gradient norm, the loss's ``_route`` calls)}, the trees
-    left on their device."""
+    ulp up and down (``ssd_nudged``); for MoE, where a route differs, the
+    CPU's step runs again on the card's routes (``RouteReplay``). Returns
+    {"cpu" | "cuda" | "cuda from CPU gradients" | "cpu nudged up" | "cpu
+    nudged down" | "cpu on the card's routes": (loss, grads, params, opt,
+    gradient norm, the loss's ``_route`` calls)}, the trees left on their
+    device."""
     import dataclasses
 
     import _torch_moe_criteria as mc
@@ -2027,15 +2033,22 @@ def _train_step_both(cfg, batch: dict, seed: int, lr: float) -> dict:
     weights = build_model(bf16, device="cpu").init_params(torch.Generator().manual_seed(seed))
     if cfg.dtype != "bfloat16":
         weights = tree_map(lambda p: p.float(), weights)
-    runs = [("cpu", "cpu", None), ("cuda", "cuda", None)]
+    runs = [("cpu", "cpu", contextlib.nullcontext), ("cuda", "cuda", contextlib.nullcontext)]
     if cfg.is_ssm and cfg.dtype == "bfloat16":
-        runs[1:1] = [("cpu nudged up", "cpu", math.inf), ("cpu nudged down", "cpu", -math.inf)]
+        runs[1:1] = [("cpu nudged up", "cpu", lambda: crit.ssd_nudged(math.inf)),
+                     ("cpu nudged down", "cpu", lambda: crit.ssd_nudged(-math.inf))]
+    if cfg.family == "moe":
+        runs.append(("cpu on the card's routes", "cpu", lambda: mc.RouteReplay(seen["cuda"][5])))
     seen, cpu_grads = {}, None
-    for label, where, to in runs:
+    for label, where, ctx in runs:
+        if label == "cpu on the card's routes" and all(
+                np.array_equal(a[k], b[k]) for a, b in zip(seen["cuda"][5], seen["cpu"][5])
+                for k in ("routed", "kept")):
+            break  # the CPU routed as the card did
         model = build_model(cfg, device=where)
         params = tree_map(lambda p: p.to(model.device), weights)
         b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
-        with mc.RouteLog() as routes, (crit.ssd_nudged(to) if to else contextlib.nullcontext()):
+        with mc.RouteLog() as routes, ctx():
             loss, grads = loss_and_grads(model, params, b)
         new, opt = adamw_update(params, grads, adamw_init(params), AdamWConfig(lr=lr))
         norm = float(sum(torch.sum(g.float() ** 2) for g in tree_leaves(grads))) ** 0.5
@@ -2062,19 +2075,19 @@ def train_check(cfg, width: str, B: int, S: int, lr: float, data_seed: int, seed
                 criteria: bool, pooled: bool = False) -> bool:
     """One train step of ``cfg`` on the card against the CPU
     (``_train_step_both``), printed, and held to the criteria of
-    ``tests/_torch_train_criteria.py`` where ``criteria``. Always held: the
-    loss, step, the final norm's gradient and AdamW on the card from the
-    CPU's gradients. MoE: on each device the backward's recompute routes as
-    the forward did, and the forward's routes meet
-    ``tests/_torch_moe_criteria.py``; the gradients and the step are held
-    only if no route differs (else printed). SSD families: where the CPU's
-    own step misses the criteria with every SSD output nudged one f32 ulp up
-    or down, the step is ill-conditioned, and the criteria are widened by
-    that distance (leaf by leaf, the farther nudge), as the CPU tests hold
-    reduced zamba2's second step. ``pooled`` takes the 1-ulp share of the
-    updated parameters over all of them instead of leaf by leaf (the CPU
-    tests' second step). The trees are compared on the card. Returns
-    whether the step was held."""
+    ``tests/_torch_train_criteria.py`` where ``criteria``, as
+    ``hold_step`` decides. Always held: the loss, step, the final norm's
+    gradient and AdamW on the card from the CPU's gradients. MoE: on each
+    device the backward's recompute routes as the forward did, and the
+    forward's routes meet ``tests/_torch_moe_criteria.py``; where a route
+    differs, the distance from the CPU's own step is printed and the card
+    is held against the CPU's step on the card's routes. SSD families in
+    bf16: the CPU's own step with every SSD output nudged one f32 ulp up or
+    down decides whether the step is well-conditioned (held), ill-conditioned
+    within the cap (held to the criteria widened by the nudge) or past it
+    (printed, not held). ``pooled`` takes the 1-ulp share of the updated
+    parameters over all of them instead of leaf by leaf. The trees are
+    compared on the card. Returns whether the step was held."""
     import _torch_moe_criteria as mc
     import _torch_train_criteria as crit
 
@@ -2090,7 +2103,6 @@ def train_check(cfg, width: str, B: int, S: int, lr: float, data_seed: int, seed
     gerr = crit.grad_errors(gc, gh)
     m = crit.step_metrics(pc, oc, ph, oh, lr)
     mx = crit.step_metrics(*seen["cuda from CPU gradients"][2:4], ph, oh, lr)
-    verdict = "held" if criteria else "not met here, not held (see train_card_vs_cpu)"
     if cfg.family == "moe":
         L = cfg.n_layers
         for where, calls in (("card", rc), ("CPU", rh)):
@@ -2106,22 +2118,29 @@ def train_check(cfg, width: str, B: int, S: int, lr: float, data_seed: int, seed
         log(f"train card vs CPU: {tag}: routes: the recompute routed as the forward on both "
             f"devices; {flips} tokens' expert sets or drops differ (all below delta "
             f"{mc.ROUTE_DELTA}), largest margin shift {res['max_shift']:.3e}")
-        if flips and criteria:
-            verdict = f"not held: {flips} routes differ between the devices (printed)"
-    floor = gfloor = None
-    nudged = [label for label in ("cpu nudged up", "cpu nudged down") if label in seen]
-    if nudged:
-        mns = [crit.step_metrics(*seen[label][2:4], ph, oh, lr) for label in nudged]
-        gens = [crit.grad_errors(seen[label][1], gh) for label in nudged]
-        for label, mn, gen in zip(nudged, mns, gens):
+        if "cpu on the card's routes" in seen:
+            replay = seen["cpu on the card's routes"]
+            if not all(np.array_equal(a[k], b[k]) for a, b in zip(rc, replay[5])
+                       for k in ("routed", "kept")):
+                raise AssertionError(f"train card vs CPU {tag}: the replay routed otherwise")
+            log(f"train card vs CPU: {tag}: against the CPU's own routes (printed, not held): "
+                f"gradients within {max(gerr.values()):.4f}; {_step_summary(m)}; held below "
+                f"against the CPU's step on the card's routes")
+            lh, gh, ph, oh, nh, _ = replay
+            gerr = crit.grad_errors(gc, gh)
+            m = crit.step_metrics(pc, oc, ph, oh, lr)
+    nudged = []
+    for label in ("cpu nudged up", "cpu nudged down"):
+        if label in seen:
+            mn = crit.step_metrics(*seen[label][2:4], ph, oh, lr)
+            gn = crit.grad_errors(seen[label][1], gh)
+            nudged.append((mn, gn))
             log(f"train card vs CPU: {tag}: the CPU against itself with the SSD {label[4:]}: "
-                f"gradients within {max(gen.values()):.4f}; {_step_summary(mn)}; the criteria "
-                f"{'met' if crit.meets(mn, gen) else 'missed: ill-conditioned'}")
-        if not all(crit.meets(mn, gen) for mn, gen in zip(mns, gens)) and criteria:
-            floor = crit.widest(mns)
-            gfloor = {n: max(gen[n] for gen in gens) for n in gens[0]}
-            verdict = ("held, widened by the CPU's own distance under the SSD nudge "
-                       "(ill-conditioned)")
+                f"gradients within {max(gn.values()):.4f}; {_step_summary(mn)}; the criteria "
+                f"{'met' if crit.meets(mn, gn) else 'missed: ill-conditioned'}")
+    held, verdict, failures = crit.hold_step(m, gerr, nudged, pooled=pooled)
+    if not criteria:
+        held, verdict, failures = False, "not met here, not held (see train_card_vs_cpu)", []
     log(f"train card vs CPU: {tag}: loss {lc:.6f} / {lh:.6f} (|diff| {abs(lc - lh):.3e}); "
         f"gradient norm {nc:.4f} / {nh:.4f}; gradients within {max(gerr.values()):.4f} "
         f"relative L2 (final norm {gerr['final_ln']:.4f}); the step: {_step_summary(m)}; AdamW "
@@ -2131,15 +2150,12 @@ def train_check(cfg, width: str, B: int, S: int, lr: float, data_seed: int, seed
         raise AssertionError(f"train card vs CPU {tag}: loss {lc} against {lh}")
     if int(oc["step"]) != int(oh["step"]) or int(oc["step"]) != 1:
         raise AssertionError(f"train card vs CPU {tag}: step differs")
-    if gerr["final_ln"] > crit.GRAD_RTOL + (gfloor["final_ln"] if gfloor else 0.0):
+    if gerr["final_ln"] > crit.GRAD_RTOL:
         raise AssertionError(f"train card vs CPU {tag}: final norm gradient {gerr['final_ln']}")
     crit.assert_step_close(mx)
-    if verdict.startswith("held"):
-        for n, e in gerr.items():
-            if e > crit.GRAD_RTOL + (gfloor[n] if gfloor else 0.0):
-                raise AssertionError(f"train card vs CPU {tag}: gradient {n} {e}")
-        crit.assert_step_close(m, floor, pooled=pooled)
-    return verdict.startswith("held")
+    if failures:
+        raise AssertionError(f"train card vs CPU {tag}: {verdict}, but {failures}")
+    return held
 
 
 def train_card_vs_cpu(seed: int) -> None:
@@ -2195,8 +2211,12 @@ FAMILY_CHECK_LAYERS = {"olmoe_1b_7b": 1, "mamba2_2_7b": 1, "zamba2_7b": 7}
 FAMILY_CHECK_S = 256
 # the launcher at the reduced configs, each family: crash at step 8, one
 # checkpoint host down, restore from the step-5 save, steps 6-8 redone
+LAUNCHER_HOSTS, LAUNCHER_PARITY = 6, 2
+LAUNCHER_BLOCKS = (1 << 16, 1 << 18, 1 << 20)  # min, avg, max: the launcher's defaults
 LAUNCHER_ARGS = ["--steps", "12", "--ckpt-every", "5", "--crash-at", "8", "--kill-hosts", "1",
-                 "--ckpt-hosts", "6", "--ckpt-parity", "2", "--batch", "2", "--seq", "32"]
+                 "--ckpt-hosts", str(LAUNCHER_HOSTS), "--ckpt-parity", str(LAUNCHER_PARITY),
+                 "--batch", "2", "--seq", "32", "--min-block", str(LAUNCHER_BLOCKS[0]),
+                 "--avg-block", str(LAUNCHER_BLOCKS[1]), "--max-block", str(LAUNCHER_BLOCKS[2])]
 
 
 def train_ranges(family: str) -> contextlib.ExitStack:
@@ -2346,25 +2366,30 @@ def drive_family_training(arch: str, seed: int, card: str, out_dir: Path) -> dic
             "drops": drops}
 
 
-def drive_train_launcher(arch: str, card: str, totals: dict) -> None:
+def drive_train_launcher(arch: str, card: str, totals: dict, worst: dict) -> None:
     """``repro_torch.launch.train`` on the card at ``arch``'s reduced
     config with LAUNCHER_ARGS: the restored state must equal the step-5
     save bit for bit (parameters, AdamW state, data state) and the redone
     steps 6-8 must repeat their losses bit for bit. The storage kernels are
-    counted from 0 and added to ``totals``."""
+    counted from 0 and added to ``totals``; after the count, they are held
+    against their plain versions on the bytes of the step-5 save (the one
+    restored with a host down), at the launcher's code and block sizes, into
+    ``worst``."""
+    from repro_torch.device import host_tensor
     from repro_torch.kernels.cdc_gearhash import ops as cdc
     from repro_torch.kernels.gf256_matmul import ops as gf
     from repro_torch.launch import train
-    from repro_torch.train.checkpoint import ECCheckpointStore
+    from repro_torch.train.checkpoint import ECCheckpointStore, serialize_tree
     from repro_torch.tree import named_leaves
 
-    saved, restored = {}, []
+    saved, restored, blobs = {}, [], {}
     real_save, real_restore = ECCheckpointStore.save, ECCheckpointStore.restore
 
     def save(self, step, state, *a, **kw):
         saved[step] = {part: {n: v.clone() for n, v in named_leaves(state[part])}
                        for part in ("params", "opt")}
         saved[step]["data"] = dict(state["data"])
+        blobs[step] = serialize_tree({"step": step, "state": state})  # the bytes the save chunks
         return real_save(self, step, state, *a, **kw)
 
     def restore(self, *a, **kw):
@@ -2401,6 +2426,9 @@ def drive_train_launcher(arch: str, card: str, totals: dict) -> None:
         f"{[st.step for st in out['ckpts']]}; restored step {step} with one host down, bit for "
         f"bit on the card; steps 6-8 redone with equal losses "
         f"({', '.join(f'{x:.6f}' for x in losses[5:8])}); launches {counts} ({card})")
+    check_storage_kernels_at(f"launcher {arch}'s step-{step} save ({len(blobs[step])} bytes)",
+                             host_tensor(blobs[step]).to("cuda"), (LAUNCHER_HOSTS,), card, worst,
+                             k=LAUNCHER_HOSTS - LAUNCHER_PARITY, blocks=LAUNCHER_BLOCKS)
 
 
 def family_train_card_vs_cpu(seed: int) -> None:
@@ -2569,7 +2597,7 @@ def main() -> int:
     moe_gather_backward_card_vs_cpu(args.seed, card)
     family_train_card_vs_cpu(args.seed)
     for arch in FAMILY_TRAIN_DEPTHS:
-        drive_train_launcher(arch, card, counts)
+        drive_train_launcher(arch, card, counts, worst)
     log(f"phase 7b: {time.perf_counter() - t7b:.3f} s; "
         + "; ".join(f"{t['arch']} at {t['depth']} layers {t['tokens_per_s']:.1f} train tokens/s, "
                     f"peak {t['peak'] / 1e9:.3f} GB" for t in trained) + f" ({card})")

@@ -13,10 +13,8 @@ Serves the dense, MoE, SSM (mamba2) and hybrid (zamba2) families. The
 cache is K/V for the attention layers and, for the SSM and hybrid
 families, each Mamba2 layer's conv window and state (``LM.cache_template``;
 mamba2's holds no K/V, so ``--cache-len`` does not size it). Runs on the
-GPU unless ``--device cpu`` is given; weights are random, drawn on that
-device from ``torch.Generator(device).manual_seed(--seed)`` (so the card's
-differ from the CPU's for one seed; drawing a 7e9-parameter model on the
-host takes about a minute).
+GPU unless ``--device cpu`` is given; weights are random, from
+``torch.Generator().manual_seed(--seed)``.
 """
 from __future__ import annotations
 
@@ -70,8 +68,7 @@ def main(argv=None) -> dict:
     if not args.full:
         cfg = cfg.reduced()
     model = build_model(cfg, max_pos=args.cache_len, device=args.device)
-    params = model.load_params(model.init_params(
-        torch.Generator(device=model.device).manual_seed(args.seed)))
+    params = model.load_params(model.init_params(torch.Generator().manual_seed(args.seed)))
     B, S = args.batch, args.cache_len
     cache = model.init_cache(B, S)
     rng = np.random.default_rng(args.seed)

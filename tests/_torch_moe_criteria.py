@@ -66,6 +66,38 @@ class RouteLog:
         self._layers._route = self._orig
 
 
+class RouteReplay:
+    """While active, the port's top-k (``repro_torch.models.layers._top_k``)
+    takes, call by call, the expert sets of a recorded run (``RouteLog.calls``,
+    in their order) instead of its own k largest probabilities; the gates
+    are still this run's probabilities at those experts, in descending
+    order. This run then routes, drops and combines as the recorded one
+    did, so two devices' steps stay comparable where a near-tie flipped a
+    route."""
+
+    def __init__(self, calls: list[dict]):
+        self.calls = calls
+
+    def __enter__(self) -> RouteReplay:
+        from repro_torch.models import layers
+
+        self._layers, self._orig = layers, layers._top_k
+        recorded = iter(self.calls)
+
+        def replayed(probs, k):
+            routed = torch.from_numpy(next(recorded)["routed"]).to(probs.device)
+            idx = routed.nonzero()[:, 1].reshape(-1, k)  # each token's k experts, ascending
+            vals = probs.gather(-1, idx)
+            order = torch.sort(vals.detach(), dim=-1, descending=True, stable=True)[1]
+            return vals.gather(-1, order), idx.gather(-1, order)
+
+        layers._top_k = replayed
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._layers._top_k = self._orig
+
+
 def _to_host(r) -> dict:
     T, E = r.probs.shape
     routed = torch.zeros((T, E), dtype=torch.bool, device=r.st.device)

@@ -15,7 +15,8 @@ Where a step is ill-conditioned (reduced zamba2's sharp shared attention:
 a bf16 rounding flipped anywhere moves its gradients by tens of percent),
 two correct computations cannot meet these criteria. ``ssd_nudged`` makes
 a third one on one device, with every SSD output moved by one f32 ulp,
-which shows whether the criteria can hold there.
+which shows whether the criteria can hold there; ``hold_step`` is the one
+policy that decides, from it, whether and how a step is held.
 """
 import contextlib
 
@@ -25,6 +26,11 @@ import torch
 from repro_torch.tree import named_leaves
 
 LOSS_ATOL, GRAD_RTOL, M_RTOL, V_RTOL, ULP_SHARE = 2e-2, 5e-2, 5e-2, 1e-1, 0.98
+# ``hold_step`` widens a criterion by the nudge's distance up to this many
+# times the criterion's own tolerance (0.2 in gradients and m, 0.4 in v);
+# past it the widened check would pass a backward that is wrong by tens of
+# percent, and the step is not held
+NUDGE_CAP = 4
 
 
 def _tensor(x, device=None) -> torch.Tensor:
@@ -131,6 +137,50 @@ def meets(got: dict, grad_errs: dict | None = None) -> bool:
     except AssertionError:
         return False
     return grad_errs is None or max(grad_errs.values()) <= GRAD_RTOL
+
+
+def hold_step(got: dict, grads: dict | None = None, nudged: list = (),
+              pooled: bool = False) -> tuple[bool, str, list[str]]:
+    """Whether and how one step is held against another's: ``got`` and
+    ``grads`` are its ``step_metrics`` and ``grad_errors`` (or None) against
+    the other; ``nudged`` the other side's own step under the SSD nudges,
+    each as (``step_metrics``, ``grad_errors`` or None) against itself
+    (empty where the model has no SSD).
+
+    - Every nudged step meets the criteria (or none was made): the step is
+      well-conditioned and held to the criteria.
+    - Some nudged step misses them, but no floor (leaf by leaf, the farther
+      nudge) exceeds NUDGE_CAP times its tolerance: ill-conditioned, held
+      to the criteria widened by the floor.
+    - Farther: ill-conditioned, not held. A nudge either flips a rounding
+      the sharp attention amplifies or flips none, so its distance jumps
+      between ~1e-4 and tens of percent with the machine's f32 sums (and
+      between the nudge up and down); a floor that wide holds nothing.
+
+    ``pooled`` takes the 1-ulp share over all parameters. Returns (held,
+    the verdict to print, the criteria the step misses where held)."""
+    floor = gfloor = None
+    verdict = "held"
+    if not all(meets(m, g) for m, g in nudged):
+        floor = widest([m for m, _ in nudged])
+        gs = [g for _, g in nudged if g is not None]
+        gfloor = {n: max(g[n] for g in gs) for n in gs[0]} if gs else {}
+        far = max([max(f["m"] for f in floor.values()) / M_RTOL,
+                   max(f["v"] for f in floor.values()) / V_RTOL]
+                  + [e / GRAD_RTOL for e in gfloor.values()])
+        if far > NUDGE_CAP:
+            return False, (f"ill-conditioned, not held (a one-ulp SSD nudge moves the step "
+                           f"{far:.2f} tolerances, past the cap of {NUDGE_CAP})"), []
+        verdict = (f"held, widened by the nudge's distance (ill-conditioned: {far:.2f} "
+                   f"tolerances, within the cap of {NUDGE_CAP})")
+    failures = [f"gradient {n}: {e} > {GRAD_RTOL} + {(gfloor or {}).get(n, 0.0)}"
+                for n, e in (grads or {}).items()
+                if e > GRAD_RTOL + (gfloor or {}).get(n, 0.0)]
+    try:
+        assert_step_close(got, floor, pooled=pooled)
+    except AssertionError as e:
+        failures.append(f"step: {e}")
+    return True, verdict, failures
 
 
 @contextlib.contextmanager

@@ -403,37 +403,39 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch, B, S):
 
     MoE: on each device the recompute in the backward routes exactly as the
     forward did (probabilities, expert sets and drops equal); between the
-    devices the forward's routes meet ``tests/_torch_moe_criteria.py``, and
-    the gradients and the step are held where no route differs. SSM and
-    hybrid: the gradients and the step are held where the CPU's own step
-    meets the criteria with every SSD output nudged one f32 ulp up and down
-    (``ssd_nudged``); where it does not, the step is ill-conditioned and only
-    its loss is held."""
+    devices the forward's routes meet ``tests/_torch_moe_criteria.py``.
+    Where a route differs, the card is held against the CPU's step run
+    again on the card's routes (``RouteReplay``). SSM and hybrid: the CPU's
+    own step with every SSD output nudged one f32 ulp up and down
+    (``ssd_nudged``) decides whether and how the step is held
+    (``hold_step``); where it is not, only the losses and step are."""
     import _torch_train_criteria as crit
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import build_model
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.optimizer import AdamWConfig
 
-    from _torch_moe_criteria import compare_routes
+    from _torch_moe_criteria import RouteReplay, compare_routes
 
     cfg = get_arch(arch).reduced()
+    lr = AdamWConfig().lr
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)).next_batch()
-    seen = {}
+    seen, nudged = {}, []
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, device=dev)
         params = model.init_params(torch.Generator().manual_seed(0))
         b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
         seen[dev] = _train_step(model, params, b)
-        if dev == "cpu" and cfg.is_ssm:
-            nudged = []
-            for to in (math.inf, -math.inf):
+        if dev == "cpu":
+            cpu = (model, params, b)
+            for to in (math.inf, -math.inf) if cfg.is_ssm else ():
                 with crit.ssd_nudged(to):
-                    nudged.append(_train_step(model, params, b))
+                    _, g, p, o, _, _ = _train_step(model, params, b)
+                nudged.append((crit.step_metrics(p, o, *seen["cpu"][2:4], lr),
+                               crit.grad_errors(g, seen["cpu"][1])))
     (lc, gc, pc, oc, lc2, rc), (lh, gh, ph, oh, lh2, rh) = seen["cuda"], seen["cpu"]
     assert np.isfinite(lc) and abs(lc - lh) <= crit.LOSS_ATOL and abs(lc2 - lh2) <= crit.LOSS_ATOL
     assert int(oc["step"]) == int(oh["step"]) == 1
-    held = True
     if cfg.family == "moe":
         L = cfg.n_layers
         for calls in (rc, rh):  # loss_and_grads, then the train step: forward, recompute each
@@ -441,14 +443,14 @@ def test_train_step_on_the_card_matches_the_cpu(cuda, arch, B, S):
             # the backward recomputes the layers from the last one back
             for fwd, again in zip(2 * (calls[:L] + calls[:L][::-1]), calls):
                 assert all(np.array_equal(fwd[k], again[k]) for k in ("probs", "routed", "kept"))
-        res = compare_routes(rc[:L], rh[:L], cfg.moe_top_k, B)
-        held = bool(res["agree"].all())
-    if cfg.is_ssm:
-        held = all(crit.meets(crit.step_metrics(p, o, ph, oh, AdamWConfig().lr),
-                              crit.grad_errors(g, gh)) for _, g, p, o, _, _ in nudged)
-    if held:
-        assert max(crit.grad_errors(gc, gh).values()) <= crit.GRAD_RTOL
-        crit.assert_step_close(crit.step_metrics(pc, oc, ph, oh, AdamWConfig().lr))
+        if not compare_routes(rc[:L], rh[:L], cfg.moe_top_k, B)["agree"].all():
+            with RouteReplay(rc):
+                _, gh, ph, oh, _, replayed = _train_step(*cpu)
+            assert all(np.array_equal(a[k], r[k]) for a, r in zip(rc, replayed)
+                       for k in ("routed", "kept"))
+    _, verdict, failures = crit.hold_step(crit.step_metrics(pc, oc, ph, oh, lr),
+                                          crit.grad_errors(gc, gh), nudged)
+    assert not failures, (verdict, failures)
 
 
 @pytest.mark.cuda
