@@ -56,6 +56,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
    layer's SSM state within 8 bf16 ulps, each held where the CPU meets it
    against its own 1-ulp jitter; zamba2 in bf16 does not (its random
    shared attention is near-argmax), and is held in f32 instead;
+5d. encoder-decoder and VLM serving: whisper-base (6 encoder and 6 decoder
+   layers) at its published context (1500 audio frames, at most 448
+   tokens: ``max_pos`` 448) and qwen2-vl-7b at full width and depth, one
+   at a time (random weights from the seed, drawn on the card): ``repro_torch.
+   launch.serve --arch <arch> --full --batch 4 --cache-len <448 | 2048>
+   --tokens 32`` (whisper's cross K/V left at zero, as the reference leaves
+   them; the VLM fed one seeded embedding), then 3 timed prefills of batch 4
+   (whisper: 1500 audio frames and 448 tokens, flash once per encoder layer
+   and twice per decoder layer, 18 a prefill; qwen2-vl: ``make_inputs``'
+   2048 embeddings and random M-RoPE positions, flash at GQA 7 and hd 128,
+   28 a prefill), whisper's 32 decode steps with the cross K/V of the 1500
+   frames filled from its encoder, peak device memory and a profile split
+   by the layers' parts.
+   Card against CPU at full width, 2 layers (2 + 2 for whisper), 2 x 256:
+   prefill and 4 decode steps' logits within 8 bf16 ulps, greedy tokens
+   >= 90 %, held where the CPU meets each against itself with every
+   attention output moved one ulp, else held in f32;
 6. the store's users, each path with the kernels' counts set to 0 before it
    and read after it, under ``torch.profiler`` (wall time, launches, the
    device's busy share), on the same Emulab deployment and blocks:
@@ -122,6 +139,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    redone steps' losses equal; the storage kernels counted, then held
    against their plain versions on the restored save's bytes.
 
+7c. training of the encoder-decoder and VLM families: whisper-base at full
+   width and depth and qwen2-vl-7b at full width with the depth cut to fit
+   (``EMBED_TRAIN_DEPTHS``; a ``reduced:`` line; the allocator's segments
+   expandable for the phase), weights drawn on the card, B=4 x 2048
+   embeddings from ``make_inputs`` (whisper: 4 x 448 tokens, its published
+   decoder context, and 1024 audio frames: the reference's training
+   attention refuses 1500, ``WHISPER_TRAIN_FRAMES``), AdamW
+   at lr 1e-3: as in 7b, a warm-up and 3 timed steps, the gradient's norm
+   and a profile split into forward, recompute, backward and AdamW. One
+   train step on the card against the CPU: the reduced configs at 2 x 64 in
+   bf16, and one full-width layer (whisper: one of each stack) at 1 x 256
+   in f32, held. Their launcher is not run: it refuses them (its
+   ``SyntheticLM`` makes only tokens, as the reference's does).
+
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -132,6 +163,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import itertools
 import json
 import math
 import re
@@ -359,6 +391,15 @@ def check_gearhash(data: np.ndarray, rng: np.random.Generator, card: str) -> dic
 
 
 PREFILL_B, PREFILL_S = 4, 2048  # the model path's prefill: its flash kernel's shape
+# whisper-base's published context (its n_audio_ctx and n_text_ctx): 30 s of
+# audio are 1500 encoder frames, and the decoder holds at most 448 positions
+WHISPER_FRAMES, WHISPER_TOKENS = 1500, 448
+# whisper's training frames: the reference's training attention
+# (``gqa_attention``, q_chunk 1024) asserts that above 1024 queries their
+# count is a multiple of 1024, and the port keeps that, so neither trains
+# the encoder on 1500 frames; 1024 frames (20.48 s of audio) is the most
+# both train below 2048
+WHISPER_TRAIN_FRAMES = 1024
 FLASH_CASES = (
     # (label, B, H, Hkv, Sq, Sk, hd, causal, window, dtype, input scale)
     ("path", PREFILL_B, 14, 2, PREFILL_S, PREFILL_S, 64, True, 0, torch.bfloat16, 1.0),
@@ -377,8 +418,25 @@ FLASH_CASES = (
     ("bf16 non-causal ragged Sk", 1, 2, 2, 65, 2049, 64, False, 0, torch.bfloat16, 1.0),
     ("bf16 Sq=1", 2, 14, 2, 1, 77, 64, True, 0, torch.bfloat16, 1.0),
     ("bf16 hd 16 GQA", 2, 4, 2, 333, 333, 16, False, 0, torch.bfloat16, 1.0),
+    # whisper-base's prefill (phase 5d) at its published context: the
+    # encoder, non-causal over 1500 frames; the decoder's causal
+    # self-attention over 448 tokens; its cross-attention, non-causal, 448
+    # queries against the 1500 frames
+    ("whisper encoder", PREFILL_B, 8, 8, WHISPER_FRAMES, WHISPER_FRAMES, 64, False, 0,
+     torch.bfloat16, 1.0),
+    ("whisper decoder", PREFILL_B, 8, 8, WHISPER_TOKENS, WHISPER_TOKENS, 64, True, 0,
+     torch.bfloat16, 1.0),
+    ("whisper cross", PREFILL_B, 8, 8, WHISPER_TOKENS, WHISPER_FRAMES, 64, False, 0,
+     torch.bfloat16, 1.0),
+    # non-causal with more queries than keys (the reference's make_inputs
+    # convention of S tokens against S // 2 frames)
+    ("bf16 non-causal Sq>Sk", PREFILL_B, 8, 8, PREFILL_S, PREFILL_S // 2, 64, False, 0,
+     torch.bfloat16, 1.0),
+    # qwen2-vl-7b's prefill (phase 5d): 7 query heads a KV head at hd 128
+    ("qwen2-vl path", PREFILL_B, 28, 4, PREFILL_S, PREFILL_S, 128, True, 0, torch.bfloat16, 1.0),
 )
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+PATH_LABELS = ("path", "encoder", "decoder", "cross")  # the cases a model phase runs: timed
 # timed only: gemma3-1b's prefill at 4 x 2048 (hd 256, 4 query heads on one
 # KV head), its local layers' 512-key window and its global layers' none.
 # No model phase runs it: gemma3 is served on the CPU in the tests only.
@@ -390,9 +448,12 @@ FLASH_TIMED = (
 )
 
 
-def _causal_pairs(Sq: int, Sk: int, window: int = 0) -> int:
+def _causal_pairs(Sq: int, Sk: int, window: int = 0, causal: bool = True) -> int:
     """Unmasked (q, k) pairs of one head under the top-left causal mask and
-    a window (0 <= q - k < window; 0 for none): what the kernel computes."""
+    a window (0 <= q - k < window; 0 for none): what the kernel computes.
+    Non-causal with no window: every pair."""
+    if not causal and not window:
+        return Sq * Sk
     return sum(max(0, min(q, Sk - 1) - (max(0, q - window + 1) if window else 0) + 1)
                for q in range(Sq))
 
@@ -400,9 +461,11 @@ def _causal_pairs(Sq: int, Sk: int, window: int = 0) -> int:
 def check_flash(rng: np.random.Generator, card: str) -> dict:
     """The flash-attention kernel against its plain version on the cases
     above (tolerance 2e-2 in bf16: one bf16 rounding of outputs near 1;
-    1e-4 in f32: sums in another order), then timed at the three path shapes
-    (qwen2-0.5b's hd 64, olmoe-1b-7b's hd 128, zamba2-7b's hd 112) and at
-    gemma3-1b's two (hd 256, ``FLASH_TIMED``) beside its plain version and
+    1e-4 in f32: sums in another order), then timed at the path shapes
+    (qwen2-0.5b's hd 64, olmoe-1b-7b's hd 128, whisper-base's encoder,
+    decoder and cross-attention, qwen2-vl-7b's GQA 7 at hd 128, zamba2-7b's
+    hd 112) and
+    at gemma3-1b's two (hd 256, ``FLASH_TIMED``) beside its plain version and
     ``scaled_dot_product_attention``. The JSON entry holds zamba2-7b's."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -423,11 +486,12 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
         log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} "
             f"{str(dtype).removeprefix('torch.')} causal={causal} window={window}: "
             f"max |err| {err:.3e} (tolerance {tol})")
-        worst = max(worst, err) if label.endswith("path") else worst
+        worst = max(worst, err) if label.endswith(PATH_LABELS) else worst
         del q, k, v, got, want
 
-    time_flash(FLASH_CASES[0], rng, card)
-    time_flash(FLASH_CASES[1], rng, card)
+    for case in FLASH_CASES:
+        if case[0].endswith(PATH_LABELS) and case[0] != "zamba2 path":
+            time_flash(case, rng, card)
     for case in FLASH_TIMED:
         time_flash(case, rng, card)
     entry = time_flash(FLASH_CASES[2], rng, card)
@@ -438,9 +502,9 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
 
 
 def time_flash(case: tuple, rng: np.random.Generator, card: str) -> dict:
-    """The kernel timed at a causal bf16 shape of ``FLASH_CASES`` or
-    ``FLASH_TIMED``, beside its plain version, ``scaled_dot_product_attention``
-    (with a boolean mask where there is a window) and its bound."""
+    """The kernel timed at a bf16 shape of ``FLASH_CASES`` or ``FLASH_TIMED``,
+    beside its plain version, ``scaled_dot_product_attention`` (with a
+    boolean mask where there is a window) and its bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
@@ -451,18 +515,18 @@ def time_flash(case: tuple, rng: np.random.Generator, card: str) -> dict:
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
                for shape in ((B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
     ke, ve = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
-    flops = 4 * hd * _causal_pairs(Sq, Sk, window) * B * H
+    flops = 4 * hd * _causal_pairs(Sq, Sk, window, causal) * B * H
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
     flop_ms, byte_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
     qp, kp = torch.arange(Sq, device=dev)[:, None], torch.arange(Sk, device=dev)[None]
     mask = (kp <= qp) & (qp - kp < window) if window else None
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, ke, ve, attn_mask=mask, is_causal=mask is None), 20)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, window=window), 20)
-    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, window=window), 2)
-    log(f"kernels: flash_attention {label} q{tuple(q.shape)} k/v{tuple(k.shape)} bf16 causal "
-        f"window={window}: {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        q, ke, ve, attn_mask=mask, is_causal=causal and mask is None), 20)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window), 20)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal, window=window), 2)
+    log(f"kernels: flash_attention {label} q{tuple(q.shape)} k/v{tuple(k.shape)} bf16 "
+        f"{'causal' if causal else 'non-causal'} window={window}: {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops} flops at 989 TFLOP/s "
         f"= {flop_ms:.4f} ms, {nbytes} bytes at 3.35 TB/s = {byte_ms:.4f} ms); "
         f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.2f} % of its bound, "
@@ -1104,7 +1168,7 @@ def drive_model(seed: int, card: str, out_dir: Path) -> int:
         f"random weights (seed {seed}) made in {time.perf_counter() - t0:.3f} s")
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
-    prefill_launches = timed_prefills(model, params, tokens, "model", card)
+    prefill_launches = timed_prefills(model, params, {"tokens": tokens}, "model", card)
 
     torch.cuda.reset_peak_memory_stats()
     out = serve.main(SERVE_ARGS + ["--seed", str(seed)])
@@ -1115,35 +1179,36 @@ def drive_model(seed: int, card: str, out_dir: Path) -> int:
     log(f"model: serve {' '.join(SERVE_ARGS)}: {out['seconds']:.4f} s after a "
         f"{out['warmup_seconds']:.4f} s warm-up step, {decode_tps:.1f} tokens/s, "
         f"{1e3 * out['seconds'] / 32:.3f} ms per step, peak device memory "
-        f"{torch.cuda.max_memory_allocated()} bytes, flash_attention launches "
+        f"{out['peak_bytes']} bytes, flash_attention launches "
         f"+{launches - prefill_launches} (decode attends with the plain gqa_attention) ({card})")
-    profile_model(model, params, tokens, out_dir)
+    profile_model(model, params, {"tokens": tokens}, out_dir)
     del model, params, out
     torch.cuda.empty_cache()
     return launches
 
 
-def timed_prefills(model, params, tokens: torch.Tensor, tag: str, card: str) -> int:
-    """PREFILL_RUNS timed prefills of ``tokens`` through ``make_prefill_step``
-    after one warm-up (cuBLAS handles, the kernel library's load), with
-    flash_attention counted from 0: fails unless it launched once per
-    attention layer a prefill (``attention_layers``) and the logits are
-    finite (B, V). Prints the median wall, tokens/s and peak device memory;
-    returns the launches."""
+def timed_prefills(model, params, batch: dict, tag: str, card: str) -> int:
+    """PREFILL_RUNS timed prefills of ``batch`` (``tokens``; the VLM's
+    ``embeds`` and ``positions``; whisper's ``audio_embeds`` and ``tokens``)
+    through ``make_prefill_step`` after one warm-up (cuBLAS handles, the
+    kernel library's load), with flash_attention counted from 0: fails
+    unless it launched once per attention layer a prefill
+    (``attention_layers``) and the logits are finite (B, V). Prints the
+    median wall, tokens/s and peak device memory; returns the launches."""
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.train.steps import make_prefill_step
 
     cfg = model.cfg
-    B, S = tokens.shape
+    B, S = (batch["embeds"] if "embeds" in batch else batch["tokens"]).shape[:2]
     step = make_prefill_step(model)
-    step(params, {"tokens": tokens})
+    step(params, batch)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.launches = 0
     walls = []
     for _ in range(PREFILL_RUNS):
         t0 = time.perf_counter()
-        logits = step(params, {"tokens": tokens})
+        logits = step(params, batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     launches = fa.launches
@@ -1154,8 +1219,11 @@ def timed_prefills(model, params, tokens: torch.Tensor, tag: str, card: str) -> 
     if logits.shape != (B, cfg.vocab) or not torch.isfinite(logits).all():
         raise AssertionError(f"prefill logits {tuple(logits.shape)} are not finite (B, V)")
     wall = sorted(walls)[len(walls) // 2]
-    log(f"{tag}: prefill {B} x {S} tokens: {wall:.4f} s wall (median of "
-        f"{', '.join(f'{w:.4f}' for w in walls)}), {B * S / wall:.1f} tokens/s, "
+    Sa = batch["audio_embeds"].shape[1] if "audio_embeds" in batch else 0
+    frames = f" (and {B} x {Sa} audio frames)" if Sa else ""
+    per_frame = f" and {B * Sa / wall:.1f} audio frames/s" if Sa else ""
+    log(f"{tag}: prefill {B} x {S} tokens{frames}: {wall:.4f} s wall (median of "
+        f"{', '.join(f'{w:.4f}' for w in walls)}), {B * S / wall:.1f} tokens/s{per_frame}, "
         f"peak device memory {torch.cuda.max_memory_allocated()} bytes, flash_attention "
         f"launches {launches} ({per} per prefill) ({card})")
     return launches
@@ -1164,37 +1232,51 @@ def timed_prefills(model, params, tokens: torch.Tensor, tag: str, card: str) -> 
 def attention_layers(cfg) -> int:
     """The attention layers of one forward, each one flash_attention launch
     in a prefill: every layer of the attention families, none of mamba2,
-    one shared block per group of zamba2."""
+    one shared block per group of zamba2, each encoder layer and twice each
+    decoder layer (self and cross) of whisper."""
     if cfg.family == "ssm":
         return 0
     if cfg.family == "hybrid":
         return cfg.n_layers // cfg.shared_attn_every
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers
     return cfg.n_layers
 
 
-def profile_model(model, params, tokens: torch.Tensor, out_dir: Path, name: str = "model") -> None:
-    """One prefill and 8 decode steps (from a zero cache of the serve
-    phase's length) under ``torch.profiler``: the device's busy share and
-    the costliest kernels of each; traces in ``out_dir``. For the MoE, SSM
-    and hybrid families, their layers' parts run inside ``record_function``
-    ranges (``moe_ranges``, ``ssm_ranges``) and the device time is split
-    by them; the decode's device operations are also counted per step."""
+def profile_model(model, params, batch: dict, out_dir: Path, name: str = "model",
+                  cache: dict | None = None) -> None:
+    """One prefill of ``batch`` and 8 decode steps (from a zero cache of the
+    serve phase's length, or a copy of ``cache``; fed the first token, or
+    the VLM's first embedding) under ``torch.profiler``: the device's busy
+    share and the costliest kernels of each; traces in ``out_dir``. For the
+    MoE, SSM, hybrid, encoder-decoder and VLM families, their layers' parts
+    run inside ``record_function`` ranges (``moe_ranges``, ``ssm_ranges``,
+    ``attn_ranges``) and the device time is split by them; the decode's
+    device operations are also counted per step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.launch.serve import decode_loop
     from repro_torch.train.steps import make_prefill_step
 
     step = make_prefill_step(model)
-    B = tokens.shape[0]
-    first = {"token": tokens[:, 0].contiguous()}
+    if "embeds" in batch:
+        first = {"embed": batch["embeds"][:, 0].contiguous()}
+    else:
+        first = {"token": batch["tokens"][:, 0].contiguous()}
+    B = next(iter(first.values())).shape[0]
     steps = 8
-    runs = (("prefill", lambda: step(params, {"tokens": tokens})),
-            (f"decode x{steps}", lambda: decode_loop(model, params,
-                                                     model.init_cache(B, PREFILL_S),
-                                                     dict(first), steps)))
+
+    def fresh_cache() -> dict:
+        if cache is None:
+            return model.init_cache(B, PREFILL_S)
+        return {k: v.clone() for k, v in cache.items()}
+
+    runs = (("prefill", lambda: step(params, batch)),
+            (f"decode x{steps}", lambda: decode_loop(model, params, fresh_cache(), dict(first),
+                                                     steps)))
     family = model.cfg.family
-    split = {"moe": (moe_ranges, "MoE", moe_part), "ssm": (ssm_ranges, "SSM", ssm_part),
-             "hybrid": (ssm_ranges, "SSM", ssm_part)}.get(family)
+    split = None if family == "dense" else _family_split(family)
+    what = {"moe": "MoE", "ssm": "SSM", "hybrid": "SSM"}.get(family, "layer")
     for label, fn in runs:
         fn()  # warm-up outside the profiler
         torch.cuda.synchronize()
@@ -1210,7 +1292,7 @@ def profile_model(model, params, tokens: torch.Tensor, out_dir: Path, name: str 
             n_ops = sum(ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") for ev in events)
             log(f"{tag} {n_ops / steps:.1f} device operations a decode step")
         if split:
-            split_device_time(events, tag, split[1], split[2])
+            split_device_time(events, tag, what, split[1])
 
 
 # ---------------------------------------------------------------- phase 5b
@@ -1275,6 +1357,21 @@ def ssm_ranges():
                    (ssd, "_causal_conv", "mixer.conv"), (ssd, "_intra_chunk", "mixer.intra"),
                    (ssd, "_inter_chunk", "mixer.state"), (lm.LM, "_dense_block", "shared"),
                    (lm.LM, "_decode_block", "shared"), (lm, "swiglu_mlp", "shared.mlp")])
+
+
+def attn_ranges():
+    """The encoder-decoder's and the VLM's parts: ``encoder`` and ``decoder``
+    (whisper's layers, whole), and inside a layer ``attention`` (each
+    attention: projections, RoPE, the kernel or the score chain, the output
+    projection), ``mlp`` (the GELU or SwiGLU MLP) and ``norm`` (the layer or
+    RMS norms)."""
+    from repro_torch.models import lm
+
+    return ranges([(lm.LM, "_enc_layer", "encoder"), (lm.LM, "_dec_layer", "decoder"),
+                   (lm.LM, "_attn", "attention"), (lm.LM, "_decode_attn", "attention"),
+                   (lm, "gelu_mlp", "mlp"),
+                   (lm, "swiglu_mlp", "mlp"), (lm, "layer_norm", "norm"),
+                   (lm, "rms_norm", "norm")])
 
 
 def open_ranges(events: list) -> dict:
@@ -1342,6 +1439,21 @@ def moe_part(kind: str, ranges: tuple) -> str:
     return f"outside the MoE layer: {kind}"
 
 
+def attn_part(kind: str, ranges: tuple) -> str:
+    where = ranges[0] if ranges else None
+    stack = next((r for r in ranges if r in ("encoder", "decoder")), None)
+    at = f"{stack}'s " if stack else ""
+    if kind == "flash_attention":
+        return f"{at}flash_attention"
+    if where == "attention":
+        return f"{at}attention outside flash_attention: {kind}"
+    if where == "mlp":
+        return f"{at}MLP: {kind}"
+    if where == "norm":
+        return f"{at}norms: {kind}"
+    return f"{at}outside attention, MLP and norms: {kind}"
+
+
 def ssm_part(kind: str, ranges: tuple) -> str:
     where = ranges[0] if ranges else None
     if kind == "flash_attention":
@@ -1397,12 +1509,12 @@ def drive_moe(seed: int, card: str, out_dir: Path) -> int:
     log(f"moe: serve {' '.join(MOE_SERVE_ARGS)}: {out['seconds']:.4f} s after a "
         f"{out['warmup_seconds']:.4f} s warm-up step, {out['tokens'].size / out['seconds']:.1f} "
         f"tokens/s, {1e3 * out['seconds'] / 32:.3f} ms per step, peak device memory "
-        f"{torch.cuda.max_memory_allocated()} bytes, flash_attention launches {decode_launches}; "
-        f"{serve_wall:.3f} s for the whole CLI, the weights' draw on the host included ({card})")
+        f"{out['peak_bytes']} bytes, flash_attention launches {decode_launches}; "
+        f"{serve_wall:.3f} s for the whole CLI, the weights' draw on the card included ({card})")
 
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
-    prefill_launches = timed_prefills(model, params, tokens, "moe", card)
+    prefill_launches = timed_prefills(model, params, {"tokens": tokens}, "moe", card)
     with mc.RouteLog() as routes:
         make_prefill_step(model)(params, {"tokens": tokens})
     if len(routes.calls) != cfg.n_layers:
@@ -1419,7 +1531,7 @@ def drive_moe(seed: int, card: str, out_dir: Path) -> int:
             f"capacity C={C} ({100 * (n - kept) / n:.3f} %); tokens per expert min {load.min()} "
             f"max {load.max()} (mean {n / cfg.moe_experts:.1f}); {int((load > C).sum())} experts "
             f"over capacity")
-    profile_model(model, params, tokens, out_dir, name="olmoe")
+    profile_model(model, params, {"tokens": tokens}, out_dir, name="olmoe")
     del model, params, out
     torch.cuda.empty_cache()
     return prefill_launches + decode_launches
@@ -1595,9 +1707,9 @@ def moe_gather_backward_card_vs_cpu(seed: int, card: str) -> None:
 SSM_MODELS = ("mamba2_2_7b", "zamba2_7b")
 # card vs CPU at full width, SMALL_B x SMALL_S tokens: mamba2 at 2 layers,
 # zamba2 at 7 (one group of 6, the shared block, one trailing layer). Logits
-# within SSM_LOGIT_ULPS bf16 ulps of the CPU's largest |logit| (the MoE
+# within CHECK_LOGIT_ULPS bf16 ulps of the CPU's largest |logit| (the MoE
 # check's 8), greedy tokens at SMALL_ARGMAX_SHARE of all positions; and each
-# layer's f32 SSM state after SSM_DECODE_STEPS decode steps within
+# layer's f32 SSM state after CHECK_DECODE_STEPS decode steps within
 # SSM_STATE_ULPS bf16 ulps of that layer's largest |state|: the state sums
 # products of bf16 activations (B, x after the conv) that the two devices
 # may round one bf16 ulp apart, so it carries their bf16 error, not f32's.
@@ -1607,9 +1719,9 @@ SSM_MODELS = ("mamba2_2_7b", "zamba2_7b")
 # ~100), so past it the bf16 model is ill-conditioned: there the criteria
 # are printed, and held on the same model in f32 (``dtype="float32"``).
 SSM_CHECK_LAYERS = {"mamba2_2_7b": 2, "zamba2_7b": 7}
-SSM_LOGIT_ULPS = 8
+CHECK_LOGIT_ULPS = 8
 SSM_STATE_ULPS = 8
-SSM_DECODE_STEPS = 4
+CHECK_DECODE_STEPS = 4
 
 
 def drive_ssm(arch: str, seed: int, card: str, out_dir: Path) -> int:
@@ -1651,18 +1763,30 @@ def drive_ssm(arch: str, seed: int, card: str, out_dir: Path) -> int:
     log(f"{tag}: serve {' '.join(args)}: {out['seconds']:.4f} s after a "
         f"{out['warmup_seconds']:.4f} s warm-up step, {out['tokens'].size / out['seconds']:.1f} "
         f"tokens/s, {1e3 * out['seconds'] / 32:.3f} ms per step, peak device memory "
-        f"{torch.cuda.max_memory_allocated()} bytes ({held} held before the phase), cache "
+        f"{out['peak_bytes']} bytes ({held} held before the phase), cache "
         f"{sum(cache.values())} bytes "
         f"({', '.join(f'{k} {v}' for k, v in cache.items())}), flash_attention launches "
         f"{decode_launches} (decode attends with the plain gqa_attention); {serve_wall:.3f} s "
-        f"for the whole CLI, the weights' draw on the host included ({card})")
+        f"for the whole CLI, the weights' draw on the card included ({card})")
     tokens = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
-    prefill_launches = timed_prefills(model, params, tokens, tag, card)
-    profile_model(model, params, tokens, out_dir, name=tag)
+    prefill_launches = timed_prefills(model, params, {"tokens": tokens}, tag, card)
+    profile_model(model, params, {"tokens": tokens}, out_dir, name=tag)
     del model, params, out
     torch.cuda.empty_cache()
     return prefill_launches + decode_launches
+
+
+def ulp_nudger(seed: int):
+    """A function moving each element of a tensor by one ulp of its dtype,
+    up or down at random (from ``seed``)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def nudge(t: torch.Tensor) -> torch.Tensor:
+        up = torch.rand(t.shape, generator=g) < 0.5
+        return torch.nextafter(t, torch.where(up, math.inf, -math.inf).to(t.dtype))
+
+    return nudge
 
 
 @contextlib.contextmanager
@@ -1673,12 +1797,7 @@ def ssd_jitter(seed: int):
     disagree on, which shows how far the model carries one."""
     from repro_torch.models import ssd
 
-    g = torch.Generator().manual_seed(seed)
-
-    def nudge(t: torch.Tensor) -> torch.Tensor:
-        up = torch.rand(t.shape, generator=g) < 0.5
-        return torch.nextafter(t, torch.where(up, math.inf, -math.inf).to(t.dtype))
-
+    nudge = ulp_nudger(seed)
     chunked, step = ssd._ssd_chunked, ssd.mamba2_decode_step
     ssd._ssd_chunked = lambda *a: nudge(chunked(*a))
 
@@ -1695,9 +1814,8 @@ def ssd_jitter(seed: int):
 
 def _ssm_run(cfg, weights, tokens: torch.Tensor, where: str) -> tuple:
     """The prefill's last-position logits (``make_prefill_step``), every
-    position's greedy token, the logits of SSM_DECODE_STEPS decode steps from
+    position's greedy token, the logits of CHECK_DECODE_STEPS decode steps from
     a zero cache fed ``tokens[:, i]``, and the SSM state after them."""
-    from repro_torch.models.layers import dt
     from repro_torch.models.registry import build_model
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
@@ -1706,11 +1824,10 @@ def _ssm_run(cfg, weights, tokens: torch.Tensor, where: str) -> tuple:
     t = tokens.to(model.device)
     last = make_prefill_step(model)(params, {"tokens": t})
     with torch.no_grad():
-        positions = torch.arange(t.shape[1], device=t.device)[None].expand(t.shape)
-        h, _ = model._run_stack(params, params["embed"][t].to(dt(cfg)), positions=positions)
+        h, _ = model._forward(params, {"tokens": t})
         greedy = model._head(params, h).argmax(dim=-1)
     cache, steps = model.init_cache(*t.shape), []
-    for i in range(SSM_DECODE_STEPS):
+    for i in range(CHECK_DECODE_STEPS):
         logits, cache = make_serve_step(model)(params, cache, {"token": t[:, i], "cur_len": i})
         steps.append(logits.cpu())
     return last.cpu(), greedy.cpu(), torch.stack(steps), cache["ssm"].cpu()
@@ -1723,9 +1840,6 @@ def ssm_card_vs_cpu(seed: int, arch: str, dtype: str = "bfloat16") -> bool:
     criterion above is held where the jittered CPU meets it, printed where
     it does not. Returns whether every criterion was held."""
     import dataclasses
-
-    sys.path.insert(0, str(ROOT / "tests"))
-    from _torch_moe_criteria import bf16_ulp
 
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import build_model
@@ -1741,34 +1855,50 @@ def ssm_card_vs_cpu(seed: int, arch: str, dtype: str = "bfloat16") -> bool:
     del weights
     tag = (f"{arch.split('_')[0]} card vs CPU: {cfg.name} full width, {cfg.n_layers} layers, "
            f"{dtype}")
+    return held_against_jitter(tag, card, cpu, jit, states=True)
+
+
+def held_against_jitter(tag: str, card: tuple, cpu: tuple, jit: tuple,
+                        states: bool = False) -> bool:
+    """The card's run against the CPU's and the jittered CPU's (each
+    ``_ssm_run`` or ``_embed_run``: last-position logits, every position's
+    greedy token, the decode steps' logits, with ``states`` each layer's SSM
+    state): logits within CHECK_LOGIT_ULPS bf16 ulps of the CPU's largest
+    |logit|, states within SSM_STATE_ULPS of each layer's largest |state|,
+    greedy tokens at SMALL_ARGMAX_SHARE. Each criterion is held (a miss
+    fails the run) where the jittered CPU meets it, printed where it does
+    not. Returns whether every criterion was held."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_moe_criteria import bf16_ulp
+
     held = True
 
-    def judge(label: str, err: float, self_err: float, tol: float, what: str) -> None:
+    def judge(label: str, err: float, self_err: float, tol: float) -> None:
         nonlocal held
         if self_err <= tol:
             if not err <= tol:
-                raise AssertionError(f"{tag}: {label}: {what} {err} > {tol}")
+                raise AssertionError(f"{tag}: {label}: max |diff| {err} > {tol}")
             verdict = "held"
         else:
             held, verdict = False, "NOT held: ill-conditioned, the jittered CPU misses it too"
-        log(f"{tag}: {label}: {what} {err:.3e}, the CPU against its 1-ulp jitter "
+        log(f"{tag}: {label}: max |diff| {err:.3e}, the CPU against its 1-ulp jitter "
             f"{self_err:.3e} (tolerance {tol:.3e}); {verdict}")
 
     for label, i in (("prefill last-position logits", 0),
-                     (f"logits of {SSM_DECODE_STEPS} decode steps", 2)):
+                     (f"logits of {CHECK_DECODE_STEPS} decode steps", 2)):
         a, b, c = card[i], cpu[i], jit[i]
         if not torch.isfinite(a).all():
             raise AssertionError(f"{tag}: {label} are not finite")
-        tol = SSM_LOGIT_ULPS * float(bf16_ulp(float(b.abs().max())))
+        tol = CHECK_LOGIT_ULPS * float(bf16_ulp(float(b.abs().max())))
         judge(f"{label} {tuple(a.shape)} (max |logit| {float(b.abs().max()):.3e}, greedy "
               f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{a[..., 0].numel()} equal)",
-              float((a - b).abs().max()), float((c - b).abs().max()), tol, "max |diff|")
-    for layer, (a, b, c) in enumerate(zip(card[3], cpu[3], jit[3])):
+              float((a - b).abs().max()), float((c - b).abs().max()), tol)
+    for layer, (a, b, c) in enumerate(zip(card[3], cpu[3], jit[3]) if states else ()):
         big = float(b.abs().max())
-        judge(f"layer {layer} SSM state after {SSM_DECODE_STEPS} steps (max |state| {big:.3e}, "
+        judge(f"layer {layer} SSM state after {CHECK_DECODE_STEPS} steps (max |state| {big:.3e}, "
               f"relative L2 {float((a - b).norm() / b.norm()):.3e})",
               float((a - b).abs().max()), float((c - b).abs().max()),
-              SSM_STATE_ULPS * float(bf16_ulp(big)), "max |diff|")
+              SSM_STATE_ULPS * float(bf16_ulp(big)))
     share = float((card[1] == cpu[1]).float().mean())
     self_share = float((jit[1] == cpu[1]).float().mean())
     if self_share >= SMALL_ARGMAX_SHARE and share < SMALL_ARGMAX_SHARE:
@@ -1779,6 +1909,238 @@ def ssm_card_vs_cpu(seed: int, arch: str, dtype: str = "bfloat16") -> bool:
         f"positions, the CPU against its 1-ulp jitter at {self_share:.4f} (required "
         f"{SMALL_ARGMAX_SHARE}; {'held' if self_share >= SMALL_ARGMAX_SHARE else 'NOT held'})")
     return held
+
+
+# ---------------------------------------------------------------- phase 5d
+# whisper-base (encoder-decoder: audio frames in, cross-attention) and
+# qwen2-vl-7b (VLM: patch embeddings in, M-RoPE) at full width and depth
+EMBED_MODELS = ("whisper_base", "qwen2_vl_7b")
+# card vs CPU at full width, SMALL_B x SMALL_S: 2 layers (2 + 2 for whisper).
+# Logits within CHECK_LOGIT_ULPS bf16 ulps of the CPU's largest |logit| and
+# greedy tokens at SMALL_ARGMAX_SHARE of all positions, each held where the
+# CPU meets it against itself with every attention output moved one ulp
+# (``attention_jitter``); else printed, and the same check held in f32
+EMBED_CHECK_LAYERS = 2
+
+
+def _encdec():
+    """``tests/_torch_encdec.py``, shared with the tests: whisper's final
+    layer norms drawn (``draw_final_norms``; the reference's init rule makes
+    every 1-D leaf 0, and whisper's layer norms scale by w, not 1 + w: from
+    it the encoder's output and every logit are exactly 0, and the serve
+    CLI, which keeps the rule, decodes greedy token 0 throughout) and the
+    decode cache's cross-attention K/V from the encoder's output
+    (``cross_kv``: the reference never fills them; this makes the decode's
+    cross-attention do real work)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_encdec
+
+    return _torch_encdec
+
+
+def _embed_inputs(cfg, B: int, S: int, seed: int, device: str) -> dict:
+    """``make_inputs`` of a B x S prefill (whisper: S // 2 audio frames and S
+    tokens; qwen2-vl: S embeddings and M-RoPE positions drawn in [0, S)),
+    labels dropped."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models.registry import make_inputs
+
+    made = make_inputs(cfg, ShapeConfig("prefill", S, B, "prefill"), seed=seed, device=device)
+    return {k: v for k, v in made.items() if k != "labels"}
+
+
+def whisper_inputs(B: int, seed: int, device: str, *, frames: int = WHISPER_FRAMES,
+                   labels: bool = False) -> dict:
+    """Whisper-base's batch at its published context: B x ``frames`` audio
+    frames (normal x 0.02, bf16) and B x WHISPER_TOKENS tokens (and, with
+    ``labels``, labels) uniform over the vocabulary, drawn from numpy's
+    ``default_rng(seed)`` as ``make_inputs`` draws its own (which ties the
+    frames to half the tokens)."""
+    from repro_torch.configs import get_arch
+
+    cfg = get_arch("whisper_base")
+    rng = np.random.default_rng(seed)
+    audio = rng.standard_normal((B, frames, cfg.d_model)).astype(np.float32) * 0.02
+    out = {"audio_embeds": torch.from_numpy(audio).to(device, torch.bfloat16)}
+    for name in ("tokens", "labels") if labels else ("tokens",):
+        out[name] = torch.from_numpy(rng.integers(0, cfg.vocab, (B, WHISPER_TOKENS),
+                                                  dtype=np.int32)).to(device)
+    return out
+
+
+def _decode_batch(batch: dict, i: int) -> dict:
+    """Decode step i's input: the VLM's embedding at position i, else token i."""
+    if "embeds" in batch:
+        return {"embed": batch["embeds"][:, i].contiguous(), "cur_len": i}
+    return {"token": batch["tokens"][:, i].contiguous(), "cur_len": i}
+
+
+def drive_embed(arch: str, seed: int, card: str, out_dir: Path) -> int:
+    """``arch`` (whisper-base or qwen2-vl-7b) at full width and depth: the
+    serve CLI (greedy decode, B=4, 32 tokens after a warm-up step; qwen2-vl
+    against a 2048 cache, fed one seeded embedding; whisper at its published
+    context, cache and ``max_pos`` WHISPER_TOKENS, its cross K/V left at
+    zero as the reference leaves them), then with its model and weights
+    PREFILL_RUNS timed prefills of B=PREFILL_B, flash_attention counted from
+    0 (qwen2-vl: ``make_inputs``' 2048 embeddings and random M-RoPE
+    positions; whisper: ``whisper_inputs``, WHISPER_FRAMES audio frames and
+    WHISPER_TOKENS tokens); for whisper, 32 more steps of the CLI's loop
+    (``decode_loop``) with the cross K/V of the WHISPER_FRAMES frames filled
+    from the encoder (``cross_kv``); then a profile split by the layers'
+    parts. Returns the flash_attention launches of the prefills and the
+    decodes."""
+    import gc
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch import serve
+
+    cache_len = WHISPER_TOKENS if arch == "whisper_base" else PREFILL_S
+    args = ["--arch", arch, "--full", "--batch", str(PREFILL_B), "--cache-len", str(cache_len),
+            "--tokens", "32", "--seed", str(seed)]
+    gc.collect()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    t0 = time.perf_counter()
+    out = serve.main(args)
+    serve_wall = time.perf_counter() - t0
+    decode_launches = fa.launches
+    model, params = out.pop("model"), out.pop("params")
+    cfg = model.cfg
+    if not out["finite"] or out["tokens"].shape != (PREFILL_B, 32):
+        raise AssertionError(f"serve: logits finite {out['finite']}, tokens {out['tokens'].shape}")
+    cache = {name: math.prod(shape) * dtype.itemsize
+             for name, (shape, dtype) in model.cache_template(PREFILL_B, cache_len).items()}
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    tag = arch.split("_")[0] if cfg.family == "encdec" else "qwen2-vl"
+    log(f"{tag}: {cfg.name} {model.n_params()} parameters ({weights} bytes), {cfg.n_layers} "
+        + (f"decoder and {cfg.encoder_layers} encoder layers, " if cfg.family == "encdec" else
+           "layers, ")
+        + f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, hd {cfg.hd}, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, rope {cfg.rope_style}"
+        + (f" sections {cfg.mrope_sections}" if cfg.mrope_sections else "")
+        + f", max_pos {model.max_pos}; random weights (seed {seed})")
+    log(f"{tag}: serve {' '.join(args)}: {out['seconds']:.4f} s after a "
+        f"{out['warmup_seconds']:.4f} s warm-up step, {out['tokens'].size / out['seconds']:.1f} "
+        f"tokens/s, {1e3 * out['seconds'] / 32:.3f} ms per step, peak device memory "
+        f"{out['peak_bytes']} bytes ({held} held before the phase), cache "
+        f"{sum(cache.values())} bytes ({', '.join(f'{k} {v}' for k, v in cache.items())}), "
+        f"flash_attention launches {decode_launches} (decode attends with the plain "
+        f"gqa_attention); {serve_wall:.3f} s for the whole CLI, the weights' draw on the card "
+        f"included ({card})")
+    if cfg.family == "encdec":
+        zero = float(out["tokens"].max())
+        _encdec().draw_final_norms(params, seed + 9)
+        log(f"{tag}: from the init rule every logit is 0 (the serve CLI's greedy tokens' max "
+            f"{zero:.0f}); the final layer norms drawn from the seed from here on "
+            f"(draw_final_norms)")
+        batch = whisper_inputs(PREFILL_B, seed, "cuda")
+    else:
+        batch = _embed_inputs(cfg, PREFILL_B, PREFILL_S, seed, "cuda")
+    prefill_launches = timed_prefills(model, params, batch, tag, card)
+    filled = None
+    if cfg.family == "encdec":
+        filled = model.init_cache(PREFILL_B, cache_len)
+        filled["xk"], filled["xv"] = _encdec().cross_kv(model, params, batch["audio_embeds"])
+        first = {"token": batch["tokens"][:, 0].contiguous()}
+        serve.decode_loop(model, params, {k: v.clone() for k, v in filled.items()}, dict(first),
+                          1)  # warm-up
+        before = fa.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        toks, logits = serve.decode_loop(model, params, {k: v.clone() for k, v in filled.items()},
+                                         dict(first), 32)
+        wall = time.perf_counter() - t0
+        if not all(torch.isfinite(x).all() for x in logits) or fa.launches != before:
+            raise AssertionError(f"{tag}: decode with the cross K/V filled: not finite, or it "
+                                 f"launched flash_attention")
+        log(f"{tag}: decode_loop (the serve CLI's loop), 32 tokens x batch {PREFILL_B} with the "
+            f"cross K/V ({WHISPER_FRAMES} frames) filled from the encoder: {wall:.4f} s, "
+            f"{toks.size / wall:.1f} tokens/s, {1e3 * wall / 32:.3f} ms per step; max |xk| "
+            f"{float(filled['xk'].abs().max()):.3e}; sample {toks[0][:8].tolist()} ({card})")
+    profile_model(model, params, batch, out_dir, name=tag, cache=filled)
+    del model, params, out, batch, filled
+    gc.collect()
+    torch.cuda.empty_cache()
+    return prefill_launches + decode_launches
+
+
+@contextlib.contextmanager
+def attention_jitter(seed: int):
+    """While active, every output of ``flash_attention`` and
+    ``gqa_attention`` in the LM moves by one ulp of its dtype, up or down at
+    random (seeded): a rounding the card and the CPU could disagree on
+    (the kernel rounds P to bf16 and sums in another order), which shows
+    how far the model carries one."""
+    from repro_torch.models import lm
+
+    nudge = ulp_nudger(seed)
+    flash, gqa = lm.flash_attention, lm.gqa_attention
+    lm.flash_attention = lambda *a, **k: nudge(flash(*a, **k))
+    lm.gqa_attention = lambda *a, **k: nudge(gqa(*a, **k))
+    try:
+        yield
+    finally:
+        lm.flash_attention, lm.gqa_attention = flash, gqa
+
+
+def _embed_run(cfg, weights, batch: dict, where: str) -> tuple:
+    """The prefill's last-position logits, every position's greedy token,
+    and the logits of CHECK_DECODE_STEPS teacher-forced decode steps from a
+    zero cache (whisper's cross K/V filled from this device's encoder)."""
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_prefill_step
+
+    model = build_model(cfg, max_pos=SMALL_S, device=where)
+    params = model.load_params(weights)
+    b = {k: v.to(model.device) for k, v in batch.items()}
+    last = make_prefill_step(model)(params, b)
+    with torch.no_grad():
+        h, _ = model._forward(params, b)
+        greedy = model._head(params, h).argmax(dim=-1)
+    cache = model.init_cache(SMALL_B, SMALL_S)
+    if cfg.family == "encdec":
+        cache["xk"], cache["xv"] = _encdec().cross_kv(model, params, b["audio_embeds"])
+    steps = []
+    with torch.no_grad():
+        for i in range(CHECK_DECODE_STEPS):
+            logits, cache = model.decode_step(params, cache, _decode_batch(b, i))
+            steps.append(logits.cpu())
+    return last.cpu(), greedy.cpu(), torch.stack(steps)
+
+
+def embed_card_vs_cpu(seed: int, arch: str, dtype: str = "bfloat16") -> bool:
+    """``arch`` at full width and EMBED_CHECK_LAYERS layers (whisper: as many
+    encoder layers) in ``dtype`` on the card and on the CPU from the same
+    weights (one draw of one seeded CPU generator) and ``make_inputs`` of a
+    SMALL_B x SMALL_S prefill, and on the CPU once more under
+    ``attention_jitter``: the criteria above, each held where the jittered
+    CPU meets it and printed where it does not. Returns whether every
+    criterion was held."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, n_layers=EMBED_CHECK_LAYERS, dtype=dtype,
+                              encoder_layers=min(full.encoder_layers, EMBED_CHECK_LAYERS))
+    batch = _embed_inputs(cfg, SMALL_B, SMALL_S, seed + 4, "cpu")
+    weights = build_model(cfg, max_pos=SMALL_S, device="cpu").init_params(
+        torch.Generator().manual_seed(seed))
+    if cfg.family == "encdec":
+        _encdec().draw_final_norms(weights, seed + 9)
+    card = _embed_run(cfg, weights, batch, "cuda")
+    cpu = _embed_run(cfg, weights, batch, "cpu")
+    with attention_jitter(seed):
+        jit = _embed_run(cfg, weights, batch, "cpu")
+    del weights
+    tag = (f"{'whisper' if cfg.family == 'encdec' else 'qwen2-vl'} card vs CPU: {cfg.name} full "
+           f"width, {cfg.n_layers} layers"
+           + (f" + {cfg.encoder_layers} encoder layers" if cfg.family == "encdec" else "")
+           + f", {dtype}")
+    return held_against_jitter(tag, card, cpu, jit)
 
 
 # ---------------------------------------------------------------- phase 7
@@ -2031,6 +2393,8 @@ def _train_step_both(cfg, batch: dict, seed: int, lr: float) -> dict:
 
     bf16 = dataclasses.replace(cfg, dtype="bfloat16")
     weights = build_model(bf16, device="cpu").init_params(torch.Generator().manual_seed(seed))
+    if cfg.family == "encdec":
+        _encdec().draw_final_norms(weights, seed + 9)
     if cfg.dtype != "bfloat16":
         weights = tree_map(lambda p: p.float(), weights)
     runs = [("cpu", "cpu", contextlib.nullcontext), ("cuda", "cuda", contextlib.nullcontext)]
@@ -2047,7 +2411,7 @@ def _train_step_both(cfg, batch: dict, seed: int, lr: float) -> dict:
             break  # the CPU routed as the card did
         model = build_model(cfg, device=where)
         params = tree_map(lambda p: p.to(model.device), weights)
-        b = {k: torch.from_numpy(v).to(model.device) for k, v in batch.items()}
+        b = {k: torch.as_tensor(v).to(model.device) for k, v in batch.items()}
         with mc.RouteLog() as routes, ctx():
             loss, grads = loss_and_grads(model, params, b)
         new, opt = adamw_update(params, grads, adamw_init(params), AdamWConfig(lr=lr))
@@ -2091,11 +2455,8 @@ def train_check(cfg, width: str, B: int, S: int, lr: float, data_seed: int, seed
     import _torch_moe_criteria as mc
     import _torch_train_criteria as crit
 
-    from repro_torch.train.data import DataConfig, SyntheticLM
-
     t0 = time.perf_counter()
-    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B,
-                                   seed=data_seed)).next_batch()
+    batch = _train_batches(cfg, B, S, data_seed, "cpu")()
     seen = _train_step_both(cfg, batch, seed, lr)
     tag = (f"{cfg.name} {width}, {cfg.n_layers} layer{'s' if cfg.n_layers > 1 else ''}, "
            f"{cfg.dtype}, {B} x {S} tokens, lr {lr}")
@@ -2205,6 +2566,10 @@ def train_card_vs_cpu(seed: int) -> None:
 # the new params/m/v are alive together during the update, ~22 bytes a
 # parameter with the bf16 gradients)
 FAMILY_TRAIN_DEPTHS = {"olmoe_1b_7b": 5, "mamba2_2_7b": 56, "zamba2_7b": 27}
+# phase 7c: whisper-base at full depth (6 + 6 layers), qwen2-vl-7b cut the
+# same way (~28 bytes a parameter, ~6.5 GB for each layer of 233 M, on top
+# of ~10 GB for the f32 logits and their gradient: 9 layers reach ~70 GB)
+EMBED_TRAIN_DEPTHS = {"whisper_base": 6, "qwen2_vl_7b": 8}
 FAMILY_TIMED_STEPS = 3
 # card vs CPU at full width in f32: the fewest layers that hold each part
 FAMILY_CHECK_LAYERS = {"olmoe_1b_7b": 1, "mamba2_2_7b": 1, "zamba2_7b": 7}
@@ -2223,16 +2588,45 @@ def train_ranges(family: str) -> contextlib.ExitStack:
     """The ranges of a train step's profile: ``forward`` (the whole
     ``loss_fn``, on the calling thread), ``layer`` (each checkpointed layer:
     the forward's and, on the backward's thread, its recompute), ``adamw``
-    (the update), and the family's parts (``moe_ranges``, ``ssm_ranges``)."""
+    (the update), and the family's parts (``moe_ranges``, ``ssm_ranges``,
+    ``attn_ranges``)."""
     from repro_torch.models import lm
     from repro_torch.train import steps
 
     stack = contextlib.ExitStack()
     stack.enter_context(ranges([(lm.LM, "loss_fn", "forward"), (steps, "adamw_update", "adamw"),
                                 (lm.LM, "_dense_block", "layer"),
-                                (lm.LM, "_mamba_layer", "layer")]))
-    stack.enter_context(moe_ranges() if family == "moe" else ssm_ranges())
+                                (lm.LM, "_mamba_layer", "layer"), (lm.LM, "_enc_layer", "layer"),
+                                (lm.LM, "_dec_layer", "layer")]))
+    stack.enter_context(_family_split(family)[0]())
     return stack
+
+
+def _family_split(family: str) -> tuple:
+    """(ranges, part_of) of a family's profile split."""
+    if family == "moe":
+        return moe_ranges, moe_part
+    if family in ("ssm", "hybrid"):
+        return ssm_ranges, ssm_part
+    return attn_ranges, attn_part
+
+
+def _train_batches(cfg, B: int, S: int, seed: int, device: str):
+    """A function giving the next B x S train batch on ``device``: from
+    ``SyntheticLM`` (tokens and labels), or for the families that take
+    embeddings (whisper, qwen2-vl), ``make_inputs`` of a train step (audio
+    frames or embeddings and M-RoPE positions, tokens, labels) from seed,
+    seed + 1, ..."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models.registry import make_inputs
+    from repro_torch.train.data import DataConfig, SyntheticLM
+
+    if cfg.family == "encdec" or cfg.embeddings_input:
+        seeds = itertools.count(seed)
+        return lambda: make_inputs(cfg, ShapeConfig("train", S, B, "train"), seed=next(seeds),
+                                   device=device)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=seed))
+    return lambda: {k: torch.from_numpy(v).to(device) for k, v in data.next_batch().items()}
 
 
 def train_part(family_part):
@@ -2252,9 +2646,13 @@ def train_part(family_part):
 
 
 def drive_family_training(arch: str, seed: int, card: str, out_dir: Path) -> dict:
-    """``arch`` at its published widths and FAMILY_TRAIN_DEPTHS layers,
-    weights drawn on the card from the seed, B=TRAIN_B x TRAIN_S from
-    ``SyntheticLM``, AdamW at lr TRAIN_LR: a warm-up step, then
+    """``arch`` at its published widths and FAMILY_TRAIN_DEPTHS (or
+    EMBED_TRAIN_DEPTHS) layers, weights drawn on the card from the seed,
+    B=TRAIN_B x TRAIN_S from ``SyntheticLM`` (qwen2-vl: from ``make_inputs``,
+    ``_train_batches``; whisper at its published decoder context: B=TRAIN_B
+    x WHISPER_TOKENS and WHISPER_TRAIN_FRAMES audio frames from
+    ``whisper_inputs``, ``max_pos`` WHISPER_TOKENS), AdamW at lr TRAIN_LR:
+    a warm-up step, then
     FAMILY_TIMED_STEPS timed steps (finite losses, median train tokens/s,
     peak device memory), the gradient's norm on the next batch (MoE: its
     routes recorded, the recompute's checked equal to the forward's, the
@@ -2271,35 +2669,43 @@ def drive_family_training(arch: str, seed: int, card: str, out_dir: Path) -> dic
     from repro_torch.configs import get_arch
     from repro_torch.models.layers import _capacity
     from repro_torch.models.registry import build_model
-    from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.steps import loss_and_grads, make_train_step
     from repro_torch.tree import tree_leaves
 
     full = get_arch(arch)
-    depth = FAMILY_TRAIN_DEPTHS[arch]
+    depth = {**FAMILY_TRAIN_DEPTHS, **EMBED_TRAIN_DEPTHS}[arch]
     cfg = dataclasses.replace(full, n_layers=depth)
-    tag = f"train {arch.split('_')[0]}"
-    log(f"reduced: n_layers {full.n_layers} -> {depth} ({cfg.name} training on one card)")
+    tag = f"train {'qwen2-vl' if arch == 'qwen2_vl_7b' else arch.split('_')[0]}"
+    if depth < full.n_layers:
+        log(f"reduced: n_layers {full.n_layers} -> {depth} ({cfg.name} training on one card)")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
+    encdec = cfg.family == "encdec"
+    S = WHISPER_TOKENS if encdec else TRAIN_S
     t0 = time.perf_counter()
-    model = build_model(cfg, max_pos=TRAIN_S, device="cuda")
+    model = build_model(cfg, max_pos=S, device="cuda")
     params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    if encdec:
+        _encdec().draw_final_norms(params, seed + 9)
     opt = adamw_init(params)
     torch.cuda.synchronize()
-    log(f"{tag}: {cfg.name} {model.n_params()} parameters ({depth} of {full.n_layers} layers, "
-        f"full width d {cfg.d_model}), B={TRAIN_B} x S={TRAIN_S}, AdamW lr {TRAIN_LR}, random "
-        f"weights drawn on the card (seed {seed}) in {time.perf_counter() - t0:.3f} s; {held} "
-        f"bytes held before the phase")
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
-                                  seed=seed))
+    frames = f" and {WHISPER_TRAIN_FRAMES} audio frames" if encdec else ""
+    log(f"{tag}: {cfg.name} {model.n_params()} parameters ({depth} of {full.n_layers} layers"
+        + (f" and {cfg.encoder_layers} encoder layers" if encdec else "")
+        + f", full width d {cfg.d_model}), B={TRAIN_B} x S={S}{frames}, AdamW lr "
+        f"{TRAIN_LR}, random weights drawn on the card (seed {seed}) in "
+        f"{time.perf_counter() - t0:.3f} s; {held} bytes held before the phase")
     step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
-    next_batch = lambda: {k: torch.from_numpy(v).to("cuda")  # noqa: E731
-                          for k, v in data.next_batch().items()}
+    if encdec:
+        seeds = itertools.count(seed)
+        next_batch = lambda: whisper_inputs(TRAIN_B, next(seeds), "cuda",  # noqa: E731
+                                            frames=WHISPER_TRAIN_FRAMES, labels=True)
+    else:
+        next_batch = _train_batches(cfg, TRAIN_B, TRAIN_S, seed, "cuda")
     losses, walls = [], []
     for _ in range(1 + FAMILY_TIMED_STEPS):
         batch = next_batch()
@@ -2314,11 +2720,13 @@ def drive_family_training(arch: str, seed: int, card: str, out_dir: Path) -> dic
     peak = torch.cuda.max_memory_allocated()
     timed = walls[1:]
     median = sorted(timed)[len(timed) // 2]
-    tps = TRAIN_B * TRAIN_S / median
-    log(f"{tag}: {tps:.1f} train tokens/s (median step {median:.4f} s of "
+    tps = TRAIN_B * S / median
+    per_frame = (f" and {TRAIN_B * WHISPER_TRAIN_FRAMES / median:.1f} audio frames/s"
+                 if encdec else "")
+    log(f"{tag}: {tps:.1f} train tokens/s{per_frame} (median step {median:.4f} s of "
         f"{', '.join(f'{w:.4f}' for w in timed)} after a {walls[0]:.4f} s warm-up step); losses "
         f"{', '.join(f'{x:.6f}' for x in losses)}; peak device memory {peak} bytes "
-        f"({peak / 1e9:.3f} GB) ({card})")
+        f"({peak / 1e9:.3f} GB; {torch.cuda.max_memory_reserved()} bytes reserved) ({card})")
 
     batch = next_batch()
     with mc.RouteLog() as routes:
@@ -2354,11 +2762,11 @@ def drive_family_training(arch: str, seed: int, card: str, out_dir: Path) -> dic
         wall = time.perf_counter() - t
     if not torch.isfinite(loss):
         raise AssertionError(f"{tag}: the profiled step's loss is not finite")
-    name = arch.split("_")[0]
+    name = tag.removeprefix("train ")
     events = device_busy(prof, out_dir / f"train_{name}_trace.json", wall,
                          f"profile {tag} step:")
     split_device_time(events, f"profile {tag} step:", "train",
-                      train_part(moe_part if cfg.family == "moe" else ssm_part))
+                      train_part(_family_split(cfg.family)[1]))
     del model, params, opt, prof, events, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2429,6 +2837,44 @@ def drive_train_launcher(arch: str, card: str, totals: dict, worst: dict) -> Non
     check_storage_kernels_at(f"launcher {arch}'s step-{step} save ({len(blobs[step])} bytes)",
                              host_tensor(blobs[step]).to("cuda"), (LAUNCHER_HOSTS,), card, worst,
                              k=LAUNCHER_HOSTS - LAUNCHER_PARITY, blocks=LAUNCHER_BLOCKS)
+
+
+def drive_embed_training(seed: int, card: str, out_dir: Path) -> list[dict]:
+    """``drive_family_training`` of each of EMBED_TRAIN_DEPTHS, with the
+    allocator growing its segments in place (``expandable_segments``) for
+    the phase: without it, qwen2-vl's (B, S, 152064) f32 logits and their
+    gradient, 4.98 GB each, found no room among the split segments the
+    layers left (29 GB reserved but unallocated at 9 layers), and the step
+    ran out of memory."""
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        return [drive_family_training(arch, seed, card, out_dir) for arch in EMBED_TRAIN_DEPTHS]
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+
+
+def embed_train_card_vs_cpu(seed: int) -> None:
+    """One train step of whisper-base and qwen2-vl-7b on the card against the
+    CPU (``train_check``): the reduced configs at B=2 x 64 in bf16 at
+    ``AdamWConfig()``'s lr, and one full-width layer (whisper: one encoder
+    and one decoder layer) in f32 at B=1 x FAMILY_CHECK_S at lr TRAIN_LR,
+    each held to the criteria."""
+    import dataclasses
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from repro_torch.configs import get_arch
+
+    for arch in EMBED_MODELS:
+        if not train_check(get_arch(arch).reduced(), "reduced", 2, 64, 3e-4, seed, seed,
+                           criteria=True):
+            raise AssertionError(f"train card vs CPU: reduced {arch} in bf16 not held")
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, n_layers=1, encoder_layers=min(full.encoder_layers, 1),
+                                  dtype="float32")
+        if not train_check(cfg, "full width", 1, FAMILY_CHECK_S, TRAIN_LR, seed + 3, seed,
+                           criteria=True):
+            raise AssertionError(f"train card vs CPU: {arch} at full width in f32 not held")
 
 
 def family_train_card_vs_cpu(seed: int) -> None:
@@ -2503,11 +2949,18 @@ def main() -> int:
         f"CPU for {MODEL}, {', '.join(MOE_CHECK_ARCHS)} at full width, {SMALL_LAYERS} layers (cut "
         f"from the depth), {SMALL_B} x {SMALL_S} tokens; for "
         f"{', '.join(f'{a} at {n} layers' for a, n in SSM_CHECK_LAYERS.items())}")
-    log(f"config: training {', '.join(FAMILY_TRAIN_DEPTHS)} at full width, B={TRAIN_B} x "
-        f"S={TRAIN_S}, AdamW lr {TRAIN_LR}; cuts: "
+    log(f"config: serving {', '.join(EMBED_MODELS)} at full width and depth, prefill "
+        f"{PREFILL_B} x {PREFILL_S} and decode batch 4 against a 2048 cache for qwen2-vl; "
+        f"whisper at its published context, {WHISPER_FRAMES} audio frames and {WHISPER_TOKENS} "
+        f"tokens (max_pos and cache {WHISPER_TOKENS}); card vs CPU at full width, "
+        f"{EMBED_CHECK_LAYERS} layers (cut from the depth), {SMALL_B} x {SMALL_S} tokens")
+    log(f"config: training {', '.join(FAMILY_TRAIN_DEPTHS)} and {', '.join(EMBED_TRAIN_DEPTHS)} "
+        f"at full width, B={TRAIN_B} x S={TRAIN_S} (whisper: x {WHISPER_TOKENS} and "
+        f"{WHISPER_TRAIN_FRAMES} audio frames), AdamW lr {TRAIN_LR}; cuts: "
         + ", ".join(f"{a} n_layers {get_arch(a).n_layers} -> {d}"
-                    for a, d in FAMILY_TRAIN_DEPTHS.items())
-        + " (one card's 80 GB); their launcher runs at the reduced configs")
+                    for a, d in {**FAMILY_TRAIN_DEPTHS, **EMBED_TRAIN_DEPTHS}.items()
+                    if d < get_arch(a).n_layers)
+        + " (one card's 80 GB); the launcher runs at the reduced configs of the first three")
     def elapsed(after: str) -> None:
         log(f"elapsed: {time.perf_counter() - t_start:.3f} s after {after} ({card})")
 
@@ -2577,6 +3030,17 @@ def main() -> int:
                                  f"criterion")
     torch.cuda.empty_cache()
     elapsed("phase 5c")
+    # phase 5d: the encoder-decoder and VLM families, one model at a time, flash_attention
+    # counted from zero inside drive_embed
+    for arch in EMBED_MODELS:
+        counts["flash_attention"] += drive_embed(arch, args.seed, card, args.out)
+    for arch in EMBED_MODELS:
+        if not embed_card_vs_cpu(args.seed, arch) and not embed_card_vs_cpu(args.seed, arch,
+                                                                             "float32"):
+            raise AssertionError(f"{arch}: the f32 card-vs-CPU check did not hold every "
+                                 f"criterion")
+    torch.cuda.empty_cache()
+    elapsed("phase 5d")
     # phase 6: the store's users, each path counted from zero inside counted_phase
     worst = {"gf256_matmul": 0, "cdc_gearhash": 0}
     check_ycsb_shapes(args.seed, card, worst)
@@ -2599,6 +3063,13 @@ def main() -> int:
     for arch in FAMILY_TRAIN_DEPTHS:
         drive_train_launcher(arch, card, counts, worst)
     log(f"phase 7b: {time.perf_counter() - t7b:.3f} s; "
+        + "; ".join(f"{t['arch']} at {t['depth']} layers {t['tokens_per_s']:.1f} train tokens/s, "
+                    f"peak {t['peak'] / 1e9:.3f} GB" for t in trained) + f" ({card})")
+    # phase 7c: the encoder-decoder and VLM families trained at full width
+    t7c = time.perf_counter()
+    trained = drive_embed_training(args.seed, card, args.out)
+    embed_train_card_vs_cpu(args.seed)
+    log(f"phase 7c: {time.perf_counter() - t7c:.3f} s; "
         + "; ".join(f"{t['arch']} at {t['depth']} layers {t['tokens_per_s']:.1f} train tokens/s, "
                     f"peak {t['peak'] / 1e9:.3f} GB" for t in trained) + f" ({card})")
 

@@ -12,7 +12,11 @@ steps, crashes the trainer and ``--kill-hosts`` checkpoint hosts at
 finishes. ``--arch`` takes every ported family: dense (``qwen2_0_5b``,
 ``qwen3_0_6b``, ``gemma3_1b``, ``chatglm3_6b``), MoE (``olmoe_1b_7b``,
 ``qwen3_moe_30b_a3b``; the loss adds ``0.01`` times the auxiliary loss), SSM
-(``mamba2_2_7b``) and hybrid (``zamba2_7b``). ``--full`` takes the
+(``mamba2_2_7b``) and hybrid (``zamba2_7b``). It refuses the
+encoder-decoder (``whisper_base``) and the VLM (``qwen2_vl_7b``), whose
+batches hold audio or patch embeddings: its data source, ``SyntheticLM``,
+makes only tokens, as the reference's does; train those through
+``make_train_step`` with such a batch. ``--full`` takes the
 architecture at full width and depth, on the GPU (the default ``--device
 cuda``; it raises where there is none), e.g. ``--arch qwen2_0_5b --full
 --batch 4 --seq 2048``. At full depth the MoE, SSM and hybrid models do
@@ -67,6 +71,11 @@ def main(argv=None, *, params: Params | None = None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_arch(args.arch)
+    if cfg.family == "encdec" or cfg.embeddings_input:
+        raise ValueError(
+            f"{args.arch}: the launcher's SyntheticLM makes only tokens, and the {cfg.family} "
+            f"family trains on embeddings (audio_embeds or embeds): train it through "
+            f"repro_torch.train.steps.make_train_step with such a batch")
     if not args.full:
         cfg = cfg.reduced()
     model = build_model(cfg, max_pos=args.seq, device=args.device)

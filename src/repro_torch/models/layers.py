@@ -1,14 +1,15 @@
-"""Layer library of the dense and MoE LM families: norms, RoPE, GQA
-attention, MLP, top-k MoE.
+"""Layer library of the LM families: norms, RoPE (and Qwen2-VL's M-RoPE),
+GQA attention, MLPs (SwiGLU, Whisper's GELU), top-k MoE.
 
 Plain PyTorch copies of the reference's ``repro.models.layers``, with its
 conventions: activations bf16, reductions, softmax and norms in f32. Weight
 trees are nested dicts of tensors; stacked-layer weights carry a leading L
-axis. ``mrope_cos_sin`` and ``gelu_mlp`` are not ported yet, nor
-``moe_layer``'s expert-parallel branch (ROADMAP A3).
+axis. ``moe_layer``'s expert-parallel branch is not ported yet (ROADMAP A3).
 """
 from __future__ import annotations
 
+import functools
+import itertools
 import math
 from typing import NamedTuple
 
@@ -48,6 +49,21 @@ def rope_cos_sin(positions: torch.Tensor, n_freq: int,
     exps = torch.arange(n_freq, dtype=torch.float32, device=positions.device) / n_freq
     freqs = 1.0 / (float(theta) ** exps)
     ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def mrope_cos_sin(positions: torch.Tensor, sections: tuple[int, ...],
+                  theta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL's M-RoPE: positions (3, B, S) int, the temporal, height and
+    width streams -> cos/sin (B, S, sum(sections)) f32. The frequency slots
+    are split into ``sections``; slot group g takes its angle from stream g."""
+    n_freq = sum(sections)
+    exps = torch.arange(n_freq, dtype=torch.float32, device=positions.device) / n_freq
+    freqs = 1.0 / (float(theta) ** exps)
+    ang_all = positions.float()[..., None] * freqs  # (3, B, S, n_freq)
+    bounds = [0, *itertools.accumulate(sections)]
+    ang = torch.cat([ang_all[g, ..., bounds[g]:bounds[g + 1]] for g in range(len(sections))],
+                    dim=-1)
     return torch.cos(ang), torch.sin(ang)
 
 
@@ -102,7 +118,7 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     G = H // KV
     # the scale rounded to score_dtype, kept as a Python float: no host-to-
     # device copy (and no stream sync) per call
-    scale = float(torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32).to(score_dtype))
+    scale = _rounded(1.0 / math.sqrt(hd), score_dtype)
 
     def attend(q_blk: torch.Tensor, qp_blk: torch.Tensor) -> torch.Tensor:
         # q_blk (B, Sc, KV, G, hd)
@@ -135,6 +151,32 @@ def swiglu_mlp(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
     u = x @ wi_up
     h = torch.nn.functional.silu(g.float()).to(x.dtype) * u
     return h @ wo
+
+
+def gelu_mlp(x: torch.Tensor, wi: torch.Tensor, bi: torch.Tensor, wo: torch.Tensor,
+             bo: torch.Tensor) -> torch.Tensor:
+    """Whisper's MLP: tanh-approximate GELU of ``x @ wi + bi``, then ``@ wo +
+    bo``, in x's dtype (``_gelu_tanh``)."""
+    h = _gelu_tanh(x @ wi + bi)
+    return h.to(x.dtype) @ wo + bo
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x, approximate=True)`` op by op in x's dtype, its
+    constants rounded to that dtype as jax rounds them:
+    ``x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3))))``. In bf16
+    this rounds where the reference does (every output equal to the
+    reference's on 200k values of std 3, either compile);
+    ``F.gelu(approximate="tanh")`` computes in f32 and rounds once, which
+    differs in 43 % of them."""
+    inner = x + _rounded(0.044715, x.dtype) * (x * x * x)
+    return x * (0.5 * (1 + torch.tanh(_rounded(math.sqrt(2 / math.pi), x.dtype) * inner)))
+
+
+@functools.lru_cache
+def _rounded(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype`` (through f32), as a Python float."""
+    return float(torch.tensor(v, dtype=torch.float32).to(dtype))
 
 
 # ------------------------------------------------------------------ MoE
@@ -273,4 +315,4 @@ def dense_init(generator: torch.Generator, shape: tuple[int, ...], dtype: torch.
     s = scale if scale is not None else 1.0 / math.sqrt(fan_in)
     out = torch.randn(shape, generator=generator, dtype=torch.float32,
                       device=generator.device)
-    return (out * s).to(dtype)
+    return out.mul_(s).to(dtype)

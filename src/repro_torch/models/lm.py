@@ -1,4 +1,5 @@
-"""The LM of the dense, MoE, SSM and hybrid families.
+"""The LM of every family of the reference: dense, MoE, SSM, hybrid,
+encoder-decoder and VLM.
 
 The port of the reference's ``repro.models.lm.LM`` for ``family="dense"``
 (pre-norm GQA attention, then a SwiGLU MLP), with the options its dense
@@ -10,7 +11,13 @@ for ``family="ssm"`` (mamba2), a stack of Mamba2 mixers
 (``models/ssd.py``) with no attention; and for ``family="hybrid"``
 (zamba2), groups of ``shared_attn_every`` Mamba2 layers, each followed by
 the one shared attention + SwiGLU block (its weights reused), then the
-trailing layers with none. The training loss of every family is the
+trailing layers with none; for ``family="encdec"`` (whisper), a
+bidirectional encoder over stub audio embeddings (layer norms, non-causal
+attention, GELU MLP), then a decoder with learned positions whose layers
+run causal self-attention, cross-attention against the encoder's output
+and the GELU MLP, with no RoPE; and for ``family="vlm"`` (qwen2-vl), the
+dense block over precomputed embeddings with M-RoPE on (3, B, S)
+positions. The training loss of every family is the
 reference's: cross-entropy, plus ``0.01`` times the MoE layers' summed
 auxiliary loss, which serving drops.
 
@@ -19,7 +26,11 @@ shapes, stacked layers included (leading L axis); every method takes them
 explicitly, as the reference's do. ``load_params`` also registers them on
 the module. The layer stacks are Python loops over the layers. The prefill
 computes each attention with the flash-attention kernel (f32 scores; one
-launch per attention layer on the card, and per group for the hybrid). The
+launch per attention layer on the card, per group for the hybrid, and per
+encoder layer plus two per decoder layer for the encoder-decoder). The
+kernel masks by index: the VLM's prefill is causal in sequence order,
+while the reference's (and the port's training loss) masks by the values
+of the temporal position stream (ROADMAP C). The
 training loss (``loss_fn``) attends with the plain ``gqa_attention`` (bf16
 score chain), as the reference's ``_attn`` does, since the kernel has no
 backward, and runs each layer (each Mamba2 layer and each application of
@@ -28,7 +39,10 @@ counterpart of the reference's ``jax.checkpoint(nothing_saveable)`` over its
 layer scans. The decode step writes the new K/V, conv windows and SSM
 states into the cache in place and attends with ``gqa_attention`` too, as
 the reference does: its query sits at ``cur_len`` against an S-long cache,
-which the kernel's positions (both from 0) cannot express.
+which the kernel's positions (both from 0) cannot express. The
+encoder-decoder's decode step attends across to the cache's ``xk``/``xv``,
+which it never writes (the reference's API: its serve loop decodes from a
+zero cache; a caller may fill them from the encoder's output).
 """
 from __future__ import annotations
 
@@ -47,8 +61,11 @@ from repro_torch.models.layers import (
     apply_rope,
     dense_init,
     dt,
+    gelu_mlp,
     gqa_attention,
+    layer_norm,
     moe_layer,
+    mrope_cos_sin,
     rms_norm,
     rope_cos_sin,
     swiglu_mlp,
@@ -57,10 +74,8 @@ from repro_torch.tree import named_leaves
 
 Params = dict[str, Any]  # name -> tensor, or name -> dict of stacked-layer tensors
 
-_NOT_PORTED = {
-    "encdec": "the encoder-decoder family waits for its stack and gelu_mlp (ROADMAP A2)",
-    "vlm": "the VLM family waits for mrope and embeddings input (ROADMAP A2)",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+
 
 def _attn_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
     """The attention's weights, each with the leading dims ``lead`` ((L,)
@@ -82,16 +97,47 @@ def _mlp_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
     return {"wg": ((*lead, D, F), bf), "wu": ((*lead, D, F), bf), "wd": ((*lead, F, D), bf)}
 
 
-def _norm_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
-    return {n: ((*lead, cfg.d_model), torch.float32) for n in ("ln1", "ln2")}
+def _norm_shapes(cfg: ArchConfig, lead: tuple[int, ...], names=("ln1", "ln2")) -> dict:
+    """f32 (*lead, D) leaves: the norms' weights, or the layer norms' biases."""
+    return {n: ((*lead, cfg.d_model), torch.float32) for n in names}
+
+
+def _encdec_shapes(cfg: ArchConfig, max_pos: int) -> dict:
+    """The encoder-decoder's tree (less ``final_ln``): the ``enc`` stack
+    (attention, MLP, layer norms ``ln1``/``ln2`` with biases ``b1``/``b2``),
+    the ``dec`` stack (the same with a third norm, plus the cross-attention's
+    ``xwq``/``xwk``/``xwv``/``xwo``), the tied ``embed``, the decoder's
+    learned positions ``dec_pos`` (max_pos, D) and the final layer norms'
+    weights and biases. The MLP's ``wu`` is in the tree but unused, as in
+    the reference."""
+    bf, D = dt(cfg), cfg.d_model
+    Le, Ld = (cfg.encoder_layers,), (cfg.n_layers,)
+    dec = {**_attn_shapes(cfg, Ld), **_mlp_shapes(cfg, Ld),
+           **_norm_shapes(cfg, Ld, ("ln1", "ln2", "ln3", "b1", "b2", "b3"))}
+    dec.update({"x" + k: v for k, v in _attn_shapes(cfg, Ld).items()})
+    return {"embed": ((cfg.vocab, D), bf), "dec_pos": ((max_pos, D), bf),
+            "enc": {**_attn_shapes(cfg, Le), **_mlp_shapes(cfg, Le),
+                    **_norm_shapes(cfg, Le, ("ln1", "ln2", "b1", "b2"))},
+            **_norm_shapes(cfg, (), ("enc_final_ln", "enc_final_b", "final_b")),
+            "dec": dec}
+
+
+def _cross(lp: dict) -> dict:
+    """A decoder layer's cross-attention weights, ``x``-prefix dropped."""
+    return {k[1:]: v for k, v in lp.items() if k.startswith("x")}
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (B, S, D) @ w (D, heads, hd) -> (B, S, heads, hd)."""
+    B, S, D = x.shape
+    return (x.reshape(B * S, D) @ w.reshape(D, -1)).reshape(B, S, *w.shape[1:])
 
 
 class LM(nn.Module):
     def __init__(self, cfg: ArchConfig, max_pos: int = 4096, device: str = "cuda"):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: {_NOT_PORTED.get(cfg.family, f'unknown family {cfg.family!r}')}")
+        if cfg.family not in FAMILIES:
+            raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}; have {FAMILIES}")
         self.cfg = cfg
         self.max_pos = max_pos
         self.device = resolve_device(device)
@@ -104,11 +150,16 @@ class LM(nn.Module):
         and ``w_down`` (L, E, F, D) in place of ``wg``/``wu``/``wd``. The
         SSM family stacks ``mamba2_param_shapes`` and a norm ``ln``; the
         hybrid adds the one ``shared`` block (attention, SwiGLU MLP, ``ln1``,
-        ``ln2``), unstacked."""
+        ``ln2``), unstacked. The encoder-decoder's is ``_encdec_shapes``; the
+        VLM (embeddings input) has no ``embed``."""
         cfg = self.cfg
         bf, f32 = dt(cfg), torch.float32
         L, D = cfg.n_layers, cfg.d_model
-        t: dict = {"final_ln": ((D,), f32), "embed": ((cfg.vocab, D), bf)}
+        t: dict = {"final_ln": ((D,), f32)}
+        if cfg.family == "encdec":
+            return {**t, **_encdec_shapes(cfg, self.max_pos)}
+        if not cfg.embeddings_input:
+            t["embed"] = ((cfg.vocab, D), bf)
         if not cfg.tie_embeddings:
             t["head"] = ((D, cfg.vocab), bf)
         if cfg.is_ssm:
@@ -132,6 +183,14 @@ class LM(nn.Module):
 
     def n_params(self) -> int:
         return sum(math.prod(shape) for _, (shape, _) in named_leaves(self.param_template()))
+
+    def unread_leaves(self) -> set[str]:
+        """Dotted names of the template's leaves that no forward reads (the
+        encoder-decoder's MLP ``wu``, as in the reference): their gradient
+        is zero."""
+        if self.cfg.family == "encdec":
+            return {"dec.wu", "enc.wu"}
+        return set()
 
     def n_active_params(self) -> int:
         """Parameters a token runs through: for MoE, top_k of the E experts."""
@@ -180,8 +239,14 @@ class LM(nn.Module):
         return register(self, params)
 
     # ------------------------------------------------------------- forward
-    def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor | None, torch.Tensor | None]:
+        """cos/sin of ``positions``: (B, S), or for M-RoPE (3, B, S); (None,
+        None) where the config has no RoPE."""
         cfg = self.cfg
+        if cfg.rope_style == "none":
+            return None, None
+        if cfg.rope_style == "mrope":
+            return mrope_cos_sin(positions, cfg.mrope_sections, cfg.rope_theta)
         n_freq = int(cfg.hd * cfg.rope_fraction) // 2
         return rope_cos_sin(positions, n_freq, cfg.rope_theta)
 
@@ -194,39 +259,45 @@ class LM(nn.Module):
         return [S + 1 if i % cfg.global_every == cfg.global_every - 1 else cfg.sliding_window
                 for i in range(cfg.n_layers)]
 
-    def _qkv(self, lp: dict, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
-        """Projections, bias, qk-norm and RoPE: q (B,S,H,hd), k/v (B,S,KV,hd)."""
+    def _qkv(self, lp: dict, x: torch.Tensor, cos: torch.Tensor | None,
+             sin: torch.Tensor | None, kv: torch.Tensor | None = None):
+        """Projections, bias, qk-norm and RoPE (none where ``cos`` is None):
+        q (B,S,H,hd) from x, k/v (B,Sk,KV,hd) from ``kv`` (cross-attention)
+        or x."""
         cfg = self.cfg
-        B, S, D = x.shape
-        flat = x.reshape(B * S, D)
-        q = (flat @ lp["wq"].reshape(D, -1)).reshape(B, S, cfg.n_heads, cfg.hd)
-        k = (flat @ lp["wk"].reshape(D, -1)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
-        v = (flat @ lp["wv"].reshape(D, -1)).reshape(B, S, cfg.n_kv_heads, cfg.hd)
+        src = x if kv is None else kv
+        q, k, v = _proj(x, lp["wq"]), _proj(src, lp["wk"]), _proj(src, lp["wv"])
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
         if cfg.qk_norm:
             q = rms_norm(q, lp["qn"], cfg.norm_eps)
             k = rms_norm(k, lp["kn"], cfg.norm_eps)
-        q = apply_rope(q, cos, sin, cfg.rope_fraction)
-        k = apply_rope(k, cos, sin, cfg.rope_fraction)
+        if cos is not None:
+            q = apply_rope(q, cos, sin, cfg.rope_fraction)
+            k = apply_rope(k, cos, sin, cfg.rope_fraction)
         return q, k, v
 
     def _out_proj(self, lp: dict, o: torch.Tensor) -> torch.Tensor:
         B, S = o.shape[:2]
         return (o.reshape(B * S, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)).reshape(B, S, -1)
 
-    def _attn(self, lp: dict, x: torch.Tensor, *, cos, sin, window: int | None,
-              train_pos: torch.Tensor | None) -> torch.Tensor:
+    def _attn(self, lp: dict, x: torch.Tensor, *, cos=None, sin=None, window: int | None,
+              train_pos: torch.Tensor | None, causal: bool = True,
+              kv: torch.Tensor | None = None) -> torch.Tensor:
         """The layer's attention: the flash kernel (``window`` 0 for none),
-        or with ``train_pos`` (the query and key positions) the
-        differentiable ``gqa_attention`` (``window`` None for none)."""
-        q, k, v = self._qkv(lp, x, cos, sin)
+        or with ``train_pos`` (the query positions, and the key positions
+        but in cross-attention) the differentiable ``gqa_attention``
+        (``window`` None for none). ``kv`` (B, Sk, D) is the source of the
+        keys and values of a cross-attention (the reference's
+        ``kv_override``; keys at 0..Sk-1)."""
+        q, k, v = self._qkv(lp, x, cos, sin, kv)
         if train_pos is not None:
-            o = gqa_attention(q, k, v, q_pos=train_pos, k_pos=train_pos, causal=True,
+            k_pos = train_pos if kv is None else torch.arange(k.shape[1], device=k.device)
+            o = gqa_attention(q, k, v, q_pos=train_pos, k_pos=k_pos, causal=causal,
                               window=window, score_dtype=dt(self.cfg))
             return self._out_proj(lp, o)
         o = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(), causal=True, window=window)
+                            v.transpose(1, 2).contiguous(), causal=causal, window=window)
         return self._out_proj(lp, o.transpose(1, 2))
 
     def _dense_block(self, lp: dict, h: torch.Tensor, *, cos, sin, window: int | None,
@@ -251,11 +322,41 @@ class LM(nn.Module):
     def _mamba_layer(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
         return h + ssd.mamba2_mixer(lp, rms_norm(h, lp["ln"], self.cfg.norm_eps), self.cfg)
 
+    def _forward(self, params: Params, batch: dict, *,
+                 train: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The family's stack over ``batch``'s inputs (the reference's
+        ``input_specs``: ``tokens``; ``embeds`` and ``positions`` for the
+        VLM; ``audio_embeds`` and ``tokens`` for the encoder-decoder):
+        (h (B, S, D) before the final norm, the MoE layers' summed auxiliary
+        loss or None)."""
+        if self.cfg.family == "encdec":
+            return self._run_encdec(params, batch, train=train), None
+        h, positions = self._inputs(params, batch)
+        return self._run_stack(params, h, positions=positions, train=train)
+
+    def _inputs(self, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """The stack's input in the configuration's dtype (bf16 for every
+        configuration of the catalog, the reference's cast) and its
+        positions: ``embeds`` and ``positions`` (3, B, S) given (embeddings
+        input), or the embedded ``tokens`` at 0..S-1 (B, S), stacked three
+        times for M-RoPE."""
+        cfg = self.cfg
+        if cfg.embeddings_input:
+            return batch["embeds"].to(dt(cfg)), batch["positions"]
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        h = params["embed"][tokens].to(dt(cfg))
+        positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
+        if cfg.rope_style == "mrope":
+            positions = positions[None].expand(3, B, S)
+        return h, positions
+
     def _run_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
                    train: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """The family's layer stack over the embedded tokens h (B, S, D),
-        positions (B, S): (h, the MoE layers' summed auxiliary loss, None
-        for the other families)."""
+        """The family's layer stack (not the encoder-decoder's:
+        ``_run_encdec``) over the embedded inputs h (B, S, D), positions
+        (B, S) or for M-RoPE (3, B, S): (h, the MoE layers' summed auxiliary
+        loss, None for the other families)."""
         family = self.cfg.family
         if family == "ssm":
             return self._run_ssm_stack(params, h, train=train), None
@@ -265,16 +366,19 @@ class LM(nn.Module):
 
     def _run_decoder_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
                            train: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """The layer stack: h (B, S, D) bf16, positions (B, S). Query and key
-        positions are ``positions[0]``, which the flash kernel takes to be
-        0..S-1. With ``train``, every layer attends with ``gqa_attention``
+        """The layer stack: h (B, S, D) bf16, positions (B, S), or (3, B, S)
+        for M-RoPE. Query and key positions are ``positions[0]``, for M-RoPE
+        the temporal stream's ``positions[0, 0]`` (as in the reference);
+        the flash kernel masks by index instead, 0..S-1. With ``train``,
+        every layer attends with ``gqa_attention``
         and runs under ``torch.utils.checkpoint`` (its activations are
         recomputed in the backward). Returns (h, aux): the MoE layers'
         auxiliary losses added in layer order (the reference's f32 carry
         from 0), None for the dense family."""
         S = h.shape[1]
         cos, sin = self._rope(positions)
-        train_pos = {"train_pos": positions[0]} if train else {}
+        q_pos = positions[0, 0] if self.cfg.rope_style == "mrope" else positions[0]
+        train_pos = {"train_pos": q_pos} if train else {}
         aux = None
         for lp, window in zip(_layers(params["layers"]), self._windows(S)):
             h, a = _checkpointed(self._dense_block, lp, h, train=train, cos=cos, sin=sin,
@@ -313,8 +417,61 @@ class LM(nn.Module):
                 h, _ = _checkpointed(self._dense_block, params["shared"], h, train=train, **attn)
         return h
 
+    def _run_encdec(self, params: Params, batch: dict, *, train: bool = False) -> torch.Tensor:
+        """Whisper: the encoder over ``batch["audio_embeds"]`` (B, Sa, D) in
+        the configuration's dtype (its positions baked into the stub), its
+        final layer norm, then the decoder over ``embed[tokens] +
+        dec_pos[:St]`` (added in bf16). Attention by the flash kernel (no
+        window), or with ``train`` by ``gqa_attention`` with each layer under
+        ``torch.utils.checkpoint``. Returns the decoder's h (B, St, D)."""
+        cfg = self.cfg
+        enc_out = self._encode(params, batch["audio_embeds"], train=train)
+        tokens = batch["tokens"]
+        h = (params["embed"][tokens] + params["dec_pos"][:tokens.shape[1]]).to(dt(cfg))
+        attn = _no_rope(h, train)
+        for lp in _layers(params["dec"]):
+            h = _checkpointed(self._dec_layer, lp, h, enc_out, train=train, **attn)
+        return h
+
+    def _encode(self, params: Params, audio: torch.Tensor, *,
+                train: bool = False) -> torch.Tensor:
+        """The encoder's output (B, Sa, D): its layers over ``audio`` (B, Sa,
+        D) in the configuration's dtype, then its final layer norm."""
+        h = audio.to(dt(self.cfg))
+        attn = _no_rope(h, train)
+        for lp in _layers(params["enc"]):
+            h = _checkpointed(self._enc_layer, lp, h, train=train, **attn)
+        return layer_norm(h, params["enc_final_ln"], params["enc_final_b"], self.cfg.norm_eps)
+
+    def _enc_layer(self, lp: dict, h: torch.Tensor, **attn) -> torch.Tensor:
+        """An encoder layer: non-causal self-attention, then the GELU MLP,
+        each after a layer norm (``attn``: ``_no_rope``)."""
+        eps = self.cfg.norm_eps
+        h = h + self._attn(lp, layer_norm(h, lp["ln1"], lp["b1"], eps), causal=False, **attn)
+        return h + self._gelu(lp, layer_norm(h, lp["ln2"], lp["b2"], eps))
+
+    def _dec_layer(self, lp: dict, h: torch.Tensor, enc_out: torch.Tensor,
+                   **attn) -> torch.Tensor:
+        """A decoder layer: causal self-attention, cross-attention against
+        ``enc_out`` (non-causal), then the GELU MLP, each after a layer norm."""
+        eps = self.cfg.norm_eps
+        h = h + self._attn(lp, layer_norm(h, lp["ln1"], lp["b1"], eps), **attn)
+        h = h + self._attn(_cross(lp), layer_norm(h, lp["ln2"], lp["b2"], eps), causal=False,
+                           kv=enc_out, **attn)
+        return h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps))
+
+    @staticmethod
+    def _gelu(lp: dict, x: torch.Tensor) -> torch.Tensor:
+        """The encoder-decoder's MLP: ``gelu_mlp`` over ``wg`` and ``wd`` with
+        zero biases, as the reference calls it."""
+        zero = x.new_zeros(())
+        return gelu_mlp(x, lp["wg"], zero, lp["wd"], zero)
+
     def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
-        h = rms_norm(h, params["final_ln"], self.cfg.norm_eps)
+        if self.cfg.family == "encdec":
+            h = layer_norm(h, params["final_ln"], params["final_b"], self.cfg.norm_eps)
+        else:
+            h = rms_norm(h, params["final_ln"], self.cfg.norm_eps)
         if self.cfg.tie_embeddings:
             return h @ params["embed"].T
         return h @ params["head"]
@@ -322,7 +479,9 @@ class LM(nn.Module):
     # ------------------------------------------------------------- training
     def loss_fn(self, params: Params, batch: dict) -> torch.Tensor:
         """The training loss (f32 0-d) of ``batch`` = {"tokens", "labels"}
-        (B, S) int: the reference's ``loss_fn`` with ``ctx=None``, the mean
+        (B, S) int ({"embeds", "positions", "labels"} for the VLM,
+        {"audio_embeds", "tokens", "labels"} for the encoder-decoder): the
+        reference's ``loss_fn`` with ``ctx=None``, the mean
         next-token cross-entropy, plus ``0.01 * aux`` for the MoE family (aux
         summed over its layers). The dense, SSM and hybrid families have no
         auxiliary loss and return the cross-entropy (the reference adds
@@ -335,11 +494,7 @@ class LM(nn.Module):
 
         The MoE forward is deterministic (stable sorts, no atomics), so the
         recompute in the backward routes exactly as the forward did."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        h = params["embed"][tokens].to(dt(self.cfg))
-        positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
-        h, aux = self._run_stack(params, h, positions=positions, train=True)
+        h, aux = self._forward(params, batch, train=True)
         ce = self._cross_entropy(params, h, batch["labels"])
         return ce if aux is None else ce + 0.01 * aux
 
@@ -358,11 +513,15 @@ class LM(nn.Module):
         KV, hd) bf16 for the attention families; for the SSM family each
         layer's conv window (L, B, K-1, conv_dim) bf16 and state (L, B, G,
         H, N, P) f32; the hybrid adds K/V of its shared block, one per
-        group (n_groups, B, S, KV, hd)."""
+        group (n_groups, B, S, KV, hd); the encoder-decoder adds the
+        cross-attention's ``xk``/``xv`` (L, B, S // 2, KV, hd)."""
         cfg = self.cfg
         bf = torch.bfloat16
         kv = (B, S, cfg.n_kv_heads, cfg.hd)
         L = cfg.n_layers
+        if cfg.family == "encdec":
+            xkv = (L, B, S // 2, *kv[2:])
+            return {"k": ((L, *kv), bf), "v": ((L, *kv), bf), "xk": (xkv, bf), "xv": (xkv, bf)}
         if not cfg.is_ssm:
             return {"k": ((L, *kv), bf), "v": ((L, *kv), bf)}
         conv_dim = cfg.d_inner + 2 * ssd.G * cfg.ssm_state
@@ -383,22 +542,32 @@ class LM(nn.Module):
                     batch: dict) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """One token for the whole batch against the cache.
 
-        batch: {"token": (B,) int, "cur_len": int}. Writes the new K/V at
+        batch: {"token": (B,) int, "cur_len": int}, or for embeddings input
+        (the VLM) {"embed": (B, D), "cur_len"}. Writes the new K/V at
         ``cur_len``, and each Mamba2 layer's new conv window and SSM state,
         into ``cache`` in place (the reference returns a new cache; updating
         in place spares a copy of the whole cache per token) and returns
         (logits (B, V) f32, cache). The SSM family reads no ``cur_len``. The
         embedding's output takes the configuration's dtype, as in the prefill
-        and ``loss_fn``."""
+        and ``loss_fn``; the encoder-decoder adds ``dec_pos[cur_len]``."""
+        cfg = self.cfg
         cur = int(batch["cur_len"])
         if "k" in cache and not 0 <= cur < cache["k"].shape[2]:
             raise ValueError(f"cur_len {cur} outside the {cache['k'].shape[2]}-long cache")
-        h = params["embed"][batch["token"]].to(dt(self.cfg))[:, None, :]
-        family = self.cfg.family
+        if cfg.embeddings_input:
+            x = batch["embed"].to(dt(cfg))
+        else:
+            x = params["embed"][batch["token"]].to(dt(cfg))
+        if cfg.family == "encdec":
+            x = x + params["dec_pos"][cur]
+        h = x[:, None, :]
+        family = cfg.family
         if family == "ssm":
             h = self._decode_ssm(params, cache, h)
         elif family == "hybrid":
             h = self._decode_hybrid(params, cache, h, cur)
+        elif family == "encdec":
+            h = self._decode_encdec(params, cache, h, cur)
         else:
             h = self._decode_dense(params, cache, h, cur)
         return self._head(params, h)[:, 0].float(), cache
@@ -424,9 +593,13 @@ class LM(nn.Module):
         return h + self._mlp(lp, rms_norm(h, lp["ln2"], self.cfg.norm_eps))[0]
 
     def _decode_rope(self, h: torch.Tensor, cur: int) -> dict:
-        """Position ``cur`` and its RoPE, the same for every layer."""
+        """Position ``cur`` and its RoPE, the same for every layer (M-RoPE:
+        ``cur`` on all three streams; none without RoPE)."""
         pos1 = torch.full((1,), cur, dtype=torch.int32, device=h.device)
-        cos, sin = self._rope(pos1[None].expand(h.shape[0], 1))
+        positions = pos1[None].expand(h.shape[0], 1)
+        if self.cfg.rope_style == "mrope":
+            positions = positions[None].expand(3, *positions.shape)
+        cos, sin = self._rope(positions)
         return {"pos1": pos1, "cos": cos, "sin": sin}
 
     def _decode_dense(self, params: Params, cache: dict[str, torch.Tensor],
@@ -469,6 +642,27 @@ class LM(nn.Module):
                                        window=None, **rope)
         return h
 
+    def _decode_encdec(self, params: Params, cache: dict[str, torch.Tensor],
+                       h: torch.Tensor, cur: int) -> torch.Tensor:
+        """The decoder's step: causal self-attention against the K/V cache,
+        then cross-attention of the query (at position 0, non-causal)
+        against the cache's ``xk``/``xv``, then the GELU MLP."""
+        eps = self.cfg.norm_eps
+        rope = self._decode_rope(h, cur)
+        Sa = cache["xk"].shape[2]
+        q_pos = torch.zeros((1,), dtype=torch.int32, device=h.device)
+        k_pos = torch.arange(Sa, dtype=torch.int32, device=h.device)
+        for i, lp in enumerate(_layers(params["dec"])):
+            x = layer_norm(h, lp["ln1"], lp["b1"], eps)
+            h = h + self._decode_attn(lp, x, cache["k"][i], cache["v"][i], cur, window=None,
+                                      **rope)
+            q = _proj(layer_norm(h, lp["ln2"], lp["b2"], eps), lp["xwq"])
+            o = gqa_attention(q, cache["xk"][i], cache["xv"][i], q_pos=q_pos, k_pos=k_pos,
+                              causal=False)
+            h = h + self._out_proj(_cross(lp), o)
+            h = h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps))
+        return h
+
 
 def _layers(stacked: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
     """Each layer's parameters, from the stacked (leading L axis) leaves.
@@ -478,6 +672,15 @@ def _layers(stacked: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
     per_leaf = {name: w.unbind(0) for name, w in stacked.items()}
     n = len(next(iter(per_leaf.values())))
     return [{name: ws[i] for name, ws in per_leaf.items()} for i in range(n)]
+
+
+def _no_rope(h: torch.Tensor, train: bool) -> dict:
+    """The encoder-decoder's attention arguments (no RoPE, no window) for
+    the sequence of h (B, S, D): the flash kernel's, or for ``train``
+    ``gqa_attention``'s with the query positions 0..S-1."""
+    if not train:
+        return {"window": 0, "train_pos": None}
+    return {"window": None, "train_pos": torch.arange(h.shape[1], device=h.device)}
 
 
 def _checkpointed(fn, *args, train: bool, **kw):

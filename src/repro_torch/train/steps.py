@@ -5,10 +5,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.layers import dt
 from repro_torch.models.lm import LM, Params
 from repro_torch.train.optimizer import AdamWConfig, adamw_init_shapes, adamw_update
-from repro_torch.tree import Tree, tree_leaves, tree_map
+from repro_torch.tree import Tree, named_leaves, tree_map
 
 
 def loss_and_grads(model: LM, params: Params, batch: dict) -> tuple[torch.Tensor, Params]:
@@ -19,8 +18,15 @@ def loss_and_grads(model: LM, params: Params, batch: dict) -> tuple[torch.Tensor
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss = model.loss_fn(live, batch)
-        leaves = list(tree_leaves(live))
-        flat = iter(torch.autograd.grad(loss, leaves))
+        names, leaves = zip(*named_leaves(live))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    unread = {n for n, g in zip(names, grads) if g is None}
+    if unread != model.unread_leaves():
+        raise RuntimeError(f"{model.cfg.name}: the loss reads none of {sorted(unread)}; "
+                           f"expected {sorted(model.unread_leaves())}")
+    # the leaves the reference does not read either (whisper's ``wu``) get
+    # zeros, as ``jax.grad`` gives them
+    flat = iter(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
     return loss.detach(), tree_map(lambda _: next(flat), live)
 
 
@@ -40,19 +46,18 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig | None = None):
 
 def make_prefill_step(model: LM):
     """``prefill_step(params, batch) -> (B, V) f32`` logits of the last
-    position of ``batch["tokens"]`` (B, S), on the model's device: the
-    family's stack (attention, MoE, SSM or hybrid), as the reference's
-    ``make_prefill_step`` dispatches it. The embedding's output takes the
-    configuration's dtype, as in ``LM.loss_fn``: bf16 for every configuration
-    of the catalog, the reference's cast; a ``dtype="float32"`` configuration
-    then serves in f32 throughout (the reference casts it to bf16)."""
+    position, on the model's device: the family's stack (attention, MoE,
+    SSM, hybrid, encoder-decoder or VLM) over ``batch`` (``tokens`` (B, S);
+    ``audio_embeds`` (B, Sa, D) and ``tokens`` for the encoder-decoder;
+    ``embeds`` (B, S, D) and ``positions`` (3, B, S) for the VLM), as the
+    reference's ``make_prefill_step`` dispatches it. The stack's input takes
+    the configuration's dtype, as in ``LM.loss_fn``: bf16 for every
+    configuration of the catalog, the reference's cast; a
+    ``dtype="float32"`` configuration then serves in f32 throughout (the
+    reference casts it to bf16)."""
     @torch.no_grad()
     def prefill_step(params: Params, batch: dict) -> torch.Tensor:
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        h = params["embed"][tokens].to(dt(model.cfg))
-        positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
-        h, _ = model._run_stack(params, h, positions=positions)
+        h, _ = model._forward(params, batch)
         return model._head(params, h[:, -1:, :])[:, 0].float()
 
     return prefill_step

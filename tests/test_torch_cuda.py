@@ -28,6 +28,7 @@ from repro_torch.kernels.gf256_matmul import ops as gf_ops
 from repro_torch.kernels.gf256_matmul.ref import gf256_matmul_ref
 
 from _torch_cuda import cuda  # noqa: F401  (fixture)
+from _torch_encdec import cross_kv, draw_final_norms
 
 GF_SHAPES = [(1, 2, 8), (4, 10, 1000), (8, 24, 4096), (2, 2, 1), (12, 20, 8192),
              (5, 6, 1_000_003), (6, 6, 4097), (9, 6, 4111), (256, 256, 130)]
@@ -203,6 +204,20 @@ FLASH_CASES = [
     (1, 4, 1, 600, 600, 112, True, 128, torch.bfloat16),    # windowed
     (2, 4, 2, 320, 1111, 112, True, 0, torch.float32),
     (1, 2, 2, 200, 50, 112, True, 16, torch.float32),       # rows with no key at all
+    # whisper-base's prefill at its published context (1500 audio frames, 448
+    # tokens): the encoder, non-causal; the decoder's self-attention, causal;
+    # its cross-attention, non-causal with Sq < Sk
+    (4, 8, 8, 1500, 1500, 64, False, 0, torch.bfloat16),
+    (4, 8, 8, 448, 448, 64, True, 0, torch.bfloat16),
+    (4, 8, 8, 448, 1500, 64, False, 0, torch.bfloat16),
+    # the reference's make_inputs convention (S tokens, S // 2 frames):
+    # non-causal over 1024 keys, and non-causal with Sq > Sk; qwen2-vl-7b's
+    # prefill: GQA of 7 query heads a KV head at hd 128, causal
+    (4, 8, 8, 1024, 1024, 64, False, 0, torch.bfloat16),
+    (4, 8, 8, 2048, 1024, 64, False, 0, torch.bfloat16),
+    (4, 28, 4, 2048, 2048, 128, True, 0, torch.bfloat16),
+    (1, 8, 8, 333, 77, 64, False, 0, torch.bfloat16),       # ragged, Sq > Sk, non-causal
+    (1, 14, 2, 200, 200, 128, True, 0, torch.float32),      # GQA 7 at hd 128 in f32
 ]
 
 
@@ -309,6 +324,53 @@ def test_prefill_on_the_card_matches_the_cpu(cuda, arch):
                                             if dev == "cuda" else 0)
     assert torch.isfinite(logits["cuda"]).all()
     torch.testing.assert_close(logits["cuda"], logits["cpu"], rtol=0, atol=4 * 2.0**-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["whisper_base", "qwen2_vl_7b"])
+def test_encdec_vlm_on_the_card_match_the_cpu(cuda, arch):
+    """whisper-base (2 encoder + 2 decoder layers) and qwen2-vl-7b (2 layers)
+    reduced, from the same weights (one seeded generator; whisper's final
+    layer norms drawn, which the init rule leaves at 0) and the same
+    ``make_inputs`` of a 2 x 96 prefill, on the card and on the CPU: the
+    prefill's logits within 4 bf16 ulps at |logit| < 4 and the kernel
+    launched once per encoder layer and twice per decoder layer (whisper:
+    6) or once per layer (qwen2-vl: 2); then 4 decode steps (qwen2-vl fed
+    its embeddings; whisper teacher-forced, its ``xk``/``xv`` filled from
+    each device's encoder output: ``enc_out @ xwk``, ``@ xwv``), each
+    step's logits within the same tolerance."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models.registry import build_model, make_inputs
+    from repro_torch.train.steps import make_prefill_step
+
+    cfg = get_arch(arch).reduced()
+    inputs = make_inputs(cfg, ShapeConfig("prefill", 96, 2, "prefill"), seed=0, device="cpu")
+    weights = build_model(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    if cfg.family == "encdec":
+        # the init rule's zero final layer norms make every logit 0: draw them
+        draw_final_norms(weights, 1)
+    seen = {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        params = model.load_params(weights)
+        batch = {k: v.to(dev) for k, v in inputs.items() if k != "labels"}
+        before = fa_ops.launches
+        last = make_prefill_step(model)(params, batch).cpu()
+        want = 2 * cfg.n_layers + cfg.encoder_layers if cfg.family == "encdec" else cfg.n_layers
+        assert fa_ops.launches - before == (want if dev == "cuda" else 0)
+        cache = model.init_cache(2, 96)
+        if cfg.family == "encdec":
+            cache["xk"], cache["xv"] = cross_kv(model, params, batch["audio_embeds"])
+        steps = []
+        for i in range(4):
+            step = ({"embed": batch["embeds"][:, i]} if cfg.embeddings_input
+                    else {"token": batch["tokens"][:, i]})
+            logits, cache = model.decode_step(params, cache, {**step, "cur_len": i})
+            steps.append(logits.cpu())
+        seen[dev] = (last, torch.stack(steps))
+    for got, want in zip(seen["cuda"], seen["cpu"]):
+        assert torch.isfinite(got).all() and 0 < want.abs().max() < 4
+        torch.testing.assert_close(got, want, rtol=0, atol=4 * 2.0**-6)
 
 
 def _workload_report(device: str) -> tuple[dict, tuple]:
