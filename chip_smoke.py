@@ -153,6 +153,28 @@ Phases, each of which fails the run (non-zero exit) on any error:
    in f32, held. Their launcher is not run: it refuses them (its
    ``SyntheticLM`` makes only tokens, as the reference's does).
 
+8. the mesh layer: ``init_process_group("nccl", world_size=1)`` and
+   ``make_host_mesh("cuda")``, the reference's (data=1, model=1) mesh on
+   one card. qwen2-0.5b at full width, B=4 x 2048: the sharded train step
+   (parameters stored in the ZeRO layout, the chunked cross-entropy,
+   gradients reduce-scattered and parameters all-gathered through NCCL)
+   against the unsharded step from the same weights and batch, as
+   ``hold_step`` decides from the unsharded step's own distance under a
+   one-ulp nudge of every RMS norm: printed at full depth in bf16
+   (ill-conditioned from random weights), held at one layer in f32; 3
+   sharded steps beside 3 unsharded ones (train tokens/s, peak device
+   memory) and one under ``torch.profiler`` (NCCL's kernels counted: none
+   fails); the sharded prefill of 4 x 2048 tokens (flash once per layer)
+   bit for bit the unsharded one. whisper-base at full width and depth,
+   4 x 384 tokens on 1024 frames (the chunked cross-entropy takes
+   multiples of 128, as the reference's): 3 sharded steps beside 3
+   unsharded ones and a profiled one, then ``elastic_resize`` from 8 hosts
+   with parity 2 to 10 with parity 3 (save, recon and restore GB/s; the
+   restored state byte for byte; the storage kernels counted, then held
+   against their plain versions on its bytes at both configurations'
+   shapes) and a step from the restored state bit for bit the same step
+   from the state before the save.
+
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -2194,7 +2216,7 @@ def drive_training(seed: int, out_dir: Path, card: str, totals: dict, worst: dic
     opt = adamw_init(params)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
                                   seed=seed))
-    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+    step_fn = make_train_step(model, None, AdamWConfig(lr=TRAIN_LR))
     store = ECCheckpointStore(n_hosts=8, parity=2, seed=seed, device="cuda",
                               coding_backend="kernel", min_block=MIN_BLOCK,
                               avg_block=AVG_BLOCK, max_block=MAX_BLOCK)
@@ -2699,7 +2721,7 @@ def drive_family_training(arch: str, seed: int, card: str, out_dir: Path) -> dic
         + f", full width d {cfg.d_model}), B={TRAIN_B} x S={S}{frames}, AdamW lr "
         f"{TRAIN_LR}, random weights drawn on the card (seed {seed}) in "
         f"{time.perf_counter() - t0:.3f} s; {held} bytes held before the phase")
-    step_fn = make_train_step(model, AdamWConfig(lr=TRAIN_LR))
+    step_fn = make_train_step(model, None, AdamWConfig(lr=TRAIN_LR))
     if encdec:
         seeds = itertools.count(seed)
         next_batch = lambda: whisper_inputs(TRAIN_B, next(seeds), "cuda",  # noqa: E731
@@ -2907,6 +2929,390 @@ def family_train_card_vs_cpu(seed: int) -> None:
             raise AssertionError(f"train card vs CPU: {arch} at full width in f32 not held")
 
 
+# ---------------------------------------------------------------- phase 8
+ELASTIC = dict(hosts=8, parity=2, new_hosts=10, new_parity=3)  # whisper's resize
+MESH_STEPS, MESH_WHISPER_STEPS = 3, 3
+# the chunked cross-entropy of a mesh step takes S divisible by its 128-token
+# chunks (the reference asserts it): whisper's published 448 is not, 384 is
+MESH_WHISPER_TOKENS = 384
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _whole(tree):
+    """A tree of DTensors gathered whole (plain leaves as they are)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
+
+
+def drive_mesh(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> dict:
+    """The mesh layer on the card: ``make_host_mesh("cuda")``, the (data=1,
+    model=1) mesh over an NCCL group of one rank (``mesh_qwen2``,
+    ``mesh_whisper``). The group is destroyed on the way out."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.sharding import MeshCtx
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", rank=0,
+                            world_size=1)
+    try:
+        ctx = MeshCtx(make_host_mesh("cuda"))
+        log(f"mesh: {ctx.shape} over a {dist.get_backend()} group of {dist.get_world_size()} "
+            f"rank; batch axes {ctx.batch_axes} ({card})")
+        return {"qwen2": mesh_qwen2(ctx, seed, card, out_dir, totals),
+                "whisper": mesh_whisper(ctx, seed, card, out_dir, totals, worst)}
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_hold(ctx, cfg, batch: dict, seed: int, tag: str) -> tuple[bool, str, dict]:
+    """Step 1 of the sharded ``make_train_step(model, ctx)`` (parameters
+    stored in the ZeRO layout of ``training_state_specs``; the chunked
+    cross-entropy) against the unsharded step from the same weights (drawn
+    on the card from ``seed``) and batch, held as ``hold_step`` decides from
+    the unsharded step's own distance under a one-ulp nudge of every RMS
+    norm (``norm_nudged``). Prints the distances; raises where a held step
+    misses a criterion, or the loss differs by more than LOSS_ATOL. Returns
+    (held, verdict, the sharded step's ``step_metrics``)."""
+    import _torch_train_criteria as crit
+
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step, training_state_specs
+
+    model = build_model(cfg, max_pos=TRAIN_S, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    plain = make_train_step(model, None, opt_cfg)
+    p1, o1, loss1 = plain(params, adamw_init(params), batch)
+    nudged = []
+    for to in (math.inf, -math.inf):
+        with crit.norm_nudged(to):
+            pn, on, _ = plain(params, adamw_init(params), batch)
+        mn = crit.step_metrics(pn, on, p1, o1, TRAIN_LR)
+        nudged.append((mn, None))
+        log(f"{tag}: the unsharded step against itself with every RMS norm nudged "
+            f"{'up' if to > 0 else 'down'}: {_step_summary(mn)}; the criteria "
+            f"{'met' if crit.meets(mn) else 'missed: ill-conditioned'}")
+        del pn, on
+    pstore, ospecs = training_state_specs(model, ctx)
+    p, o, loss = make_train_step(model, ctx, opt_cfg)(reshard_state(params, pstore),
+                                                      reshard_state(adamw_init(params), ospecs),
+                                                      batch)
+    m = crit.step_metrics(_whole(p), _whole(o), p1, o1, TRAIN_LR)
+    held, verdict, failures = crit.hold_step(m, nudged=nudged)
+    log(f"{tag}: sharded step 1 against the unsharded step: loss {float(loss):.6f} / "
+        f"{float(loss1):.6f} (|diff| {abs(float(loss) - float(loss1)):.3e}); {_step_summary(m)}; "
+        f"the criteria {verdict}")
+    if failures or abs(float(loss) - float(loss1)) > crit.LOSS_ATOL:
+        raise AssertionError(f"{tag}: sharded step 1: {verdict}, but {failures}")
+    return held, verdict, m
+
+
+def _plain_steps(model, params, batches: list, tokens: int) -> str:
+    """The unsharded ``make_train_step`` over ``batches`` from ``params``
+    (the first a warm-up): its median train tokens/s and peak device
+    memory, for the sharded steps' line."""
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step
+
+    step = make_train_step(model, None, AdamWConfig(lr=TRAIN_LR))
+    state, walls = (params, adamw_init(params)), []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for batch in batches:
+        t = time.perf_counter()
+        p, o, loss = step(*state, batch)
+        float(loss)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        state = (p, o)
+    median = sorted(walls[1:])[len(walls[1:]) // 2]
+    peak = torch.cuda.max_memory_allocated()
+    del state, p, o
+    return (f"{tokens / median:.1f} train tokens/s (median step {median:.4f} s of "
+            f"{', '.join(f'{w:.4f}' for w in walls)}, the first a warm-up), peak {peak} bytes "
+            f"({peak / 1e9:.3f} GB)")
+
+
+def mesh_qwen2(ctx, seed: int, card: str, out_dir: Path, totals: dict) -> dict:
+    """qwen2-0.5b at full width, B=TRAIN_B x TRAIN_S: step 1 of the sharded
+    train step against the unsharded one (``mesh_hold``) at full depth in
+    bf16, where the random weights leave it ill-conditioned (printed, as
+    ``hold_step`` decides), and at one layer in f32, which must be held;
+    MESH_STEPS sharded steps at full depth (train tokens/s, peak device
+    memory), one more under ``torch.profiler`` (NCCL's kernels counted: none
+    fails), then the sharded prefill of 4 x 2048 tokens, flash_attention
+    counted from 0 (once per layer), against the unsharded prefill bit for
+    bit."""
+    import dataclasses
+    import gc
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_prefill_step, make_train_step, training_state_specs
+
+    cfg = get_arch(MODEL)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                  seed=seed))
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in data.next_batch().items()}
+               for _ in range(MESH_STEPS + 1)]
+    mesh_hold(ctx, cfg, batches[0], seed, "mesh qwen2")
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = dataclasses.replace(cfg, n_layers=1, dtype="float32")
+    log(f"reduced: n_layers {cfg.n_layers} -> 1, bfloat16 -> float32 (the held comparison: "
+        f"one full-width layer in f32 is well-conditioned)")
+    held, verdict, _ = mesh_hold(ctx, f32, batches[0], seed, "mesh qwen2 f32 1 layer")
+    if not held:
+        raise AssertionError(f"mesh qwen2 f32 1 layer: {verdict}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model = build_model(cfg, max_pos=TRAIN_S, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    pstore, ospecs = training_state_specs(model, ctx)
+    step = make_train_step(model, ctx, opt_cfg)
+    state = (reshard_state(params, pstore), reshard_state(adamw_init(params), ospecs))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for i in range(MESH_STEPS):
+        t = time.perf_counter()
+        p, o, loss = step(*state, batches[i])
+        loss = float(loss)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        if not np.isfinite(loss):
+            raise AssertionError(f"mesh qwen2: sharded step {i + 1} loss {loss} is not finite")
+        losses.append(loss)
+        state = (p, o)
+    peak = torch.cuda.max_memory_allocated()
+    median = sorted(walls)[len(walls) // 2]
+    plain = _plain_steps(model, params, batches[:MESH_STEPS], TRAIN_B * TRAIN_S)
+    log(f"mesh qwen2: {cfg.name} {model.n_params()} parameters ({cfg.n_layers} layers, full "
+        f"width), B={TRAIN_B} x S={TRAIN_S}: {TRAIN_B * TRAIN_S / median:.1f} train tokens/s "
+        f"(median sharded step {median:.4f} s of {', '.join(f'{w:.4f}' for w in walls)}); "
+        f"losses {', '.join(f'{x:.6f}' for x in losses)}; peak device memory {peak} bytes "
+        f"({peak / 1e9:.3f} GB); unsharded in this call: {plain} ({card})")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        p, o, loss = step(*state, batches[MESH_STEPS])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = device_busy(prof, out_dir / "mesh_qwen2_step_trace.json", wall,
+                         "profile mesh qwen2 step:")
+    # NCCL's kernels: named for it, or its one-rank reduce (a communicator of
+    # one rank copies where it can, and launches onerank.cu's kernel for AVG)
+    nccl: dict[str, int] = {}
+    for ev in events:
+        name = ev["name"]
+        if ev.get("cat") == "kernel" and ("nccl" in name.lower() or "onerank" in name.lower()):
+            short = re.sub(r".*(oneRankReduce\w*|nccl\w*).*", r"\1", name)[:60]
+            nccl[short] = nccl.get(short, 0) + 1
+    c10d: dict[str, int] = {}
+    for ev in events:
+        if ev.get("cat") == "cpu_op" and ev["name"].startswith("c10d::"):
+            c10d[ev["name"]] = c10d.get(ev["name"], 0) + 1
+    copies = sum(1 for ev in events if ev.get("cat") == "gpu_memcpy")
+    log(f"mesh qwen2: profiled sharded step {wall:.4f} s: {sum(nccl.values())} NCCL kernels "
+        f"({', '.join(f'{n} x{c}' for n, c in nccl.items())}); collectives "
+        f"{', '.join(f'{n} x{c}' for n, c in c10d.items())}; {copies} device copies in the "
+        f"step ({card})")
+    if not nccl:
+        raise AssertionError("mesh qwen2: the sharded step's profile shows no NCCL kernel")
+    del state, p, o, prof, events
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tokens = {"tokens": batches[0]["tokens"]}
+    plain = make_prefill_step(model)(params, tokens)
+    sharded = make_prefill_step(model, ctx)
+    sharded(params, tokens)  # warm-up
+    torch.cuda.synchronize()
+    fa.launches = 0
+    t = time.perf_counter()
+    logits = sharded(params, tokens)
+    torch.cuda.synchronize()
+    pre_wall = time.perf_counter() - t
+    launches = fa.launches
+    if launches != cfg.n_layers:
+        raise AssertionError(f"mesh qwen2: the sharded prefill launched flash_attention "
+                             f"{launches} times, not {cfg.n_layers}")
+    if not torch.equal(logits, plain):
+        raise AssertionError("mesh qwen2: the sharded prefill differs from the unsharded one")
+    totals["flash_attention"] = totals.get("flash_attention", 0) + launches
+    log(f"mesh qwen2: sharded prefill {TRAIN_B} x {TRAIN_S}: {pre_wall:.4f} s, "
+        f"{TRAIN_B * TRAIN_S / pre_wall:.1f} tokens/s, flash_attention launches {launches}; "
+        f"logits equal the unsharded prefill's bit for bit ({card})")
+    del model, params, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens_per_s": TRAIN_B * TRAIN_S / median, "peak": peak,
+            "nccl": sum(nccl.values())}
+
+
+def mesh_whisper(ctx, seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> dict:
+    """whisper-base at full width and depth (B=TRAIN_B x MESH_WHISPER_TOKENS
+    on WHISPER_TRAIN_FRAMES audio frames, ``max_pos`` WHISPER_TOKENS, weights
+    drawn on the card, the final norms drawn): MESH_WHISPER_STEPS sharded
+    steps (the first a warm-up) beside the unsharded steps on the same
+    batches, one more sharded step under ``torch.profiler``, then
+    ``elastic_resize`` through ``ECCheckpointStore(device="cuda")`` from 8 hosts with parity 2
+    to 10 with parity 3, the storage kernels counted from 0 (save, recon,
+    restore GB/s; the restored state byte for byte the saved one), the
+    storage kernels against their plain versions on the saved bytes at the
+    two configurations' shapes, and a step from the restored state placed
+    by ``reshard_state``, bit for bit the same step from the state before
+    the save."""
+    import gc
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_arch
+    from repro_torch.device import host_tensor
+    from repro_torch.kernels.cdc_gearhash import ops as cdc
+    from repro_torch.kernels.gf256_matmul import ops as gf
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.checkpoint import ECCheckpointStore, serialize_tree
+    from repro_torch.train.elastic import elastic_resize, reshard_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step, training_state_specs
+    from repro_torch.tree import named_leaves
+
+    cfg = get_arch("whisper_base")
+    model = build_model(cfg, max_pos=WHISPER_TOKENS, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    _encdec().draw_final_norms(params, seed + 9)
+    log(f"reduced: whisper's decoder tokens {WHISPER_TOKENS} -> {MESH_WHISPER_TOKENS} (the "
+        f"chunked cross-entropy of a mesh step takes multiples of 128, as the reference's)")
+    batches = [{k: v[:, :MESH_WHISPER_TOKENS] if k != "audio_embeds" else v
+                for k, v in whisper_inputs(TRAIN_B, seed + i, "cuda", frames=WHISPER_TRAIN_FRAMES,
+                                           labels=True).items()}
+               for i in range(MESH_WHISPER_STEPS + 1)]
+    pstore, ospecs = training_state_specs(model, ctx)
+    step = make_train_step(model, ctx, AdamWConfig(lr=TRAIN_LR))
+    state = (reshard_state(params, pstore), reshard_state(adamw_init(params), ospecs))
+    step_walls, losses = [], []
+    for i in range(MESH_WHISPER_STEPS):
+        t = time.perf_counter()
+        p, o, loss = step(*state, batches[i])
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_walls.append(time.perf_counter() - t)
+        state = (p, o)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"mesh whisper: losses {losses}")
+    median = sorted(step_walls[1:])[len(step_walls[1:]) // 2]
+    tps = TRAIN_B * MESH_WHISPER_TOKENS / median
+    plain = _plain_steps(model, params, batches[:MESH_WHISPER_STEPS],
+                         TRAIN_B * MESH_WHISPER_TOKENS)
+    log(f"mesh whisper: {cfg.name} {model.n_params()} parameters, B={TRAIN_B} x "
+        f"{MESH_WHISPER_TOKENS} tokens on {WHISPER_TRAIN_FRAMES} frames: {tps:.1f} train "
+        f"tokens/s (median sharded step {median:.4f} s of "
+        f"{', '.join(f'{w:.4f}' for w in step_walls)}, the first a warm-up), losses "
+        f"{', '.join(f'{x:.6f}' for x in losses)}; unsharded in this call: {plain} ({card})")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        _, _, loss = step(*state, batches[-1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    device_busy(prof, out_dir / "mesh_whisper_step_trace.json", wall,
+                "profile mesh whisper step:")
+    del prof
+
+    saved = _whole({"params": state[0], "opt": state[1]})
+    store = ECCheckpointStore(n_hosts=ELASTIC["hosts"], parity=ELASTIC["parity"], seed=seed,
+                              device="cuda", coding_backend="kernel", min_block=MIN_BLOCK,
+                              avg_block=AVG_BLOCK, max_block=MAX_BLOCK)
+    timings = {}  # each store call's (wall, result) inside elastic_resize
+    for name in ("save", "reconfigure", "restore"):
+        def timed(*a, _f=getattr(store, name), _n=name, **kw):
+            t = time.perf_counter()
+            out = _f(*a, **kw)
+            torch.cuda.synchronize()
+            timings[_n] = (time.perf_counter() - t, out)
+            return out
+        setattr(store, name, timed)
+    torch.cuda.synchronize()
+    cdc.launches = 0
+    gf.launches = 0
+    rstep, rstate, moved = elastic_resize(store, {"params": state[0], "opt": state[1]},
+                                          MESH_WHISPER_STEPS, new_hosts=ELASTIC["new_hosts"],
+                                          new_parity=ELASTIC["new_parity"])
+    counts = {"cdc_gearhash": cdc.launches, "gf256_matmul": gf.launches}
+    for name, c in counts.items():
+        if not c:
+            raise AssertionError(f"mesh whisper: the elastic resize never launched {name}")
+        totals[name] = totals.get(name, 0) + c
+    if rstep != MESH_WHISPER_STEPS or store.dss.net.stuck_ops():
+        raise AssertionError(f"mesh whisper: restored step {rstep}, stuck "
+                             f"{store.dss.net.stuck_ops()}")
+    _same_state(rstate, saved, "mesh whisper elastic restore")
+    st = timings["save"][1]
+    gb = st.bytes_written / 1e9
+    log(f"mesh whisper: elastic resize {ELASTIC['hosts']} hosts parity {ELASTIC['parity']} -> "
+        f"{ELASTIC['new_hosts']} parity {ELASTIC['new_parity']} of the {st.bytes_written}-byte "
+        f"state ({st.blocks_written} blocks): save {timings['save'][0]:.3f} s "
+        f"({gb / timings['save'][0]:.4f} GB/s), recon {timings['reconfigure'][0]:.3f} s "
+        f"({gb / timings['reconfigure'][0]:.4f} GB/s, {moved} blocks moved), restore "
+        f"{timings['restore'][0]:.3f} s ({gb / timings['restore'][0]:.4f} GB/s); launches "
+        f"cdc_gearhash {counts['cdc_gearhash']} gf256_matmul {counts['gf256_matmul']}; the "
+        f"restored state equals the saved one byte for byte ({card})")
+    del store
+    blob = serialize_tree({"step": MESH_WHISPER_STEPS, "state": saved})
+    data = host_tensor(blob).to("cuda")
+    del blob
+    label = f"whisper's elastic state ({data.numel()} bytes)"
+    for n, k in ((ELASTIC["hosts"], ELASTIC["hosts"] - ELASTIC["parity"]),
+                 (ELASTIC["new_hosts"], ELASTIC["new_hosts"] - ELASTIC["new_parity"])):
+        check_storage_kernels_at(f"{label}, k={k}", data, (n,), card, worst, k=k)
+    del data
+
+    specs = {"params": pstore, "opt": ospecs}
+    runs = []
+    for whole in (rstate, saved):
+        placed = reshard_state(whole, specs)
+        p, o, loss = step(placed["params"], placed["opt"], batches[-1])
+        runs.append((float(loss), _whole({"params": p, "opt": o})))
+    (la, after), (lb, before) = runs
+    for (na, a), (nb, b) in zip(named_leaves(after), named_leaves(before)):
+        if na != nb or not torch.equal(a, b):
+            raise AssertionError(f"mesh whisper: the step after the restore differs at {na}")
+    if la != lb:
+        raise AssertionError(f"mesh whisper: the step after the restore: loss {la} != {lb}")
+    log(f"mesh whisper: the step after the restore (loss {la:.6f}) equals the same step from "
+        f"the state before the save bit for bit ({card})")
+    del model, params, state, saved, rstate, runs, after, before
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tokens_per_s": tps, "save_gb_s": gb / timings["save"][0],
+            "recon_gb_s": gb / timings["reconfigure"][0],
+            "restore_gb_s": gb / timings["restore"][0]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3072,6 +3478,16 @@ def main() -> int:
     log(f"phase 7c: {time.perf_counter() - t7c:.3f} s; "
         + "; ".join(f"{t['arch']} at {t['depth']} layers {t['tokens_per_s']:.1f} train tokens/s, "
                     f"peak {t['peak'] / 1e9:.3f} GB" for t in trained) + f" ({card})")
+    elapsed("phase 7c")
+    # phase 8: the mesh layer on a one-card NCCL mesh, each path counted from zero inside
+    t8 = time.perf_counter()
+    mesh = drive_mesh(args.seed, card, args.out, counts, worst)
+    q, w = mesh["qwen2"], mesh["whisper"]
+    log(f"phase 8: {time.perf_counter() - t8:.3f} s; qwen2-0.5b sharded {q['tokens_per_s']:.1f} "
+        f"train tokens/s, peak {q['peak'] / 1e9:.3f} GB, {q['nccl']} NCCL kernels a step; "
+        f"whisper-base sharded {w['tokens_per_s']:.1f} train tokens/s, elastic save "
+        f"{w['save_gb_s']:.4f} GB/s, recon {w['recon_gb_s']:.4f} GB/s, restore "
+        f"{w['restore_gb_s']:.4f} GB/s ({card})")
 
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]

@@ -1,0 +1,41 @@
+"""Production and host meshes (functions, not module-level constants: a
+mesh needs the process group, which importing this module never touches).
+
+The caller starts the process group first, with the backend of the mesh's
+device and an address of its own, e.g. on one card
+``torch.distributed.init_process_group("nccl", init_method="tcp://localhost:<port>",
+rank=0, world_size=1)``; NCCL for "cuda", gloo for "cpu" (``MeshCtx``
+checks it)."""
+from __future__ import annotations
+
+import math
+
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> DeviceMesh:
+    """Single pod: (data=16, model=16) = 256 devices. Multi-pod: (pod=2,
+    data=16, model=16) = 512 devices; "pod" is the outermost data-parallel
+    axis. Raises, naming the world size it needs, in a process group of
+    another size."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(device, shape, axes)
+
+
+def make_host_mesh(device: str = "cuda") -> DeviceMesh:
+    """The 1-device mesh (data=1, model=1) over a process group of size 1:
+    the mesh-parameterized code paths on one card (or one CPU process)."""
+    return _mesh(device, (1, 1), ("data", "model"))
+
+
+def _mesh(device: str, shape: tuple[int, ...], axes: tuple[str, ...]) -> DeviceMesh:
+    if not dist.is_initialized():
+        raise RuntimeError("start torch.distributed first (init_process_group with 'nccl' for "
+                           "a CUDA mesh, 'gloo' for a CPU one)")
+    need, have = math.prod(shape), dist.get_world_size()
+    if need != have:
+        raise ValueError(f"a {dict(zip(axes, shape))} mesh needs a process group of {need} "
+                         f"ranks; this one has {have}")
+    return init_device_mesh(device, shape, mesh_dim_names=axes)

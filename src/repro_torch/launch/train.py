@@ -101,7 +101,7 @@ def main(argv=None, *, params: Params | None = None) -> dict:
             params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)
             return params, opt_state, loss
     else:
-        step_fn = make_train_step(model, opt_cfg)
+        step_fn = make_train_step(model, None, opt_cfg)
     store = ECCheckpointStore(n_hosts=args.ckpt_hosts, parity=args.ckpt_parity,
                               min_block=args.min_block, avg_block=args.avg_block,
                               max_block=args.max_block, device=args.device)

@@ -296,8 +296,9 @@ def moe_layer(x: torch.Tensor, wr: torch.Tensor, w_gate: torch.Tensor, w_up: tor
     whole-array ``moe_layer``: x (B, S, D); wr (D, E); w_gate/w_up (E, D,
     F); w_down (E, F, D). Returns (y (B, S, D), aux = E * sum(me * ce)).
     The expert-parallel branch (``shard_map`` with all_to_all over the
-    model axis) belongs to the mesh layer (ROADMAP A3): this takes no
-    mesh."""
+    model axis) is a later slice (ROADMAP A): this takes no mesh. On a
+    (..., model=1) mesh each rank calls it on its own tokens, which is what
+    that branch computes there."""
     B, S, D = x.shape
     E = wr.shape[1]
     C = _capacity(B * S, top_k, E, capacity_factor)

@@ -70,11 +70,14 @@ from repro_torch.models.layers import (
     rope_cos_sin,
     swiglu_mlp,
 )
-from repro_torch.tree import named_leaves
+from repro_torch.models.sharding import MeshCtx, NamedSharding, spec_with_model_on
+from repro_torch.tree import named_leaves, tree_map
 
 Params = dict[str, Any]  # name -> tensor, or name -> dict of stacked-layer tensors
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+PURE_DP_MAX_PARAMS = 2.5e8  # below this, TP wastes the mesh: replicate
+CE_CHUNK = 128  # tokens per chunk of the cross-entropy on a mesh
 
 
 def _attn_shapes(cfg: ArchConfig, lead: tuple[int, ...]) -> dict:
@@ -141,6 +144,14 @@ class LM(nn.Module):
         self.cfg = cfg
         self.max_pos = max_pos
         self.device = resolve_device(device)
+        # tiny models (whisper-base) are pure data-parallel: weights
+        # replicated, the batch sharded over every mesh axis
+        self.pure_dp = self.n_params() <= PURE_DP_MAX_PARAMS
+
+    def _tok_spec(self, ctx: MeshCtx) -> tuple:
+        if self.pure_dp:
+            return ((*ctx.batch_axes, "model"), None, None)
+        return (ctx.batch_axes, "model", None)
 
     # ------------------------------------------------------------- template
     def param_template(self) -> dict:
@@ -237,6 +248,64 @@ class LM(nn.Module):
             return out
 
         return register(self, params)
+
+    # ------------------------------------------------------------- specs
+    def param_specs(self, ctx: MeshCtx, serve: bool = False) -> dict:
+        """Weight shardings, the reference's tree: a pure data-parallel
+        model's weights are replicated; otherwise each weight has "model" on
+        its heads, FFN or expert dim (or a fallback dim divisible by the
+        model axis). ``serve=True`` also shards the MoE expert tensors over
+        the batch axes (no gradient to replicate them for in inference)."""
+        if self.pure_dp and not serve:
+            return tree_map(lambda _: ctx.replicated(), self.param_template())
+
+        def leaf_spec(path: tuple, shape: tuple) -> tuple:
+            name = path[-1]
+            stacked = len(path) >= 2 and path[0] in ("layers", "enc", "dec")
+            off = 1 if stacked else 0
+            body = shape[off:]
+            if name in ("embed", "dec_pos"):
+                return spec_with_model_on(shape, ctx, [0, 1])
+            if name == "head":
+                return spec_with_model_on(shape, ctx, [1, 0])
+            base: tuple
+            bare = name.lstrip("x")
+            if bare in ("wq", "bq", "wo"):  # the heads dim, or head_dim as fallback
+                base = spec_with_model_on(body, ctx, [0, 1] if bare != "wq" else [1, 2])
+            elif bare in ("qn", "kn"):
+                base = (None,) * len(body)
+            elif bare in ("wk", "wv", "bk", "bv"):
+                base = spec_with_model_on(body, ctx, [1, 2])
+            elif name in ("wg", "wu", "wz", "wx", "wdt"):
+                base = spec_with_model_on(body, ctx, [1])
+            elif name in ("wd", "norm"):
+                base = spec_with_model_on(body, ctx, [0])
+            elif name in ("w_gate", "w_up", "w_down"):
+                base = spec_with_model_on(body, ctx, [0])  # EP on experts
+                if serve:
+                    b2 = list(base)
+                    for d in (1, 2):
+                        if b2[d] is None and body[d] % ctx.n_batch == 0:
+                            b2[d] = ctx.batch_axes if len(ctx.batch_axes) > 1 else ctx.batch_axes[0]
+                            break
+                    base = tuple(b2)
+            else:  # wr, conv_w, the norms and biases
+                base = (None,) * len(body)
+            return ((None,) * off) + base if stacked else base
+
+        def walk(tree: dict, path: tuple = ()) -> dict:
+            out = {}
+            for k, v in tree.items():
+                p = path + (k,)
+                if isinstance(v, dict):
+                    out[k] = walk(v, p)
+                elif k == "wo" and p[0] == "layers" and self.cfg.is_ssm:
+                    out[k] = ctx.ns(None, *spec_with_model_on(v[0][1:], ctx, [0]))  # (d_inner, D)
+                else:
+                    out[k] = ctx.ns(*leaf_spec(p, v[0]))
+            return out
+
+        return walk(self.param_template())
 
     # ------------------------------------------------------------- forward
     def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor | None, torch.Tensor | None]:
@@ -477,35 +546,56 @@ class LM(nn.Module):
         return h @ params["head"]
 
     # ------------------------------------------------------------- training
-    def loss_fn(self, params: Params, batch: dict) -> torch.Tensor:
+    def loss_fn(self, params: Params, batch: dict, ctx: MeshCtx | None = None) -> torch.Tensor:
         """The training loss (f32 0-d) of ``batch`` = {"tokens", "labels"}
         (B, S) int ({"embeds", "positions", "labels"} for the VLM,
         {"audio_embeds", "tokens", "labels"} for the encoder-decoder): the
-        reference's ``loss_fn`` with ``ctx=None``, the mean
-        next-token cross-entropy, plus ``0.01 * aux`` for the MoE family (aux
-        summed over its layers). The dense, SSM and hybrid families have no
-        auxiliary loss and return the cross-entropy (the reference adds
-        ``0.01 * 0``). The embedding's output and the attention's score
-        chain take the configuration's dtype: bf16 for every configuration
-        of the catalog, as in the reference. A ``dtype="float32"``
-        configuration thus computes the whole step in f32 (the reference
-        keeps both in bf16 there), which makes it a precise witness of a
-        bf16 step from the same weights.
+        reference's ``loss_fn``, the mean next-token cross-entropy, plus
+        ``0.01 * aux`` for the MoE family (aux summed over its layers). The
+        dense, SSM and hybrid families have no auxiliary loss and return the
+        cross-entropy (the reference adds ``0.01 * 0``). The embedding's
+        output and the attention's score chain take the configuration's
+        dtype: bf16 for every configuration of the catalog, as in the
+        reference. A ``dtype="float32"`` configuration thus computes the
+        whole step in f32 (the reference keeps both in bf16 there), which
+        makes it a precise witness of a bf16 step from the same weights.
+
+        With a mesh ``ctx`` the batch is this rank's block and the
+        cross-entropy runs in chunks (``_cross_entropy``); the loss is this
+        block's mean, which the train step averages over the ranks.
 
         The MoE forward is deterministic (stable sorts, no atomics), so the
         recompute in the backward routes exactly as the forward did."""
         h, aux = self._forward(params, batch, train=True)
-        ce = self._cross_entropy(params, h, batch["labels"])
+        ce = self._cross_entropy(params, h, batch["labels"], ctx)
         return ce if aux is None else ce + 0.01 * aux
 
-    def _cross_entropy(self, params: Params, h: torch.Tensor,
-                       labels: torch.Tensor) -> torch.Tensor:
-        """CE over the vocab from the full (B, S, V) f32 logits, as the
-        reference's single-device form (its chunked form needs a mesh)."""
+    def _cross_entropy(self, params: Params, h: torch.Tensor, labels: torch.Tensor,
+                       ctx: MeshCtx | None = None, chunk: int = CE_CHUNK) -> torch.Tensor:
+        """CE over the vocab. Without a mesh, or for S <= chunk, from the
+        whole (B, S, V) f32 logits (the reference's single-device form).
+        With a mesh the loss streams over sequence chunks, each under
+        ``torch.utils.checkpoint``: the peak holds one chunk's f32 logits,
+        and the head's product is recomputed chunk by chunk in the backward;
+        the chunks' summed losses, over B * S."""
+        B, S, _ = h.shape
+        if ctx is None or S <= chunk:
+            return self._chunk_loss(params, h, labels).mean()
+        if S % chunk:
+            raise ValueError(f"the chunked cross-entropy needs S ({S}) divisible by {chunk}")
+        tot = h.new_zeros((), dtype=torch.float32)
+        for i in range(0, S, chunk):
+            hc, lc = h[:, i:i + chunk], labels[:, i:i + chunk]
+            tot = tot + checkpoint(lambda x, y: self._chunk_loss(params, x, y).sum(), hc, lc,
+                                   use_reentrant=False)
+        return tot / (B * S)
+
+    def _chunk_loss(self, params: Params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """Each position's f32 cross-entropy (B, S): logsumexp minus the
+        label's logit."""
         logits = self._head(params, h).float()
         lse = torch.logsumexp(logits, dim=-1)
-        ll = logits.gather(-1, labels[..., None].long())[..., 0]
-        return (lse - ll).mean()
+        return lse - logits.gather(-1, labels[..., None].long())[..., 0]
 
     # ------------------------------------------------------------- serving
     def cache_template(self, B: int, S: int) -> dict:
@@ -537,6 +627,29 @@ class LM(nn.Module):
         """A zero cache of ``cache_template(B, S)`` on the model's device."""
         return {name: torch.zeros(shape, dtype=dtype, device=self.device)
                 for name, (shape, dtype) in self.cache_template(B, S).items()}
+
+    def cache_specs(self, B: int, S: int, ctx: MeshCtx) -> dict[str, NamedSharding]:
+        """The cache's shardings, the reference's: the batch dim over the
+        batch axes where B fills them, else the sequence dim of K/V; "model"
+        on the KV heads (else head_dim) of K/V, on the heads of the SSM
+        state and on the conv window's channels where they divide."""
+        out = {}
+        batch_ok = B >= ctx.n_batch and B % ctx.n_batch == 0
+        for name, (shape, _) in self.cache_template(B, S).items():
+            spec: list = [None] * len(shape)
+            if batch_ok:
+                spec[1] = ctx.batch_axes
+            if name in ("k", "v", "xk", "xv"):
+                if shape[3] % ctx.n_model == 0:
+                    spec[3] = "model"
+                elif shape[4] % ctx.n_model == 0:
+                    spec[4] = "model"
+                if not batch_ok:
+                    spec[2] = ctx.batch_axes  # sequence sharding
+            elif shape[3] % ctx.n_model == 0:  # ssm: heads; conv: channels
+                spec[3] = "model"
+            out[name] = ctx.ns(*spec)
+        return out
 
     def decode_step(self, params: Params, cache: dict[str, torch.Tensor],
                     batch: dict) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
@@ -685,7 +798,8 @@ def _no_rope(h: torch.Tensor, train: bool) -> dict:
 
 def _checkpointed(fn, *args, train: bool, **kw):
     """``fn(*args, **kw)``; with ``train``, under ``torch.utils.checkpoint``
-    (its activations recomputed in the backward)."""
+    (its activations recomputed in the backward): the counterpart of the
+    reference's ``_remat_policy``, ``nothing_saveable`` for every model."""
     if train:
         return checkpoint(fn, *args, use_reentrant=False, **kw)
     return fn(*args, **kw)

@@ -1,12 +1,14 @@
-"""Training stack of the port, on one device: AdamW (``optimizer``), the
-train, prefill and serve step builders (``steps.make_train_step``,
-``steps.make_prefill_step``, ``steps.make_serve_step``), error-feedback int8
-gradient compression (``compress``), the EC checkpoint store
-(``checkpoint.ECCheckpointStore``, ``serialize_tree``/``deserialize_tree``
-over torch state dicts) and the synthetic data pipeline
-(``data.SyntheticLM``). The launcher is ``repro_torch.launch.train``. The
-sharded forms (ZeRO-1 AdamW, batch and state shardings) and elastic
-resizing wait for the mesh layer (ROADMAP A3)."""
+"""Training stack of the port: AdamW (``optimizer``; its ZeRO-1 sharded
+form ``adamw_update_sharded`` on a mesh), the train, prefill and serve step
+builders (``steps.make_train_step``, ``steps.make_prefill_step``,
+``steps.make_serve_step``; data-parallel with a ``MeshCtx``, with
+``steps.batch_shardings`` and ``steps.training_state_specs``),
+error-feedback int8 gradient compression (``compress``), the EC checkpoint
+store (``checkpoint.ECCheckpointStore``, ``serialize_tree``/
+``deserialize_tree`` over torch state dicts), elastic resizing through it
+(``elastic.elastic_resize``, ``elastic.reshard_state``) and the synthetic
+data pipeline (``data.SyntheticLM``). The launcher is
+``repro_torch.launch.train``."""
 from repro_torch.train.checkpoint import (
     CheckpointStats,
     ECCheckpointStore,

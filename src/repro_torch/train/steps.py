@@ -1,23 +1,79 @@
-"""train_step / prefill_step / serve_step builders (one device: no mesh, no
-sharding). ``batch_shardings`` and ``training_state_specs`` wait for the mesh
-layer (ROADMAP A3)."""
+"""train_step / prefill_step / serve_step builders + their shardings.
+
+Without a mesh (``ctx=None``) a step runs on one device. With a ``MeshCtx``
+it is data-parallel over the batch axes with ZeRO-1 moments: each rank runs
+the model on its block of the batch (``batch_shardings``), whole weights in
+hand, and the collectives are the gradients' reduce-scatter and the fresh
+parameters' all-gather (``adamw_update_sharded``), the loss's mean, and the
+prefill's and decode's logits gathered over the batch. A pure data-parallel
+model (``LM.pure_dp``) runs on any mesh, its batch sharded over every axis
+where it divides them; any other model needs ``n_model == 1``. Tensor and
+expert parallelism over "model", and the sequence sharding of a batch that
+does not fill the batch axes, raise ``NotImplementedError`` (ROADMAP A).
+"""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
+from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.lm import LM, Params
-from repro_torch.train.optimizer import AdamWConfig, adamw_init_shapes, adamw_update
+from repro_torch.models.registry import input_specs
+from repro_torch.models.sharding import (
+    SEQUENCE_SHARDING,
+    TENSOR_PARALLEL,
+    MeshCtx,
+    NamedSharding,
+    place,
+    shard_map_compat,
+)
+from repro_torch.train.optimizer import (
+    AdamWConfig,
+    adamw_init_shapes,
+    adamw_specs,
+    adamw_update,
+    adamw_update_sharded,
+)
 from repro_torch.tree import Tree, named_leaves, tree_map
 
 
-def loss_and_grads(model: LM, params: Params, batch: dict) -> tuple[torch.Tensor, Params]:
+def batch_shardings(cfg: ArchConfig, shape: ShapeConfig, ctx: MeshCtx,
+                    model: LM | None = None) -> dict[str, NamedSharding]:
+    """Each input's sharding (the reference's): the batch dim over the batch
+    axes, and for a pure data-parallel model over "model" too where B
+    divides them all; the sequence dim where B does not fill the batch
+    axes; decode's token over the batch axes where it divides them."""
+    B = shape.global_batch
+    bspec = ctx.token_spec(B)  # (batch-ish, seq-ish)
+    pure_dp = (model or LM(cfg, device="cpu")).pure_dp
+    if pure_dp and B % (ctx.n_batch * ctx.n_model) == 0:
+        bspec = ((*ctx.batch_axes, "model"), None)
+    out = {}
+    for k, (shp, _) in input_specs(cfg, shape).items():
+        if k in ("tokens", "labels"):
+            out[k] = ctx.ns(*bspec)
+        elif k in ("embeds", "audio_embeds"):
+            out[k] = ctx.ns(*bspec, None)
+        elif k == "positions":
+            out[k] = ctx.ns(None, *bspec)
+        elif k in ("token", "embed"):
+            sp = (ctx.batch_axes,) if B % ctx.n_batch == 0 and B >= ctx.n_batch else (None,)
+            out[k] = ctx.ns(*sp, *([None] * (len(shp) - 1)))
+        else:  # cur_len
+            out[k] = ctx.replicated()
+    return out
+
+
+def loss_and_grads(model: LM, params: Params, batch: dict,
+                   ctx: MeshCtx | None = None) -> tuple[torch.Tensor, Params]:
     """``(loss, grads)`` of ``model.loss_fn`` at ``params``, grads shaped and
     typed like ``params``. The gradients are taken on detached views of the
     leaves, so ``params`` (e.g. the frozen parameters that
     ``LM.load_params`` registers for serving) are left as they are."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss = model.loss_fn(live, batch)
+        loss = model.loss_fn(live, batch, ctx)
         names, leaves = zip(*named_leaves(live))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     unread = {n for n, g in zip(names, grads) if g is None}
@@ -30,21 +86,49 @@ def loss_and_grads(model: LM, params: Params, batch: dict) -> tuple[torch.Tensor
     return loss.detach(), tree_map(lambda _: next(flat), live)
 
 
-def make_train_step(model: LM, opt_cfg: AdamWConfig | None = None):
+def make_train_step(model: LM, ctx: MeshCtx | None = None, opt_cfg: AdamWConfig | None = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state, loss)``:
     the loss and its gradients, then one AdamW step; functional, like the
-    reference's (new trees are returned, the inputs are not modified)."""
+    reference's (new trees are returned, the inputs are not modified).
+
+    With ``ctx``: ``params`` and ``opt_state`` are trees of DTensors (or
+    plain tensors holding the global value, e.g. ``adamw_init``'s), laid
+    out as ``training_state_specs`` or any other way; ``batch`` is the
+    global batch, the same on every rank. The parameters are gathered to
+    ``param_specs`` (replicated here), each rank takes the loss (its block's
+    mean) and gradients of its block of the batch, which
+    ``adamw_update_sharded`` averages over the batch axes; the returned
+    parameters are laid out as ``param_specs``, the moments as
+    ``adamw_specs``, and the loss is the mean over the ranks."""
     opt_cfg = opt_cfg or AdamWConfig()
+    if ctx is None:
+        def train_step(params: Params, opt_state: Tree, batch: dict):
+            loss, grads = loss_and_grads(model, params, batch)
+            params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)
+            return params, opt_state, loss
 
-    def train_step(params: Params, opt_state: Tree, batch: dict):
-        loss, grads = loss_and_grads(model, params, batch)
-        params, opt_state = adamw_update(params, grads, opt_state, opt_cfg)
-        return params, opt_state, loss
+        return train_step
 
-    return train_step
+    _refuse_model_axis(model, ctx)
+    pspecs = model.param_specs(ctx)
+    zspecs = adamw_specs(pspecs, model.param_template(), ctx)["m"]
+
+    def sharded_train_step(params: Tree, opt_state: Tree, batch: dict):
+        bspecs, dp_axes = _batch_layout(model, ctx, batch, "train")
+        params = tree_map(place, params, pspecs)
+        local = tree_map(lambda p: p.to_local(), params)
+        loss, grads = loss_and_grads(model, local, {k: ctx.local(v, bspecs[k])
+                                                    for k, v in batch.items()}, ctx)
+        if "model" in dp_axes and ctx.n_model > 1:  # the batch is sharded over "model" too
+            grads = tree_map(lambda g: _mean(g, ctx.group(("model",))), grads)
+        params, opt_state = adamw_update_sharded(params, grads, opt_state, opt_cfg, ctx,
+                                                 pspecs, zspecs)
+        return params, opt_state, _mean(loss, ctx.group(dp_axes))
+
+    return sharded_train_step
 
 
-def make_prefill_step(model: LM):
+def make_prefill_step(model: LM, ctx: MeshCtx | None = None):
     """``prefill_step(params, batch) -> (B, V) f32`` logits of the last
     position, on the model's device: the family's stack (attention, MoE,
     SSM, hybrid, encoder-decoder or VLM) over ``batch`` (``tokens`` (B, S);
@@ -54,26 +138,104 @@ def make_prefill_step(model: LM):
     the configuration's dtype, as in ``LM.loss_fn``: bf16 for every
     configuration of the catalog, the reference's cast; a
     ``dtype="float32"`` configuration then serves in f32 throughout (the
-    reference casts it to bf16)."""
+    reference casts it to bf16).
+
+    With ``ctx`` each rank runs its block of the global ``batch`` with the
+    whole weights (DTensors or plain tensors) and the logits are gathered
+    over the batch's axes: every rank returns all B rows."""
     @torch.no_grad()
-    def prefill_step(params: Params, batch: dict) -> torch.Tensor:
+    def local_prefill(params: Params, batch: dict) -> torch.Tensor:
         h, _ = model._forward(params, batch)
         return model._head(params, h[:, -1:, :])[:, 0].float()
+
+    if ctx is None:
+        return local_prefill
+    _refuse_model_axis(model, ctx)
+
+    def prefill_step(params: Params, batch: dict) -> torch.Tensor:
+        bspecs, dp_axes = _batch_layout(model, ctx, batch, "prefill")
+        run = shard_map_compat(local_prefill, mesh=ctx,
+                               in_specs=(tree_map(lambda _: ctx.replicated(), params), bspecs),
+                               out_specs=ctx.ns(dp_axes, None))
+        return run(params, batch).full_tensor()
 
     return prefill_step
 
 
-def make_serve_step(model: LM):
+def make_serve_step(model: LM, ctx: MeshCtx | None = None):
     """``serve_step(params, cache, batch) -> (logits, cache)``: one decode
-    step (``LM.decode_step``; the cache is updated in place)."""
+    step (``LM.decode_step``; the cache is updated in place).
+
+    With ``ctx`` (``n_model == 1``) each rank decodes its block of the batch:
+    ``cache`` is a tree of DTensors laid out as ``LM.cache_specs`` (its
+    local blocks updated in place), ``batch`` the global token (or
+    embedding) and ``cur_len``; the logits are gathered over the batch
+    axes."""
     @torch.no_grad()
     def serve_step(params: Params, cache: dict, batch: dict):
         return model.decode_step(params, cache, batch)
 
-    return serve_step
+    if ctx is None:
+        return serve_step
+    if ctx.n_model != 1:  # the cache's heads shard over "model"
+        raise NotImplementedError(TENSOR_PARALLEL)
+
+    def sharded_serve_step(params: Params, cache: dict, batch: dict):
+        key = "embed" if "embed" in batch else "token"
+        B, S = batch[key].shape[0], cache["k"].shape[2] if "k" in cache else 0
+        if not (B >= ctx.n_batch and B % ctx.n_batch == 0):
+            raise NotImplementedError(SEQUENCE_SHARDING)
+        cspecs = model.cache_specs(B, S, ctx)
+        local = tree_map(lambda p: ctx.local(p, ctx.replicated()), params)
+        blocks = {k: ctx.local(v, cspecs[k]) for k, v in cache.items()}
+        tok = ctx.local(batch[key], ctx.ns(ctx.batch_axes, *([None] * (batch[key].ndim - 1))))
+        logits, _ = serve_step(local, blocks, {key: tok, "cur_len": batch["cur_len"]})
+        mesh = ctx.device_mesh()
+        gathered = DTensor.from_local(logits, mesh, ctx.ns(ctx.batch_axes, None).placements,
+                                      run_check=False).full_tensor()
+        return gathered, cache
+
+    return sharded_serve_step
 
 
 def training_state_shapes(model: LM) -> tuple[dict, dict]:
     """(parameter, optimizer state) trees of (shape, dtype)."""
     ps = model.param_template()
     return ps, adamw_init_shapes(ps)
+
+
+def training_state_specs(model: LM, ctx: MeshCtx) -> tuple[dict, dict]:
+    """(parameter *storage* specs, optimizer specs), the reference's: the
+    parameters stored in the ZeRO (batch-sharded) layout between steps,
+    which the train step gathers to the compute layout."""
+    ospecs = adamw_specs(model.param_specs(ctx), model.param_template(), ctx)
+    return ospecs["m"], ospecs
+
+
+def _refuse_model_axis(model: LM, ctx: MeshCtx) -> None:
+    """A model that is not pure data-parallel runs only where "model" is 1."""
+    if ctx.n_model != 1 and not model.pure_dp:
+        raise NotImplementedError(f"{model.cfg.name} on a mesh with model={ctx.n_model}: "
+                                  f"{TENSOR_PARALLEL}")
+
+
+def _batch_layout(model: LM, ctx: MeshCtx, batch: dict,
+                  kind: str) -> tuple[dict[str, NamedSharding], tuple[str, ...]]:
+    """The global ``batch``'s shardings (``batch_shardings``) and the mesh
+    axes its batch dim is sharded over; raises where the batch does not
+    fill the batch axes (the reference shards the sequence there)."""
+    seq = batch["tokens" if "tokens" in batch else "embeds"]
+    B, S = seq.shape[:2]
+    bspecs = batch_shardings(model.cfg, ShapeConfig("step", S, B, kind), ctx, model)
+    dp_axes = bspecs["tokens" if "tokens" in bspecs else "embeds"].spec[0]
+    if dp_axes is None:
+        raise NotImplementedError(f"a batch of {B} on {ctx.n_batch} batch ranks: "
+                                  f"{SEQUENCE_SHARDING}")
+    return {k: bspecs[k] for k in batch}, tuple(dp_axes)
+
+
+def _mean(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` averaged over ``group`` in f32, in ``x``'s dtype."""
+    out = x.float()
+    dist.all_reduce(out, op=dist.ReduceOp.AVG, group=group)
+    return out.to(x.dtype)

@@ -1,0 +1,182 @@
+"""The reference's sharded train step and prefill, as oracles of the port's
+mesh layer.
+
+``reference_run`` starts one subprocess with ``--xla_force_host_platform_
+device_count`` fake CPU devices, on a mesh made with ``axis_types=(AxisType.
+Auto,) * n`` (jax 0.9's default mesh has Explicit axes, on which the
+reference's ``MeshCtx.constrain`` raises: ROADMAP C), and runs there what
+``tests/test_dryrun_multidevice.py`` runs: ``make_train_step(model, ctx)``
+jitted with the shardings of ``training_state_specs`` and
+``batch_shardings``, from the parameters and batch it is given; and, where
+asked, ``make_prefill_step(model, ctx)`` with the model's attention swapped
+for the reference's ``flash_attention_ref`` (the port's prefill attends with
+the flash kernel: ``tests/test_torch_models.py``), compiled with every bf16
+rounding kept.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+
+from repro_torch.tree import named_leaves
+
+ROOT = Path(__file__).resolve().parents[1]
+B, S, LR = 4, 256, 3e-4  # S > 128: the chunked cross-entropy runs
+LOGIT_ATOL = 4 * 2.0**-6  # tests/test_torch_models.py's serving criterion
+
+_SCRIPT = textwrap.dedent(
+    """
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n}"
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import AxisType
+    import repro.models.layers as jax_layers
+    import repro.models.lm as jax_lm
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeConfig
+    from repro.kernels.flash_attention.ref import flash_attention_ref
+    from repro.models.registry import build_model
+    from repro.models.sharding import MeshCtx
+    from repro.train.optimizer import AdamWConfig, adamw_init
+    from repro.train.steps import (batch_shardings, make_prefill_step, make_train_step,
+                                   training_state_specs)
+
+    # the expert-parallel moe_layer's pmean over every axis fails jax 0.9's
+    # varying-axes check on a mesh whose "model" is 1 (its tokens do not vary
+    # over "model"); unchecked, as the reference's own optimizer runs its
+    # shard_map, the pmean over a 1-long axis is the identity
+    _shard_map = jax_layers.shard_map_compat
+    jax_layers.shard_map_compat = lambda f, **kw: _shard_map(f, check_vma=False, **kw)
+    src = np.load(sys.argv[1])
+    mesh = jax.make_mesh({shape}, {names}, axis_types=(AxisType.Auto,) * {ndim})
+    ctx = MeshCtx(mesh)
+    cfg = get_arch("{arch}").reduced()
+    model = build_model(cfg, max_pos={max_pos})
+    tmpl = model.param_shapes()
+    flat, tree = jax.tree_util.tree_flatten_with_path(tmpl)
+    name = lambda path: ".".join(k.key for k in path)
+    params = jax.tree.unflatten(tree, [jnp.asarray(src["p:" + name(p)], sd.dtype)
+                                       for p, sd in flat])
+    batch = {{k[2:]: src[k] for k in src.files if k.startswith("b:")}}
+    shape = ShapeConfig("t", batch["labels"].shape[1], batch["labels"].shape[0], "train")
+    batch = {{k: jnp.asarray(v, jnp.bfloat16 if v.dtype == np.float32 else v.dtype)
+              for k, v in batch.items()}}
+    pstore, ospecs = training_state_specs(model, ctx)
+    jitted = jax.jit(make_train_step(model, ctx, AdamWConfig(lr={lr})),
+                     in_shardings=(pstore, ospecs, batch_shardings(cfg, shape, ctx)),
+                     out_shardings=(pstore, ospecs, ctx.replicated()))
+    p1, o1, loss = jitted(params, adamw_init(params), batch)
+    out = {{"loss": np.asarray(loss)}}
+    for p, leaf in jax.tree_util.tree_flatten_with_path(p1)[0]:
+        out["p:" + name(p)] = np.asarray(leaf, np.float32)
+    pre = {{k[2:]: src[k] for k in src.files if k.startswith("f:")}}
+    if pre:
+        def attention(q, k, v, *, q_pos, k_pos, causal=True, window=None, ctx=None, **_):
+            G = q.shape[2] // k.shape[2]
+            qh, kh, vh = (x.transpose(0, 2, 1, 3) for x in
+                          (q, jnp.repeat(k, G, axis=2), jnp.repeat(v, G, axis=2)))
+            return flash_attention_ref(qh, kh, vh, causal=causal, window=0).transpose(0, 2, 1, 3)
+        jax_lm.gqa_attention = attention
+        pre = {{k: jnp.asarray(v, jnp.bfloat16 if v.dtype == np.float32 else v.dtype)
+                for k, v in pre.items()}}
+        fn = jax.jit(make_prefill_step(model, ctx))
+        out["logits"] = np.asarray(fn.lower(params, pre).compile(
+            compiler_options={{"xla_allow_excess_precision": False}})(params, pre))
+    np.savez(sys.argv[2], **out)
+    """
+)
+
+
+def reference_run(arch: str, shape: tuple[int, ...], names: tuple[str, ...], params: dict,
+                  batch: dict, workdir: Path, *, max_pos: int, lr: float,
+                  prefill: dict | None = None, timeout: float = 420) -> dict:
+    """The reference's sharded step (and prefill) on an Auto mesh of
+    ``shape``/``names``: ``{"loss", "params": {dotted name: f32 array},
+    "logits"}``. ``params`` (dotted name -> numpy, bf16 as f32) and
+    ``batch``/``prefill`` (numpy; float inputs as f32 of bf16 values) are
+    what both packages are fed."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    src, dst = workdir / "in.npz", workdir / "out.npz"
+    arrays = {**{f"p:{k}": np.asarray(v, np.float32) for k, v in params.items()},
+              **{f"b:{k}": v for k, v in batch.items()},
+              **{f"f:{k}": v for k, v in (prefill or {}).items()}}
+    np.savez(src, **arrays)
+    script = _SCRIPT.format(n=int(np.prod(shape)), shape=tuple(shape), names=tuple(names),
+                            ndim=len(shape), arch=arch, max_pos=max_pos, lr=lr)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", script, str(src), str(dst)], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = np.load(dst)
+    return {"loss": float(got["loss"]),
+            "params": {k[2:]: got[k] for k in got.files if k.startswith("p:")},
+            "logits": got["logits"] if "logits" in got.files else None}
+
+
+class OracleCase:
+    """One arch on one mesh, both packages from the reference's parameters
+    (``init_params(PRNGKey(0))``; whisper's 1-D leaves drawn, as in
+    ``tests/test_torch_train.py``) and its ``make_inputs`` (B x S train
+    batch, seed 1; prefill batch, seed 2): the reference's sharded step and
+    prefill (``reference_run``) and the port's on gloo ranks
+    (``_torch_mesh_ranks``, case ``step``)."""
+
+    def __init__(self, arch: str, shape: tuple[int, ...], names: tuple[str, ...], workdir: Path,
+                 *, B: int, S: int, lr: float):
+        import jax
+
+        from repro.configs import get_arch
+        from repro.configs.base import ShapeConfig
+        from repro.models.lm import LM
+        from repro.models.registry import make_inputs
+        from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
+
+        from _torch_encdec import norm_draw
+        from _torch_mesh_ranks import run_ranks
+
+        cfg = get_arch(arch).reduced()
+        jp = jax.tree.map(np.asarray, LM(cfg, max_pos=S).init_params(jax.random.PRNGKey(0)))
+        if cfg.family == "encdec":
+            rng = np.random.default_rng(1)
+            jp = {k: ({n: v for n, v in sub.items()} if isinstance(sub, dict) else
+                      norm_draw(rng, sub.shape, k.endswith("ln")).astype(sub.dtype)
+                      if sub.ndim == 1 else sub) for k, sub in jp.items()}
+        inputs = [{k: np.asarray(v) for k, v in make_inputs(
+            cfg, ShapeConfig("t", S, B, kind), seed=seed).items() if kind == "train" or
+                   k != "labels"} for kind, seed in (("train", 1), ("prefill", 2))]
+        f32 = lambda d: {k: v.astype(np.float32) if v.dtype.name == "bfloat16" else v  # noqa: E731
+                         for k, v in d.items()}
+        self.cfg = cfg
+        self.ref = reference_run(arch, shape, names, dict(named_leaves(jp)), f32(inputs[0]),
+                                 workdir / "reference", max_pos=S, lr=lr, prefill=f32(inputs[1]))
+        torch_in = [{k: tensor_from_numpy(v) for k, v in d.items()} for d in inputs]
+        self.port = run_ranks("step", int(np.prod(shape)), workdir / "port", dict(
+            arch=arch, shape=shape, names=names, max_pos=S, params=params_from_numpy(jp),
+            batch=torch_in[0], prefill=torch_in[1], lr=lr))
+
+
+def assert_step_meets_reference_bound(case: OracleCase) -> None:
+    """The reference's own bound (``tests/test_dryrun_multidevice.py``):
+    loss within 0.05, every parameter ``allclose(rtol=3e-2, atol=3e-2)``."""
+    got, want = case.port[0], case.ref
+    assert abs(got["loss"] - want["loss"]) < 0.05, (got["loss"], want["loss"])
+    params = dict(named_leaves(got["params"]))
+    assert params.keys() == want["params"].keys()
+    for name, value in params.items():
+        np.testing.assert_allclose(value.float().numpy(), want["params"][name], rtol=3e-2,
+                                   atol=3e-2, err_msg=name)
+
+
+def assert_prefill_meets_serving_criterion(case: OracleCase) -> None:
+    """Every rank's gathered logits within LOGIT_ATOL of the reference's."""
+    for r in case.port:
+        assert r["logits"].shape == (B, case.cfg.vocab)
+        np.testing.assert_allclose(r["logits"].numpy(), case.ref["logits"], rtol=0,
+                                   atol=LOGIT_ATOL)

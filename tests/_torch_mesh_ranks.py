@@ -1,0 +1,252 @@
+"""Runs a case of the port's mesh layer on N gloo ranks (JAX-free, so the
+card's machine runs it too).
+
+The parent (``run_ranks``) writes the case's arguments to ``args.pt`` in a
+fresh directory, starts N processes of this file (``python
+_torch_mesh_ranks.py <case> <rank> <world> <dir>``), each with one thread,
+which meet through a ``file://`` rendezvous in that directory (no port to
+collide under pytest-xdist), and waits for them with a timeout. Each rank
+returns a dict from its case, saved to ``rank<r>.pt``; ``run_ranks``
+returns them in rank order.
+"""
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+TIMEOUT_S = 420  # the reference's own multi-device test allows its subprocess as much
+
+
+def run_ranks(case: str, world: int, workdir: Path, args: dict,
+              timeout: float = TIMEOUT_S) -> list[dict]:
+    """Run ``case`` on ``world`` gloo ranks with ``args``; each rank's result.
+    A rank that fails ends the others (they would wait in a collective)."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    torch.save(args, workdir / "args.pt")
+    (workdir / "rendezvous").unlink(missing_ok=True)  # a stale file store hangs the ranks
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    logs = [open(workdir / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, __file__, case, str(r), str(world), str(workdir)],
+                              env=env, stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            failed = any(p.poll() not in (None, 0) for p in procs)
+            if failed or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    bad = [(r, p.returncode, (workdir / f"rank{r}.log").read_text()[-3000:])
+           for r, p in enumerate(procs) if p.returncode != 0]
+    assert not bad, bad
+    return [torch.load(workdir / f"rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+# ------------------------------------------------------------------ the ranks
+def _ctx(shape: tuple[int, ...], names: tuple[str, ...]):
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.models.sharding import MeshCtx
+
+    return MeshCtx(init_device_mesh("cpu", tuple(shape), mesh_dim_names=tuple(names)))
+
+
+def _whole(tree):
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
+
+
+def _layout(tree, specs) -> dict:
+    """The DTensor leaves laid out otherwise than their specs say: name ->
+    (placements, the spec's placements)."""
+    from repro_torch.tree import named_leaves
+
+    want = dict(named_leaves(specs))
+    return {n: (x.placements, want[n].placements) for n, x in named_leaves(tree)
+            if tuple(x.placements) != tuple(want[n].placements)}
+
+
+def case_step(args: dict) -> dict:
+    """One sharded train step from ``args["params"]`` (stored in the ZeRO
+    layout of ``training_state_specs``, as the reference's test stores
+    them), and the sharded prefill of ``args["prefill"]``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import (
+        make_prefill_step,
+        make_train_step,
+        training_state_specs,
+    )
+
+    ctx = _ctx(args["shape"], args["names"])
+    model = build_model(get_arch(args["arch"]).reduced(), max_pos=args["max_pos"], device="cpu")
+    pstore, ospecs = training_state_specs(model, ctx)
+    params = reshard_state(args["params"], pstore)
+    opt = reshard_state(adamw_init(args["params"]), ospecs)
+    step = make_train_step(model, ctx, AdamWConfig(lr=args["lr"]))
+    p1, o1, loss = step(params, opt, args["batch"])
+    out = {"loss": float(loss), "params": _whole(p1), "opt": _whole(o1),
+           "misplaced": {**_layout(p1, model.param_specs(ctx)), **_layout(o1["m"], ospecs["m"])}}
+    out["logits"] = make_prefill_step(model, ctx)(args["params"], args["prefill"])
+    return out
+
+
+def case_adamw(args: dict) -> dict:
+    """``adamw_update_sharded`` with the same whole gradients on every rank,
+    three steps, and ``adamw_update``'s on this rank alone."""
+    from repro_torch.train.optimizer import (
+        AdamWConfig,
+        adamw_init,
+        adamw_specs,
+        adamw_update,
+        adamw_update_sharded,
+    )
+    from repro_torch.tree import tree_map
+
+    ctx = _ctx(args["shape"], args["names"])
+    template = tree_map(lambda t: (tuple(t.shape), t.dtype), args["params"])
+    pspecs = tree_map(lambda _: ctx.replicated(), template)
+    zspecs = adamw_specs(pspecs, template, ctx)["m"]
+    cfg = AdamWConfig(**args["cfg"])
+    p, st = args["params"], adamw_init(args["params"])
+    ps, sts = p, st
+    for g in args["grads"]:
+        p, st = adamw_update(p, g, st, cfg)
+        ps, sts = adamw_update_sharded(ps, g, sts, cfg, ctx, pspecs, zspecs)
+    return {"plain": (p, st), "sharded": (_whole(ps), _whole(sts)),
+            "local_m": tree_map(lambda x: x.to_local(), sts["m"]),
+            "zspecs": tree_map(lambda s: s.spec, zspecs),
+            "coord": dict(zip(ctx.axis_names, ctx.device_mesh().get_coordinate()))}
+
+
+def case_elastic(args: dict) -> dict:
+    """A train step on the old mesh, ``elastic_resize`` through rank 0's
+    store, the restored state placed on the new mesh, a further step there."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.checkpoint import ECCheckpointStore
+    from repro_torch.train.elastic import elastic_resize, reshard_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step, training_state_specs
+    from repro_torch.tree import tree_map
+
+    model = build_model(get_arch(args["arch"]).reduced(), max_pos=args["max_pos"], device="cpu")
+    old, new = _ctx(*args["old"]), _ctx(*args["new"])
+    cfg = AdamWConfig(lr=args["lr"])
+    pstore, ospecs = training_state_specs(model, old)
+    params = reshard_state(args["params"], pstore)
+    opt = reshard_state(adamw_init(args["params"]), ospecs)
+    params, opt, loss = make_train_step(model, old, cfg)(params, opt, args["batch"])
+    saved = _whole({"params": params, "opt": opt})
+    store = None
+    if torch.distributed.get_rank() == 0:
+        store = ECCheckpointStore(n_hosts=args["hosts"], parity=args["parity"], seed=0,
+                                  device="cpu")
+    step, state, moved = elastic_resize(store, {"params": params, "opt": opt}, 1,
+                                        new_hosts=args["new_hosts"], new_parity=args["new_parity"])
+    pstore2, ospecs2 = training_state_specs(model, new)
+    placed = reshard_state(state, {"params": model.param_specs(new), "opt": ospecs2})
+    step_new = make_train_step(model, new, cfg)
+    p2, o2, loss2 = step_new(placed["params"], placed["opt"], args["batch2"])
+    # the same step from the state before the save, placed without the store
+    direct = reshard_state(saved, {"params": model.param_specs(new), "opt": ospecs2})
+    p3, o3, loss3 = step_new(direct["params"], direct["opt"], args["batch2"])
+    return {"saved": saved, "step": step, "moved": moved,
+            "local": tree_map(lambda x: x.to_local().clone(), placed),
+            "specs": {"params": tree_map(lambda s: s.spec, model.param_specs(new)),
+                      "opt": tree_map(lambda s: s.spec, ospecs2)},
+            "index": new.index(new.batch_axes), "loss": float(loss), "loss2": float(loss2),
+            "after": _whole({"params": p2, "opt": o2}), "loss3": float(loss3),
+            "after_direct": _whole({"params": p3, "opt": o3})}
+
+
+def case_host(args: dict) -> dict:
+    """On one rank: ``make_host_mesh("cpu")``, the production meshes'
+    refusal of a group of 1, and a sharded train step, prefill and decode
+    on the host mesh."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import MeshCtx
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_prefill_step, make_serve_step, make_train_step
+
+    errors = []
+    for kw in ({}, {"multi_pod": True}):
+        try:
+            make_production_mesh(device="cpu", **kw)
+        except ValueError as e:
+            errors.append(str(e))
+    ctx = MeshCtx(make_host_mesh("cpu"))
+    model = build_model(get_arch(args["arch"]).reduced(), max_pos=args["max_pos"], device="cpu")
+    p1, o1, loss = make_train_step(model, ctx, AdamWConfig(lr=args["lr"]))(
+        args["params"], adamw_init(args["params"]), args["batch"])
+    return {"errors": errors, "shape": ctx.shape, "loss": float(loss), "params": _whole(p1),
+            "opt": _whole(o1),
+            "logits": make_prefill_step(model, ctx)(args["params"], args["prefill"]),
+            "decode": _decode(model, make_serve_step(model, ctx), args, ctx)}
+
+
+def case_serve(args: dict) -> dict:
+    """Decode steps of the batch's tokens with the cache sharded over the
+    batch axes (``cache_specs``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_serve_step
+
+    ctx = _ctx(args["shape"], args["names"])
+    model = build_model(get_arch(args["arch"]).reduced(), max_pos=args["max_pos"], device="cpu")
+    return {"decode": _decode(model, make_serve_step(model, ctx), args, ctx)}
+
+
+def _decode(model, serve_step, args: dict, ctx) -> list:
+    """The logits of ``args["steps"]`` decode steps from a zero cache, the
+    tokens ``args["tokens"][:, i]``."""
+    from repro_torch.train.elastic import reshard_state
+
+    tokens = args["tokens"]
+    B = tokens.shape[0]
+    cache = reshard_state(model.init_cache(B, args["cache_len"]),
+                          model.cache_specs(B, args["cache_len"], ctx))
+    out = []
+    for i in range(args["steps"]):
+        logits, cache = serve_step(args["params"], cache, {"token": tokens[:, i], "cur_len": i})
+        out.append(logits)
+    return out
+
+
+def main() -> int:
+    import torch.distributed as dist
+
+    case, rank, world, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{workdir / 'rendezvous'}", rank=rank,
+                            world_size=world)
+    try:
+        out = globals()[f"case_{case}"](torch.load(workdir / "args.pt", weights_only=False))
+        torch.save(out, workdir / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

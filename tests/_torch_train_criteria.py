@@ -15,8 +15,9 @@ Where a step is ill-conditioned (reduced zamba2's sharp shared attention:
 a bf16 rounding flipped anywhere moves its gradients by tens of percent),
 two correct computations cannot meet these criteria. ``ssd_nudged`` makes
 a third one on one device, with every SSD output moved by one f32 ulp,
-which shows whether the criteria can hold there; ``hold_step`` is the one
-policy that decides, from it, whether and how a step is held.
+which shows whether the criteria can hold there (``norm_nudged``, every
+RMS norm's output, does so for a model without an SSD); ``hold_step`` is
+the one policy that decides, from it, whether and how a step is held.
 """
 import contextlib
 
@@ -169,7 +170,7 @@ def hold_step(got: dict, grads: dict | None = None, nudged: list = (),
                    max(f["v"] for f in floor.values()) / V_RTOL]
                   + [e / GRAD_RTOL for e in gfloor.values()])
         if far > NUDGE_CAP:
-            return False, (f"ill-conditioned, not held (a one-ulp SSD nudge moves the step "
+            return False, (f"ill-conditioned, not held (a one-ulp nudge moves the step "
                            f"{far:.2f} tolerances, past the cap of {NUDGE_CAP})"), []
         verdict = (f"held, widened by the nudge's distance (ill-conditioned: {far:.2f} "
                    f"tolerances, within the cap of {NUDGE_CAP})")
@@ -204,3 +205,27 @@ def ssd_nudged(to: float):
         yield
     finally:
         ssd._ssd_chunked = real
+
+
+@contextlib.contextmanager
+def norm_nudged(to: float):
+    """While active, every RMS norm of the port's LM (``models.lm.rms_norm``)
+    moves its f32 output one f32 ulp toward ``to`` before rounding it to its
+    input's dtype; the gradient passes through unchanged. That flips the few
+    bf16 roundings of the norms' outputs that lie within an f32 ulp of a
+    rounding boundary, as another correct order of their f32 sums does: the
+    counterpart of ``ssd_nudged`` for the models without an SSD."""
+    from repro_torch.models import lm
+
+    real = lm.rms_norm
+
+    def nudged(x, w, eps=1e-6):
+        y = real(x.float(), w, eps)
+        ys = y.detach()
+        return (y + (torch.nextafter(ys, torch.full_like(ys, to)) - ys)).to(x.dtype)
+
+    lm.rms_norm = nudged
+    try:
+        yield
+    finally:
+        lm.rms_norm = real

@@ -732,3 +732,47 @@ def test_mamba2_decode_step_on_the_card_matches_the_cpu(cuda):
     want = side["cpu"][1]
     torch.testing.assert_close(side["cuda"][1].cpu(), want, rtol=0,
                                atol=SSM_BF16_ULPS * _bf16_ulp(want))
+
+
+@pytest.mark.cuda
+def test_sharded_prefill_on_a_one_rank_nccl_mesh(cuda):
+    """qwen2-0.5b at full width, 2 layers: ``make_prefill_step(model, ctx)``
+    on ``make_host_mesh("cuda")`` (an NCCL group of one rank) equals the
+    unsharded prefill bit for bit, with one flash launch per layer, and a
+    sharded train step's loss equals the unsharded step's within 2e-2 (the
+    chunked cross-entropy sums in another order)."""
+    import dataclasses
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import MeshCtx
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.steps import make_prefill_step, make_train_step
+
+    cfg = dataclasses.replace(get_arch("qwen2_0_5b"), n_layers=2)
+    model = build_model(cfg, max_pos=256, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 256), dtype=np.int32)).to(cuda)
+             for k in ("tokens", "labels")}
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0, world_size=1)
+    try:
+        ctx = MeshCtx(make_host_mesh("cuda"))
+        assert ctx.shape == {"data": 1, "model": 1}
+        before = fa_ops.launches
+        got = make_prefill_step(model, ctx)(params, {"tokens": batch["tokens"]})
+        assert fa_ops.launches - before == cfg.n_layers
+        assert torch.equal(got, make_prefill_step(model)(params, {"tokens": batch["tokens"]}))
+        _, _, loss = make_train_step(model, ctx)(params, adamw_init(params), batch)
+        _, _, want = make_train_step(model)(params, adamw_init(params), batch)
+        assert abs(float(loss) - float(want)) <= 2e-2
+    finally:
+        dist.destroy_process_group()

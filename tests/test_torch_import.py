@@ -27,7 +27,9 @@ import repro_torch
 names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for name in ("repro_torch.analysis", "repro_torch.core.gateway", "repro_torch.core.workload",
              "repro_torch.train.checkpoint", "repro_torch.train.optimizer",
-             "repro_torch.train.compress", "repro_torch.launch.train"):
+             "repro_torch.train.compress", "repro_torch.launch.train",
+             "repro_torch.models.sharding", "repro_torch.launch.mesh",
+             "repro_torch.train.elastic"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -43,7 +45,7 @@ def test_port_imports_without_jax_or_repro():
     out = subprocess.run([sys.executable, "-c", SCRIPT], env=env, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 71  # every module of slices 1, 2, 5 and 6
+    assert int(out.stdout.strip()) >= 74  # every module of slices 1, 2, 5, 6 and 11
 
 
 def test_port_sources_never_name_jax_or_import_repro():

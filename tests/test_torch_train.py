@@ -440,7 +440,8 @@ def test_hybrid_training_attention_does_not_see_the_future(monkeypatch):
         vocab=model.cfg.vocab, seq_len=S, global_batch=B)).next_batch().items()}
     real_ce = lm.LM._cross_entropy
     monkeypatch.setattr(lm.LM, "_cross_entropy",
-                        lambda self, p, h, labels: real_ce(self, p, h[:, :-1], labels[:, :-1]))
+                        lambda self, p, h, labels, ctx=None: real_ce(self, p, h[:, :-1],
+                                                                      labels[:, :-1], ctx))
     seen = []
     for last in (0, 1):
         tokens = batch["tokens"].clone()
@@ -657,7 +658,7 @@ def test_train_loop_reduces_loss(arch):
     data = SyntheticLM(DataConfig(vocab=model.cfg.vocab, seq_len=64, global_batch=4, seed=0))
     params = model.init_params(torch.Generator().manual_seed(0))
     opt = adamw_init(params)
-    step = make_train_step(model, AdamWConfig(lr=2e-3))
+    step = make_train_step(model, None, AdamWConfig(lr=2e-3))
     losses = []
     for _ in range(12):
         batch = {k: torch.from_numpy(v) for k, v in data.next_batch().items()}
@@ -787,7 +788,7 @@ def test_embedding_families_train_through_make_train_step(arch):
     batches = [make_inputs(model.cfg, shape, seed=i, device="cpu") for i in range(2)]
     params = model.init_params(torch.Generator().manual_seed(0))
     opt = adamw_init(params)
-    step = make_train_step(model, AdamWConfig(lr=2e-3))
+    step = make_train_step(model, None, AdamWConfig(lr=2e-3))
     losses = []
     for i in range(12):
         params, opt, loss = step(params, opt, batches[i % 2])
