@@ -175,6 +175,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
    shapes) and a step from the restored state bit for bit the same step
    from the state before the save.
 
+9. tensor and expert parallelism over "model": the flash kernel against
+   its plain version, and timed beside SDPA, at one rank's shapes of a
+   (data=1, model=2) mesh ((4, 7, 2048, 64) on one KV head, (4, 8, 2048,
+   128)); then two processes of this script (``--tp-rank``), sharing the
+   card over gloo on ``make_shared_card_mesh((1, 2))`` (NCCL refuses two
+   ranks on one GPU: their times are two ranks time-sharing one card). For
+   qwen2-0.5b, olmoe-1b-7b and mamba2-2.7b at full width and depth (weights
+   drawn on the card from the seed, each rank keeping its blocks): a
+   warm-up and a counted sharded prefill of 4 x 2048 tokens (flash counted
+   from 0 on each rank; collectives by kind; olmoe's expert-parallel drops
+   in its first and last layer), 32 greedy sharded decode steps against a
+   2048-long cache; on rank 0 both against the unsharded ones on the card,
+   held where the unsharded run meets the criterion against itself
+   rounded as the ranks round (``tp_rounding``) and printed where it does
+   not (ill-conditioned), and equal bit for bit to that rounded run where
+   ``TP_EXACT`` says (qwen2-0.5b, olmoe-1b-7b's decode); olmoe's
+   expert-parallel prefill against the unsharded prefill with that branch
+   emulated (``ep_emulated``), its decode compared where the routes agree;
+   training at full width, the depth ``TP_TRAIN_DEPTHS`` (``reduced:``
+   lines, each with its reason): a warm-up and 3 timed steps (tokens/s,
+   peak memory on each rank, collectives a step); qwen2-0.5b's one
+   full-width f32 layer, sharded against unsharded, held (``mesh_hold``);
+   and for each arch at full width, 2 layers, the sharded prefill and 4
+   decode steps against the unsharded ones in bf16 (held as at full depth)
+   and in f32 (within 1e-4 of the largest |logit| where the rounded
+   unsharded run is, and mamba2's decode again with its conv window in
+   f32, held: the sharded math's witness). A rank that fails fails the
+   run.
+
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -2947,11 +2976,10 @@ def _free_port() -> int:
 
 def _whole(tree):
     """A tree of DTensors gathered whole (plain leaves as they are)."""
-    from torch.distributed.tensor import DTensor
-
+    from repro_torch.models.sharding import whole
     from repro_torch.tree import tree_map
 
-    return tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor) else x, tree)
+    return tree_map(whole, tree)
 
 
 def drive_mesh(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> dict:
@@ -2976,7 +3004,8 @@ def drive_mesh(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -
         dist.destroy_process_group()
 
 
-def mesh_hold(ctx, cfg, batch: dict, seed: int, tag: str) -> tuple[bool, str, dict]:
+def mesh_hold(ctx, cfg, batch: dict, seed: int, tag: str,
+              pure_dp: bool | None = None) -> tuple[bool, str, dict]:
     """Step 1 of the sharded ``make_train_step(model, ctx)`` (parameters
     stored in the ZeRO layout of ``training_state_specs``; the chunked
     cross-entropy) against the unsharded step from the same weights (drawn
@@ -2984,7 +3013,8 @@ def mesh_hold(ctx, cfg, batch: dict, seed: int, tag: str) -> tuple[bool, str, di
     the unsharded step's own distance under a one-ulp nudge of every RMS
     norm (``norm_nudged``). Prints the distances; raises where a held step
     misses a criterion, or the loss differs by more than LOSS_ATOL. Returns
-    (held, verdict, the sharded step's ``step_metrics``)."""
+    (held, verdict, the sharded step's ``step_metrics``). ``pure_dp``
+    overrides the model's (``LM.pure_dp``)."""
     import _torch_train_criteria as crit
 
     from repro_torch.models.registry import build_model
@@ -2993,6 +3023,8 @@ def mesh_hold(ctx, cfg, batch: dict, seed: int, tag: str) -> tuple[bool, str, di
     from repro_torch.train.steps import make_train_step, training_state_specs
 
     model = build_model(cfg, max_pos=TRAIN_S, device="cuda")
+    if pure_dp is not None:
+        model.pure_dp = pure_dp
     params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
     opt_cfg = AdamWConfig(lr=TRAIN_LR)
     plain = make_train_step(model, None, opt_cfg)
@@ -3313,16 +3345,646 @@ def mesh_whisper(ctx, seed: int, card: str, out_dir: Path, totals: dict, worst: 
             "restore_gb_s": gb / timings["restore"][0]}
 
 
+# ---------------------------------------------------------------- phase 9
+# tensor and expert parallelism over "model" on the (data=1, model=2) mesh of
+# the reference's own slice, as two processes that share the one card over
+# gloo (make_shared_card_mesh: NCCL refuses two ranks on one GPU). Their
+# times are two ranks time-sharing one card, not tensor-parallel scaling.
+TP_MESH = (1, 2)
+TP_ARCHS = ("qwen2_0_5b", "olmoe_1b_7b", "mamba2_2_7b")
+TP_DECODE_STEPS, TP_TRAIN_STEPS, TP_CACHE = 32, 3, 2048
+# training depth on the two ranks, and why it is cut (a reduced: line each).
+# Memory would allow olmoe 5 layers (34.0 GB a rank, 38.6 reserved) and
+# mamba2 44 (30.6 GB a rank, 36.2 reserved) on an H100, but with them the
+# whole script ran 1240.8 s of its 1200 s on a slow host (phase 9 329.1 s):
+# olmoe took 8.5 s a step there and mamba2 0.51 s a layer a step
+TP_TRAIN_DEPTHS = {"qwen2_0_5b": 24, "olmoe_1b_7b": 4, "mamba2_2_7b": 8}
+TP_TRAIN_CUTS = {
+    "olmoe_1b_7b": "the script's 1200 s: on a slow host a 5-layer step took 8.5 s and the script "
+                   "1240.8 s; memory would allow 5 layers",
+    "mamba2_2_7b": "the script's 1200 s: on a slow host a step took 0.51 s a layer, 22.2 s at 44 "
+                   "layers, and the script 1240.8 s; memory would allow 44 layers",
+}
+TP_RANK_TIMEOUT = 540
+# the f32 witness of the sharded serving math at full width (``tp_shallow``):
+# the ranks' partial sums add the row-parallel products in another order,
+# which moves f32 logits by ~1e-6 of their largest; a wrong head, channel,
+# expert or vocab block moves them by far more. A check is held where the
+# unsharded run rounded as the ranks round (``tp_rounding``) meets it too.
+# The reference keeps the Mamba2 conv window in bf16 even in an f32 model:
+# where an input sits at a bf16 rounding boundary, ~1e-7 moves it by a bf16
+# ulp, which the next decode steps carry to ~1e-4 of the logits, and the
+# ranks' in-projections (other shapes, so other cuBLAS kernels) move it as
+# ``tp_rounding`` does not. So those steps are printed with the window's
+# flips counted, and the SSM decode is held again with its window in f32
+TP_SHALLOW_LAYERS, TP_SHALLOW_STEPS, TP_WITNESS_RTOL = 2, 4, 1e-4
+# what the sharded bf16 serving equals bit for bit: the unsharded run under
+# ``tp_rounding`` (each row-parallel product as the ranks' rounded partial
+# sums). Not mamba2, whose conv, SSD and norm sums also run on other shapes,
+# and not the MoE prefill, whose emulated exchange (``ep_emulated``) runs the
+# expert products on other shapes
+TP_EXACT = {"qwen2_0_5b": ("prefill", "decode"), "olmoe_1b_7b": ("decode",)}
+# one rank's flash shapes at model=2: qwen2-0.5b's 7 heads on its one KV head
+# (GQA 7 at hd 64), olmoe-1b-7b's 8 heads on 8 KV heads at hd 128
+TP_FLASH_CASES = (
+    ("qwen2 model=2 rank", PREFILL_B, 7, 1, PREFILL_S, PREFILL_S, 64, True, 0, torch.bfloat16,
+     1.0),
+    ("olmoe model=2 rank", PREFILL_B, 8, 8, PREFILL_S, PREFILL_S, 128, True, 0, torch.bfloat16,
+     1.0),
+)
+
+
+def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> dict:
+    """Phase 9: the flash kernel against its plain version at one rank's
+    shapes, and timed there; then the two ranks (this script with
+    ``--tp-rank``), which meet through a ``file://`` rendezvous in a fresh
+    directory. A rank that fails, or outlasts TP_RANK_TIMEOUT, ends the
+    other and fails the run; rank 1's output is printed where it fails.
+    Adds each rank's counted flash launches to ``totals``."""
+    import shutil
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    rng = np.random.default_rng(seed + 9)
+    for case in TP_FLASH_CASES:
+        label, B, H, Hkv, Sq, Sk, hd, causal, window, dtype, _ = case
+        q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
+                   for s in ((B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
+        err = float((got.float() - flash_attention_ref(q, k, v, causal=causal).float()).abs().max())
+        if not err <= FLASH_TOL[dtype] or not torch.isfinite(got).all():
+            raise AssertionError(f"flash_attention {label}: max |err| {err} > {FLASH_TOL[dtype]}")
+        log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} bf16 causal: "
+            f"max |err| {err:.3e} (tolerance {FLASH_TOL[dtype]})")
+        worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
+        del q, k, v, got
+        time_flash(case, rng, card)
+    torch.cuda.empty_cache()
+
+    work = out_dir / "tp_ranks"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    world = int(np.prod(TP_MESH))
+    logs = [None] + [open(work / f"rank{r}.log", "w") for r in range(1, world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
+                               "--tp-rank", str(r), "--tp-dir", str(work)],
+                              stdout=logs[r], stderr=subprocess.STDOUT if logs[r] else None)
+             for r in range(world)]
+    deadline = time.monotonic() + TP_RANK_TIMEOUT
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs[1:]:
+            f.close()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in range(1, world):
+            log(f"tp rank {r} output (last 6000 bytes):\n"
+                + (work / f"rank{r}.log").read_text()[-6000:])
+        raise AssertionError(f"phase 9: ranks {bad} failed (rank, exit code)")
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
+    for arch in TP_ARCHS:
+        launches = [r[arch]["flash_launches"] for r in ranks]
+        totals["flash_attention"] = totals.get("flash_attention", 0) + sum(launches)
+        r0 = ranks[0][arch]
+        log(f"tp {arch}: flash_attention launches in the counted sharded prefill, by rank: "
+            f"{launches}; peak device memory by rank, serving {[r[arch]['peak'] for r in ranks]}"
+            f", training at {r0['train_depth']} layers {[r[arch]['train_peak'] for r in ranks]} "
+            f"bytes; rank 0's collectives by kind: the prefill {r0['counts']['prefill']}, a "
+            f"decode step {r0['counts']['decode']}, a train step {r0['train_counts']}, none "
+            f"staged through host buffers; prefill "
+            f"{r0['prefill_tokens_per_s']:.1f}, decode {r0['decode_tokens_per_s']:.1f}, train "
+            f"{r0['train_tokens_per_s']:.1f} tokens/s on two ranks sharing the card ({card})")
+        if "drops" in ranks[0][arch]:
+            for layer in ranks[0][arch]["drops"]:
+                dropped = sum(r[arch]["drops"][layer][0] for r in ranks)
+                routed = sum(r[arch]["drops"][layer][1] for r in ranks)
+                log(f"tp {arch}: expert-parallel prefill layer {layer}: {dropped} of {routed} "
+                    f"assignments dropped ({100 * dropped / routed:.3f} %; by rank "
+                    f"{[r[arch]['drops'][layer][0] for r in ranks]})")
+    return ranks[0]
+
+
+def tp_rank_main(rank: int, work: Path, seed: int) -> int:
+    """One rank of phase 9: the gloo group, ``make_shared_card_mesh``, then
+    each arch's serving (``tp_serve``) and training (``tp_train``); the
+    results to ``work/rank<r>.json``. Rank 0 also runs the unsharded
+    counterparts on the card (rank 1 waits in its next collective)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_shared_card_mesh
+    from repro_torch.models.sharding import MeshCtx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    world = int(np.prod(TP_MESH))
+    dist.init_process_group("gloo", init_method=f"file://{work / 'rendezvous'}", rank=rank,
+                            world_size=world)
+    try:
+        card = card_line()
+        t0 = time.perf_counter()
+        ctx = MeshCtx(make_shared_card_mesh(TP_MESH))
+        log(f"tp: {ctx.shape} over a {dist.get_backend()} group of {world} processes on one card "
+            f"(CUDA tensors straight through gloo, nothing staged), rank {rank} ({card})")
+        out = {}
+        for arch in TP_ARCHS:
+            out[arch] = {**tp_serve(ctx, arch, seed, card, rank),
+                         **tp_train(ctx, arch, seed, card, rank)}
+            tp_shallow(ctx, arch, seed, card, rank)
+            log(f"tp {arch}: {time.perf_counter() - t0:.3f} s into the ranks' work ({card})")
+        (work / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _placed(params: dict, specs: dict, ctx) -> dict:
+    """``params`` as DTensors laid out as ``specs``, each rank's block its own
+    copy (the global tensors can then be freed)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+
+    mesh = ctx.device_mesh()
+    return tree_map(lambda p, s: DTensor.from_local(ctx.local(p, s).clone(), mesh, s.placements,
+                                                    run_check=False), params, specs)
+
+
+def _local_zeros(template: dict, specs: dict, ctx) -> dict:
+    """f32 zeros of each leaf's block under its spec, as DTensors (AdamW's
+    moments, never whole on a rank)."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.tree import tree_map
+
+    mesh = ctx.device_mesh()
+
+    def zeros(sd, s):
+        shape = list(sd[0])
+        for dim, entry in enumerate(s.spec):
+            axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+            shape[dim] //= math.prod(ctx.shape[a] for a in axes)
+        return DTensor.from_local(torch.zeros(shape, dtype=torch.float32, device="cuda"), mesh,
+                                  s.placements, run_check=False)
+
+    return tree_map(zeros, template, specs)
+
+
+def _logits_close(got: torch.Tensor, want: torch.Tensor) -> tuple[bool, float, float]:
+    """(within CHECK_LOGIT_ULPS bf16 ulps of want's largest |logit|, the
+    max |diff|, the tolerance)."""
+    from _torch_moe_criteria import bf16_ulp
+
+    tol = CHECK_LOGIT_ULPS * float(bf16_ulp(float(want.abs().max())))
+    err = float((got - want).abs().max())
+    return err <= tol and bool(torch.isfinite(got).all()), err, tol
+
+
+def tp_judge(tag: str, err: float, self_err: float, tol: float,
+             rounded: float | None = None, exact: bool = False) -> bool:
+    """A sharded-against-unsharded distance ``err`` held to ``tol`` where the
+    unsharded run meets ``tol`` against itself under
+    ``_torch_train_criteria.tp_rounding``
+    (``self_err``; a miss then fails the run), printed where it does not
+    (ill-conditioned). ``rounded`` is the sharded run's own distance from
+    the rounded unsharded run: with ``exact`` it must be 0 (TP_EXACT),
+    else it is printed. Returns whether ``err`` was held."""
+    held = self_err <= tol
+    if held and not err <= tol:
+        raise AssertionError(f"{tag}: {err} > {tol}")
+    if exact and not rounded == 0:
+        raise AssertionError(f"{tag}: the sharded run is {rounded} from the unsharded run rounded "
+                             f"as the ranks round, not equal to it")
+    log(f"{tag}: {err:.3e}, the unsharded run against itself rounded as the ranks round "
+        f"{self_err:.3e} (tolerance {tol:.3e}"
+        + (f"; the sharded run against the rounded one {rounded:.3e}"
+           + (", held equal" if exact else "") if rounded is not None else "") + "); "
+        + ("held" if held else "NOT held: ill-conditioned, the unsharded run misses it under "
+           "the ranks' rounding too (the f32 check holds the sharded math)"))
+    return held
+
+
+def tp_decode_judge(tag: str, seen: list, want: list, jit: list, routes: tuple | None,
+                    exact: bool = False) -> bool:
+    """Decode steps' logits of the sharded run (``seen``) and of the
+    unsharded run under ``tp_rounding`` (``jit``) against the unsharded
+    run's (``want``),
+    each step's max |diff| in tolerances (CHECK_LOGIT_ULPS bf16 ulps of its
+    largest |logit|) and the share of greedy tokens that differ, each held
+    by ``tp_judge`` (``exact``: every step's logits equal ``jit``'s). For the
+    MoE family ``routes`` holds the three runs'
+    ``RouteLog`` calls: a (step, row) pair is compared only while its
+    routes have equalled the unsharded run's in every layer, at that step
+    and before (a run left with no pair is as far as it can be). Returns
+    whether both were held."""
+    steps, B = len(want), want[0].shape[0]
+    tols = [_logits_close(s, w)[2] for s, w in zip(seen, want)]
+
+    def rows(calls) -> list:
+        if routes is None:
+            return [list(range(B))] * steps
+        L, ok, out = len(calls) // steps, np.ones(B, bool), []
+        for i in range(steps):
+            for a, b in zip(calls[i * L:(i + 1) * L], routes[1][i * L:(i + 1) * L]):
+                ok &= (a["routed"] == b["routed"]).all(-1)
+            out.append(list(np.flatnonzero(ok)))
+        return out
+
+    def ratio(xs, kept) -> float:
+        return max([float((x[r] - w[r]).abs().max()) / t
+                    for x, w, t, r in zip(xs, want, tols, kept) if r], default=math.inf)
+
+    def differ(xs, kept) -> float:
+        n = sum(len(r) for r in kept)
+        same = sum(int((x[r].argmax(-1) == w[r].argmax(-1)).sum())
+                   for x, w, r in zip(xs, want, kept) if r)
+        return 1 - same / n if n else math.inf
+
+    kept = rows(routes[0] if routes else None)
+    jkept = rows(routes[2] if routes else None)
+    if routes is not None:
+        tag += (f"; {B * steps - sum(map(len, kept))} of {B * steps} (step, row) pairs left "
+                f"out from a route that differs, at that step or before, in any layer; under "
+                f"the ranks' rounding {B * steps - sum(map(len, jkept))}")
+    held = tp_judge(f"{tag}), the worst step's max |diff| in tolerances "
+                    f"({CHECK_LOGIT_ULPS} bf16 ulps of its largest |logit|)",
+                    ratio(seen, kept), ratio(jit, jkept), 1.0,
+                    max(float((s - j).abs().max()) for s, j in zip(seen, jit)), exact)
+    return tp_judge(f"{tag}), the share of greedy tokens that differ", differ(seen, kept),
+                    differ(jit, jkept), 1 - SMALL_ARGMAX_SHARE) and held
+
+
+def tp_serve(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
+    """``arch`` at full width and depth on the mesh (weights drawn on the
+    card from ``seed``, the same on both ranks, each keeping its blocks):
+    a warm-up and a counted sharded prefill of PREFILL_B x PREFILL_S tokens
+    (flash counted from 0; collectives by kind; for the MoE family each
+    rank's drops in its first and last layer), then TP_DECODE_STEPS greedy
+    sharded decode steps against a TP_CACHE-long cache from zero. Rank 0
+    holds them against the unsharded prefill and decode (teacher-forced on
+    the sharded tokens) on the card: the logits within CHECK_LOGIT_ULPS
+    bf16 ulps of the largest |logit|, the decode's greedy tokens at
+    SMALL_ARGMAX_SHARE of all positions, each held by ``tp_judge`` (and
+    equal to the unsharded run under ``tp_rounding`` where TP_EXACT says).
+    The MoE family's expert-parallel prefill routes each rank's tokens with
+    a capacity from them, through the reference's exchange (ROADMAP C): its
+    unsharded counterpart runs that branch emulated (``ep_emulated``); its
+    decode routes whole."""
+    import contextlib
+    import gc
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_moe_criteria as mc
+    import _torch_train_criteria as crit
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = get_arch(arch)
+    model = build_model(cfg, max_pos=TP_CACHE, device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    placed = _placed(params, model.param_specs(ctx), ctx)
+    if rank != 0:
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
+    prefill = make_prefill_step(model, ctx)
+    prefill(placed, {"tokens": tokens})  # warm-up
+    torch.cuda.synchronize()
+    fa.launches = 0
+    ctx.counts.clear()
+    t = time.perf_counter()
+    logits = prefill(placed, {"tokens": tokens})
+    torch.cuda.synchronize()
+    pre_wall = time.perf_counter() - t
+    out = {"flash_launches": fa.launches, "counts": {"prefill": dict(ctx.counts)},
+           "prefill_tokens_per_s": PREFILL_B * PREFILL_S / pre_wall}
+    if cfg.family == "moe":  # this rank's routes, recorded in a prefill of their own
+        with mc.RouteLog() as routes:
+            prefill(placed, {"tokens": tokens})
+        out["drops"] = {str(i): [int(r["routed"].sum() - r["kept"].sum()), int(r["routed"].sum())]
+                        for i, r in ((i, routes.calls[i]) for i in (0, cfg.n_layers - 1))}
+        del routes
+    want_flash = cfg.n_layers if cfg.family != "ssm" else 0
+    if out["flash_launches"] != want_flash:
+        raise AssertionError(f"tp {arch}: rank {rank}'s sharded prefill launched flash_attention "
+                             f"{out['flash_launches']} times, not {want_flash}")
+    if not torch.isfinite(logits).all() or logits.shape != (PREFILL_B, cfg.vocab):
+        raise AssertionError(f"tp {arch}: sharded prefill logits {tuple(logits.shape)} not finite")
+    log(f"tp {arch}: {model.n_params()} parameters, full width and depth ({cfg.n_layers} "
+        f"layers); sharded prefill {PREFILL_B} x {PREFILL_S}: {pre_wall:.4f} s, "
+        f"{out['prefill_tokens_per_s']:.1f} tokens/s on two ranks sharing the card, flash "
+        f"launches on this rank {out['flash_launches']}, collectives {out['counts']['prefill']} "
+        f"({card})")
+    if rank == 0:
+        moe = cfg.family == "moe"
+        with mc.ep_emulated(*TP_MESH) if moe else contextlib.nullcontext():
+            plain = make_prefill_step(model)(params, {"tokens": tokens})
+            with crit.tp_rounding(TP_MESH[-1]):
+                jit = make_prefill_step(model)(params, {"tokens": tokens})
+        _, err, tol = _logits_close(logits, plain)
+        tag = (f"tp {arch}: sharded prefill against the unsharded prefill"
+               + (" (its expert-parallel branch emulated)" if moe else "")
+               + f" on the card (max |logit| {float(plain.abs().max()):.3e}, greedy tokens agree "
+               f"{int((logits.argmax(-1) == plain.argmax(-1)).sum())}/{PREFILL_B}), max |diff|")
+        out["prefill_held"] = tp_judge(tag, err, _logits_close(jit, plain)[1], tol,
+                                       float((logits - jit).abs().max()),
+                                       "prefill" in TP_EXACT.get(arch, ()))
+        del plain, jit
+
+    B = PREFILL_B
+    cspecs = model.cache_specs(B, TP_CACHE, ctx)
+    serve = make_serve_step(model, ctx)
+    scratch = reshard_state(model.init_cache(B, TP_CACHE), cspecs)
+    serve(placed, scratch, {"token": tokens[:, 0], "cur_len": 0})  # warm-up
+    del scratch
+    cache = reshard_state(model.init_cache(B, TP_CACHE), cspecs)
+    fed, seen = [tokens[:, 0]], []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(TP_DECODE_STEPS):
+        if i == 1:
+            ctx.counts.clear()
+        step_logits, cache = serve(placed, cache, {"token": fed[-1], "cur_len": i})
+        if i == 1:
+            out["counts"]["decode"] = dict(ctx.counts)
+        seen.append(step_logits)
+        fed.append(step_logits.argmax(-1).to(torch.int32))
+    torch.cuda.synchronize()
+    dec_wall = time.perf_counter() - t
+    out["decode_tokens_per_s"] = B * TP_DECODE_STEPS / dec_wall
+    log(f"tp {arch}: sharded decode, {TP_DECODE_STEPS} greedy steps of batch {B} against a "
+        f"{TP_CACHE}-long cache: {dec_wall:.4f} s, {out['decode_tokens_per_s']:.1f} tokens/s on "
+        f"two ranks sharing the card, collectives a step {out['counts']['decode']} ({card})")
+    del cache
+    moe_routes = None
+    if cfg.family == "moe":  # the same steps again, rank 0 recording its routes
+        cache = reshard_state(model.init_cache(B, TP_CACHE), cspecs)
+        with mc.RouteLog() as log_routes:
+            for i in range(TP_DECODE_STEPS):
+                _, cache = serve(placed, cache, {"token": fed[i], "cur_len": i})
+        moe_routes = log_routes.calls
+        del cache
+    if rank == 0:
+        def unsharded() -> tuple[list, list]:
+            plain_cache, step, got = model.init_cache(B, TP_CACHE), make_serve_step(model), []
+            with mc.RouteLog() as calls:
+                for i in range(TP_DECODE_STEPS):
+                    want, plain_cache = step(params, plain_cache, {"token": fed[i], "cur_len": i})
+                    got.append(want)
+            return got, calls.calls
+
+        want, want_routes = unsharded()
+        with crit.tp_rounding(TP_MESH[-1]):
+            jit, jit_routes = unsharded()
+        routes = (moe_routes, want_routes, jit_routes) if moe_routes is not None else None
+        out["decode_held"] = tp_decode_judge(
+            f"tp {arch}: sharded decode against the unsharded decode ({TP_DECODE_STEPS} steps "
+            f"teacher-forced on the sharded tokens", seen, want, jit, routes,
+            "decode" in TP_EXACT.get(arch, ()))
+        del want, jit, params
+    out["peak"] = torch.cuda.max_memory_allocated()
+    del placed, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
+    """``arch`` at full width and TP_SHALLOW_LAYERS layers, in bf16 and in
+    f32 (weights drawn on the card): the sharded prefill of PREFILL_B x
+    PREFILL_S tokens and TP_SHALLOW_STEPS decode steps, against the
+    unsharded ones on rank 0 (the MoE prefill's with its expert-parallel
+    branch emulated, ``ep_emulated``), each also against the unsharded run
+    under ``tp_rounding``. In bf16 held as ``tp_serve`` holds them; in f32
+    within TP_WITNESS_RTOL of the largest |logit|, where the rounded
+    unsharded run is within it too: the sharded math's witness where the
+    bf16 model is ill-conditioned. For the SSM family the decode steps that
+    read the bf16 conv window back are printed, with the window's entries
+    that differ after step 0 counted, and the f32 run is repeated with the
+    window kept in f32, every step held."""
+    import contextlib
+    import dataclasses
+    import gc
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_moe_criteria as mc
+    import _torch_train_criteria as crit
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import whole
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    for dtype in ("bfloat16", "float32"):
+        cfg = dataclasses.replace(get_arch(arch), n_layers=TP_SHALLOW_LAYERS, dtype=dtype)
+        log(f"reduced: tp {arch} {dtype} check n_layers {get_arch(arch).n_layers} -> "
+            f"{TP_SHALLOW_LAYERS} (the bf16 model at full depth is ill-conditioned from random "
+            f"weights)")
+        model = build_model(cfg, max_pos=TP_CACHE, device="cuda")
+        model.pure_dp = False
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+        placed = _placed(params, model.param_specs(ctx), ctx)
+        tokens = torch.from_numpy(np.random.default_rng(seed + 1).integers(
+            0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
+        moe, ssm = cfg.family == "moe", cfg.family == "ssm"
+
+        def cache(sharded: bool, f32_window: bool = False) -> dict:
+            c = model.init_cache(PREFILL_B, TP_CACHE)
+            if f32_window:
+                c["conv"] = c["conv"].float()
+            return reshard_state(c, model.cache_specs(PREFILL_B, TP_CACHE, ctx)) if sharded else c
+
+        def decode(serve, weights, c) -> tuple[list, list, torch.Tensor]:
+            """(the decode steps' logits, their routes, the conv window after
+            the first step, whole, for the SSM family)."""
+            steps, window = [], None
+            with mc.RouteLog() as routes:
+                for i in range(TP_SHALLOW_STEPS):
+                    logits, c = serve(weights, c, {"token": tokens[:, i], "cur_len": i})
+                    steps.append(logits)
+                    if ssm and i == 0:
+                        window = whole(c["conv"]).clone()
+            return steps, routes.calls, window
+
+        def run(sharded: bool, f32_window: bool = False) -> tuple:
+            """(prefill logits, decode steps' logits, the decode's routes, its
+            first conv window)."""
+            step_ctx, weights = (ctx, placed) if sharded else (None, params)
+            with mc.ep_emulated(*TP_MESH) if moe and not sharded else contextlib.nullcontext():
+                pre = make_prefill_step(model, step_ctx)(weights, {"tokens": tokens})
+            return [pre], *decode(make_serve_step(model, step_ctx), weights,
+                                  cache(sharded, f32_window))
+
+        got = run(True)
+        got32 = run(True, True) if ssm and dtype == "float32" else None
+        if rank == 0:
+            want = run(False)
+            with crit.tp_rounding(TP_MESH[-1]):
+                jit = run(False)
+            tag = f"tp {arch} {dtype} {TP_SHALLOW_LAYERS} layers (full width)"
+            if dtype == "float32":
+                labels = ["prefill"] + [f"decode step {i}" for i in range(TP_SHALLOW_STEPS)]
+                windowed = set(labels[2:]) if ssm else set()
+
+                def rel(a: tuple, b: tuple) -> list:
+                    return [float((x - w).abs().max() / w.abs().max())
+                            for x, w in zip(a[0] + a[1], b[0] + b[1])]
+
+                def line(what: str, errs: list, selfs: list, held: list) -> str:
+                    return (f"{tag}{', ' + what if what else ''}: max |diff| over the largest "
+                            f"|logit|, sharded against "
+                            f"unsharded (the unsharded run rounded as the ranks round against it): "
+                            + ", ".join(f"{label} {e:.3e} ({r:.3e})"
+                                        for label, e, r in zip(labels, errs, selfs))
+                            + f"; tolerance {TP_WITNESS_RTOL}, held: {', '.join(held) or 'none'}"
+                            + f" ({card})")
+
+                errs, selfs = rel(got, want), rel(jit, want)
+                held = [label for label, r in zip(labels, selfs)
+                        if r <= TP_WITNESS_RTOL and label not in windowed]
+                log(line("the conv window in bf16 as the reference keeps it" if ssm else "",
+                         errs, selfs, held)
+                    + (f"; printed, not held: {', '.join(sorted(windowed))}, which read the bf16 "
+                       f"window back" if ssm else ""))
+                for label, e in zip(labels, errs):
+                    if label in held and not e <= TP_WITNESS_RTOL:
+                        raise AssertionError(f"{tag}: {label} {e} > {TP_WITNESS_RTOL}")
+                if ssm:
+                    a, b = got[3].float(), want[3].float()
+                    ulps = (a - b).abs() / torch.from_numpy(mc.bf16_ulp(b.cpu().numpy())).to(b)
+                    log(f"{tag}: the bf16 conv window after decode step 0, sharded against "
+                        f"unsharded: {int((a != b).sum())} of {b.numel()} entries differ, by at "
+                        f"most {float(ulps.max()):.3f} bf16 ulps; the rounded run's "
+                        f"{int((jit[3] != want[3]).sum())}")
+                    want32 = run(False, True)
+                    with crit.tp_rounding(TP_MESH[-1]):
+                        jit32 = run(False, True)
+                    errs, selfs = rel(got32, want32), rel(jit32, want32)
+                    log(line("the conv window kept in f32", errs, selfs, labels))
+                    if not max(errs) <= TP_WITNESS_RTOL:
+                        raise AssertionError(f"{tag}, f32 conv window: {errs} > {TP_WITNESS_RTOL}")
+                    del want32, jit32
+            else:
+                exact = TP_EXACT.get(arch, ())
+                _, err, tol = _logits_close(got[0][0], want[0][0])
+                tp_judge(f"{tag}: sharded prefill against the unsharded prefill"
+                         + (" (its expert-parallel branch emulated)" if moe else "")
+                         + ", max |diff|", err, _logits_close(jit[0][0], want[0][0])[1], tol,
+                         float((got[0][0] - jit[0][0]).abs().max()), "prefill" in exact)
+                routes = (got[2], want[2], jit[2]) if moe else None
+                tp_decode_judge(f"{tag}: sharded decode against the unsharded decode "
+                                f"({TP_SHALLOW_STEPS} steps", got[1], want[1], jit[1], routes,
+                                "decode" in exact)
+            del want, jit
+        del params, placed, got, got32, model
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
+    """``arch`` trained on the mesh at full width, the depth TP_TRAIN_DEPTHS
+    (a ``reduced:`` line where cut): weights drawn on the card, each rank
+    keeping its blocks, AdamW's moments made as blocks, B=TRAIN_B x TRAIN_S
+    from ``SyntheticLM``, lr TRAIN_LR: a warm-up and TP_TRAIN_STEPS timed
+    steps (finite losses, train tokens/s, peak device memory, collectives
+    a step). For qwen2-0.5b also one full-width layer in f32, sharded
+    against unsharded (``mesh_hold``), held."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.optimizer import AdamWConfig, adamw_specs
+    from repro_torch.train.steps import make_train_step
+
+    cfg = get_arch(arch)
+    depth = TP_TRAIN_DEPTHS[arch]
+    if depth < cfg.n_layers:
+        log(f"reduced: tp {arch} training n_layers {cfg.n_layers} -> {depth} "
+            f"({TP_TRAIN_CUTS[arch]})")
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    model = build_model(cfg, max_pos=TRAIN_S, device="cuda")
+    model.pure_dp = False
+    pspecs = model.param_specs(ctx)
+    params = _placed(model.init_params(torch.Generator(device="cuda").manual_seed(seed)),
+                     pspecs, ctx)
+    ospecs = adamw_specs(pspecs, model.param_template(), ctx)
+    opt = {"m": _local_zeros(model.param_template(), ospecs["m"], ctx),
+           "v": _local_zeros(model.param_template(), ospecs["v"], ctx),
+           "step": torch.zeros((), dtype=torch.int32, device="cuda")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    next_batch = _train_batches(cfg, TRAIN_B, TRAIN_S, seed, "cuda")
+    step = make_train_step(model, ctx, AdamWConfig(lr=TRAIN_LR))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, counts = [], [], {}
+    for i in range(TP_TRAIN_STEPS + 1):
+        batch = next_batch()
+        ctx.counts.clear()
+        t = time.perf_counter()
+        params, opt, loss = step(params, opt, batch)
+        loss = float(loss)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        counts = dict(ctx.counts)
+        if not np.isfinite(loss):
+            raise AssertionError(f"tp {arch}: sharded train step {i} loss {loss} is not finite")
+        losses.append(loss)
+    peak = torch.cuda.max_memory_allocated()
+    median = sorted(walls[1:])[len(walls[1:]) // 2]
+    log(f"tp {arch}: trained at full width, {cfg.n_layers} layers, B={TRAIN_B} x S={TRAIN_S}: "
+        f"{TRAIN_B * TRAIN_S / median:.1f} train tokens/s on two ranks sharing the card (median "
+        f"step {median:.4f} s of {', '.join(f'{w:.4f}' for w in walls)}, the first a warm-up); "
+        f"losses {', '.join(f'{x:.6f}' for x in losses)}; peak device memory on rank {rank} "
+        f"{peak} bytes ({peak / 1e9:.3f} GB; {torch.cuda.max_memory_reserved() / 1e9:.3f} GB "
+        f"reserved); collectives a step {counts} ({card})")
+    del params, opt, step, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    if arch == "qwen2_0_5b":
+        f32 = dataclasses.replace(get_arch(arch), n_layers=1, dtype="float32")
+        log("reduced: tp qwen2 held check n_layers 24 -> 1, bfloat16 -> float32 (one full-width "
+            "layer in f32 is well-conditioned)")
+        held, verdict, _ = mesh_hold(ctx, f32, next_batch(), seed, "tp qwen2 f32 1 layer",
+                                     pure_dp=False)
+        if not held:
+            raise AssertionError(f"tp qwen2 f32 1 layer: {verdict}")
+    return {"train_tokens_per_s": TRAIN_B * TRAIN_S / median, "train_peak": peak,
+            "train_depth": cfg.n_layers, "train_counts": counts}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--size-mib", type=int, default=512)
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "chip_smoke")
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # phase 9's ranks
+    ap.add_argument("--tp-dir", type=Path, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
+    if args.tp_rank is not None:
+        return tp_rank_main(args.tp_rank, args.tp_dir, args.seed)
     # the plain versions run their f32 products in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3488,6 +4150,17 @@ def main() -> int:
         f"whisper-base sharded {w['tokens_per_s']:.1f} train tokens/s, elastic save "
         f"{w['save_gb_s']:.4f} GB/s, recon {w['recon_gb_s']:.4f} GB/s, restore "
         f"{w['restore_gb_s']:.4f} GB/s ({card})")
+    elapsed("phase 8")
+    # phase 9: tensor and expert parallelism over "model", two ranks sharing the card, the
+    # flash launches counted from zero on each rank inside
+    t9 = time.perf_counter()
+    tp = drive_tp(args.seed, card, args.out, counts, worst)
+    log(f"phase 9: {time.perf_counter() - t9:.3f} s; on (data=1, model=2), two processes "
+        f"sharing the card over gloo: "
+        + "; ".join(f"{a} prefill {tp[a]['prefill_tokens_per_s']:.1f}, decode "
+                    f"{tp[a]['decode_tokens_per_s']:.1f}, train at {tp[a]['train_depth']} layers "
+                    f"{tp[a]['train_tokens_per_s']:.1f} tokens/s" for a in TP_ARCHS)
+        + f" ({card})")
 
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]

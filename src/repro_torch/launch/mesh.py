@@ -1,17 +1,21 @@
-"""Production and host meshes (functions, not module-level constants: a
-mesh needs the process group, which importing this module never touches).
+"""Production, host and shared-card meshes (functions, not module-level
+constants: a mesh needs the process group, which importing this module
+never touches).
 
 The caller starts the process group first, with the backend of the mesh's
 device and an address of its own, e.g. on one card
 ``torch.distributed.init_process_group("nccl", init_method="tcp://localhost:<port>",
 rank=0, world_size=1)``; NCCL for "cuda", gloo for "cpu" (``MeshCtx``
-checks it)."""
+checks it). The one exception is ``make_shared_card_mesh``: ranks that
+share one card, over gloo, which NCCL refuses."""
 from __future__ import annotations
 
 import math
 
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
+
+from repro_torch.models.sharding import SHARED_CARD
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> DeviceMesh:
@@ -28,6 +32,24 @@ def make_host_mesh(device: str = "cuda") -> DeviceMesh:
     """The 1-device mesh (data=1, model=1) over a process group of size 1:
     the mesh-parameterized code paths on one card (or one CPU process)."""
     return _mesh(device, (1, 1), ("data", "model"))
+
+
+def make_shared_card_mesh(shape: tuple[int, ...] = (1, 2)) -> DeviceMesh:
+    """A CUDA mesh whose ranks are processes that share one card: (data,
+    model), or (pod, data, model) for a 3-long ``shape``, over a gloo
+    process group of ``prod(shape)`` ranks that the caller started, each
+    rank on the same device (``torch.cuda.set_device``). NCCL refuses two
+    ranks on one GPU, so this is the one CUDA mesh ``MeshCtx`` takes over
+    gloo, which runs every collective of ``MeshCtx`` on CUDA tensors (in
+    the card machine's torch 2.11: all-reduce with sum, avg and max,
+    all-gather, reduce-scatter, all-to-all)."""
+    if dist.is_initialized() and dist.get_backend() != "gloo":
+        raise ValueError(f"a shared-card mesh runs over gloo; the process group's backend is "
+                         f"{dist.get_backend()!r}")
+    axes = ("pod", "data", "model")[3 - len(shape):]
+    mesh = _mesh("cuda", tuple(shape), axes)
+    setattr(mesh, SHARED_CARD, True)
+    return mesh
 
 
 def _mesh(device: str, shape: tuple[int, ...], axes: tuple[str, ...]) -> DeviceMesh:

@@ -4,19 +4,25 @@ GQA attention, MLPs (SwiGLU, Whisper's GELU), top-k MoE.
 Plain PyTorch copies of the reference's ``repro.models.layers``, with its
 conventions: activations bf16, reductions, softmax and norms in f32. Weight
 trees are nested dicts of tensors; stacked-layer weights carry a leading L
-axis. ``moe_layer``'s expert-parallel branch is not ported yet (ROADMAP A3).
+axis. With a ``MeshCtx`` whose "model" axis is larger than 1 (``ctx``),
+``moe_layer`` runs the reference's expert-parallel branch and
+``expand_kv_to_local_heads`` is its attention's KV-to-heads expansion, each
+on this rank's blocks.
 """
 from __future__ import annotations
 
 import functools
 import itertools
 import math
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+
+if TYPE_CHECKING:
+    from repro_torch.models.sharding import MeshCtx
 
 NEG = -1e30
 
@@ -144,6 +150,19 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(B, Sq, H, hd)
 
 
+def expand_kv_to_local_heads(k: torch.Tensor, v: torch.Tensor, heads: int,
+                             ctx: "MeshCtx") -> tuple[torch.Tensor, torch.Tensor]:
+    """The reference's KV-to-heads expansion (``gqa_attention``'s ctx
+    branch, where the KV heads do not divide "model" and the heads do), on
+    this rank's heads: k/v (B, S, KV, hd) hold every KV head, the rank's
+    query heads are the ``heads`` from ``model_rank * heads``; returns k/v
+    (B, S, heads, hd), query head j reading the KV head of its global index
+    (``jnp.repeat(k, H // KV, axis=2)`` cut to the rank's heads)."""
+    G = heads * ctx.n_model // k.shape[2]
+    idx = (ctx.model_rank * heads + torch.arange(heads, device=k.device)) // G
+    return k[:, :, idx], v[:, :, idx]
+
+
 # ------------------------------------------------------------------ MLP
 def swiglu_mlp(x: torch.Tensor, wi_gate: torch.Tensor, wi_up: torch.Tensor,
                wo: torch.Tensor) -> torch.Tensor:
@@ -269,17 +288,34 @@ def _moe_tokens(xt: torch.Tensor, wr: torch.Tensor, w_gate: torch.Tensor, w_up: 
     E = wr.shape[1]
     C = capacity
     r = _route(xt, wr, top_k=top_k, capacity=C)
-    buf = torch.zeros((E * C + 1, D), dtype=xt.dtype, device=xt.device)
+    yb = _experts(_dispatch(xt, r, E * C).reshape(E, C, D), w_gate, w_up, w_down)
+    return _combine(_contrib(yb.reshape(E * C, D), r, xt.dtype), r.st, r.se, T, E), (r.me, r.ce)
+
+
+def _dispatch(xt: torch.Tensor, r: Route, rows: int) -> torch.Tensor:
+    """The (rows, D) buffer, E*C rows: each kept assignment's token in its
+    slot, zeros elsewhere."""
+    buf = torch.zeros((rows + 1, xt.shape[1]), dtype=xt.dtype, device=xt.device)
     buf[r.slot] = xt[r.st]   # rows are unique but for the drop bin, which is discarded
-    buf = buf[:-1].reshape(E, C, D)
+    return buf[:-1]
+
+
+def _experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+             w_down: torch.Tensor) -> torch.Tensor:
+    """The three expert products over buf (E, C, D), batched over E (silu in
+    f32, cast back)."""
     g = torch.bmm(buf, w_gate)
     u = torch.bmm(buf, w_up)
-    h = torch.nn.functional.silu(g.float()).to(xt.dtype) * u
-    yb = torch.bmm(h, w_down)
-    ybf = torch.cat([yb.reshape(E * C, D), yb.new_zeros((1, D))])
-    contrib = ybf[r.slot] * r.sw[:, None].to(xt.dtype)
-    contrib = torch.where(r.keep[:, None], contrib, 0)
-    return _combine(contrib, r.st, r.se, T, E), (r.me, r.ce)
+    h = torch.nn.functional.silu(g.float()).to(buf.dtype) * u
+    return torch.bmm(h, w_down)
+
+
+def _contrib(yb: torch.Tensor, r: Route, dtype: torch.dtype) -> torch.Tensor:
+    """Each assignment's output row of yb (E*C, D) (the drop bin's is zero),
+    scaled by its gate in ``dtype``."""
+    ybf = torch.cat([yb, yb.new_zeros((1, yb.shape[1]))])
+    contrib = ybf[r.slot] * r.sw[:, None].to(dtype)
+    return torch.where(r.keep[:, None], contrib, 0)
 
 
 def _capacity(T: int, top_k: int, E: int, cf: float) -> int:
@@ -290,21 +326,69 @@ def _capacity(T: int, top_k: int, E: int, cf: float) -> int:
 
 
 def moe_layer(x: torch.Tensor, wr: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-              w_down: torch.Tensor, *, top_k: int,
-              capacity_factor: float) -> tuple[torch.Tensor, torch.Tensor]:
+              w_down: torch.Tensor, *, top_k: int, capacity_factor: float,
+              ctx: "MeshCtx | None" = None) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-k MoE with capacity and dropping (GShard-style), the reference's
-    whole-array ``moe_layer``: x (B, S, D); wr (D, E); w_gate/w_up (E, D,
-    F); w_down (E, F, D). Returns (y (B, S, D), aux = E * sum(me * ce)).
-    The expert-parallel branch (``shard_map`` with all_to_all over the
-    model axis) is a later slice (ROADMAP A): this takes no mesh. On a
-    (..., model=1) mesh each rank calls it on its own tokens, which is what
-    that branch computes there."""
+    ``moe_layer``: x (B, S, D); wr (D, E); w_gate/w_up (E, D, F); w_down (E,
+    F, D). Returns (y (B, S, D), aux = E * sum(me * ce)).
+
+    Without ``ctx`` the whole-array form (on a (..., model=1) mesh each rank
+    calls it on its own tokens, which is what the expert-parallel branch
+    computes there). With ``ctx`` ("model" > 1) the expert weights are this
+    rank's E/n experts and x its tokens: for S > 1 the expert-parallel
+    branch (``_moe_expert_parallel``), for S == 1 (decode, x the same on
+    every rank of the model group) the whole-array routing with each rank
+    applying its own experts (``_moe_decode_sharded``)."""
     B, S, D = x.shape
     E = wr.shape[1]
     C = _capacity(B * S, top_k, E, capacity_factor)
-    y, (me, ce) = _moe_tokens(x.reshape(B * S, D), wr, w_gate, w_up, w_down, top_k=top_k,
-                              capacity=C)
-    return y.reshape(B, S, D), E * torch.sum(me * ce)
+    xt = x.reshape(B * S, D)
+    if ctx is None:
+        y, (me, ce) = _moe_tokens(xt, wr, w_gate, w_up, w_down, top_k=top_k, capacity=C)
+        return y.reshape(B, S, D), E * torch.sum(me * ce)
+    r = _route(xt, wr, top_k=top_k, capacity=C)
+    if S == 1:
+        y = _moe_decode_sharded(xt, r, w_gate, w_up, w_down, E, C, ctx)
+        return y.reshape(B, S, D), E * torch.sum(r.me * r.ce)
+    y = _moe_expert_parallel(xt, r, w_gate, w_up, w_down, E, C, ctx)
+    return y.reshape(B, S, D), ctx.pmean_all(E * torch.sum(r.me * r.ce))
+
+
+def _moe_expert_parallel(xt: torch.Tensor, r: Route, w_gate: torch.Tensor, w_up: torch.Tensor,
+                         w_down: torch.Tensor, E: int, C: int, ctx: "MeshCtx") -> torch.Tensor:
+    """The reference's expert-parallel branch on this rank's T_loc tokens,
+    routed here with C from T_loc: the (E*C, D) buffer's block of each
+    rank's experts is sent to it by an all-to-all over "model", the experts
+    run on what this rank received, and a second all-to-all sends the
+    outputs back for the combine, in the reference's order. The received
+    blocks (one per sending rank, each (E/n, C, D)) are read as (E/n, n*C,
+    D) by a plain reshape, as the reference's ``recv.reshape`` reads them:
+    for n > 1 that hands a row to a local expert by its place in the
+    concatenation, not by the expert it was routed to (ROADMAP C). The port
+    keeps it, so that it computes the reference's sharded step."""
+    D = xt.shape[1]
+    E_loc, n = w_gate.shape[0], ctx.n_model
+    recv = ctx.all_to_all_model(_dispatch(xt, r, E * C))
+    yb = _experts(recv.reshape(E_loc, n * C, D), w_gate, w_up, w_down)
+    back = ctx.all_to_all_model(yb.reshape(E * C, D))
+    return _combine(_contrib(back, r, xt.dtype), r.st, r.se, xt.shape[0], E)
+
+
+def _moe_decode_sharded(xt: torch.Tensor, r: Route, w_gate: torch.Tensor, w_up: torch.Tensor,
+                        w_down: torch.Tensor, E: int, C: int, ctx: "MeshCtx") -> torch.Tensor:
+    """The whole-array form with the experts over "model": every rank routes
+    the same tokens, runs its own E/n experts' slots of the buffer, and
+    fills the contributions of its experts' assignments; their sum over
+    "model" (each row from the one rank that holds its expert: exact) goes
+    to the combine, as the whole-array form's would."""
+    D = xt.shape[1]
+    E_loc = w_gate.shape[0]
+    mine = slice(ctx.model_rank * E_loc * C, (ctx.model_rank + 1) * E_loc * C)
+    yb = xt.new_zeros((E * C, D))
+    yb[mine] = _experts(_dispatch(xt, r, E * C)[mine].reshape(E_loc, C, D), w_gate, w_up,
+                        w_down).reshape(-1, D)
+    contrib = ctx.psum_model(_contrib(yb, r, xt.dtype))
+    return _combine(contrib, r.st, r.se, xt.shape[0], E)
 
 
 # ----------------------------------------------------------- init helpers

@@ -43,6 +43,19 @@ which the kernel's positions (both from 0) cannot express. The
 encoder-decoder's decode step attends across to the cache's ``xk``/``xv``,
 which it never writes (the reference's API: its serve loop decodes from a
 zero cache; a caller may fill them from the encoder's output).
+
+Tensor and expert parallelism (``tp``, a ``MeshCtx`` whose "model" axis is
+larger than 1, for a dense, MoE or SSM model that is not pure
+data-parallel; ``LM.tp_ctx``): the parameters are this rank's blocks of
+``param_specs`` and the layout is the reference's Megatron-SP. Between
+blocks the hidden state holds this rank's block of the sequence; a block
+gathers it at its entry (``MeshCtx.gather_seq``), runs its column-parallel
+in-projections on the rank's heads, FFN columns or SSM heads and its
+row-parallel out-projection, and reduce-scatters the partial sums back to
+the sequence layout (``scatter_seq``); a decode step (S = 1) all-reduces
+them instead (``psum_model``). The embedding and the head are
+vocab-parallel, and so is the cross-entropy (``vocab_parallel_ce``). The
+MoE block runs ``moe_layer``'s expert-parallel branch on the rank's tokens.
 """
 from __future__ import annotations
 
@@ -61,6 +74,7 @@ from repro_torch.models.layers import (
     apply_rope,
     dense_init,
     dt,
+    expand_kv_to_local_heads,
     gelu_mlp,
     gqa_attention,
     layer_norm,
@@ -70,7 +84,14 @@ from repro_torch.models.layers import (
     rope_cos_sin,
     swiglu_mlp,
 )
-from repro_torch.models.sharding import MeshCtx, NamedSharding, spec_with_model_on
+from repro_torch.models.sharding import (
+    FALLBACK_LAYOUTS,
+    TENSOR_PARALLEL,
+    MeshCtx,
+    NamedSharding,
+    spec_with_model_on,
+    vocab_parallel_ce,
+)
 from repro_torch.tree import named_leaves, tree_map
 
 Params = dict[str, Any]  # name -> tensor, or name -> dict of stacked-layer tensors
@@ -307,6 +328,32 @@ class LM(nn.Module):
 
         return walk(self.param_template())
 
+    def tp_ctx(self, ctx: MeshCtx | None) -> MeshCtx | None:
+        """``ctx`` where a step runs tensor and expert parallelism over
+        "model" (a model that is not pure data-parallel, on a mesh whose
+        "model" axis is larger than 1), else None. Raises
+        ``NotImplementedError``, naming the ROADMAP item, for what the port
+        does not run yet: the hybrid, VLM and encoder-decoder families, and
+        the fallback layouts (heads, vocab, FFN, experts or SSM heads that
+        do not divide the axis; KV heads that do not divide it take the
+        reference's expansion to the rank's heads instead)."""
+        if ctx is None or ctx.n_model == 1 or self.pure_dp:
+            return None
+        cfg, n = self.cfg, ctx.n_model
+        if cfg.family not in ("dense", "moe", "ssm"):
+            raise NotImplementedError(f"{cfg.name} on a mesh with model={n}: {TENSOR_PARALLEL}")
+        dims = {"vocab": cfg.vocab}
+        if cfg.family == "ssm":
+            dims.update(d_inner=cfg.d_inner, ssm_heads=cfg.ssm_heads)
+        else:
+            dims.update(heads=cfg.n_heads, **({"experts": cfg.moe_experts} if cfg.family == "moe"
+                                              else {"d_ff": cfg.d_ff}))
+        bad = {k: v for k, v in dims.items() if v % n}
+        if bad:
+            raise NotImplementedError(f"{cfg.name} on a mesh with model={n} ({bad} do not "
+                                      f"divide it): {FALLBACK_LAYOUTS}")
+        return ctx
+
     # ------------------------------------------------------------- forward
     def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor | None, torch.Tensor | None]:
         """cos/sin of ``positions``: (B, S), or for M-RoPE (3, B, S); (None,
@@ -332,7 +379,8 @@ class LM(nn.Module):
              sin: torch.Tensor | None, kv: torch.Tensor | None = None):
         """Projections, bias, qk-norm and RoPE (none where ``cos`` is None):
         q (B,S,H,hd) from x, k/v (B,Sk,KV,hd) from ``kv`` (cross-attention)
-        or x."""
+        or x. Tensor-parallel, q holds this rank's heads and k/v its KV
+        heads, or all of them where the rank expands them (``_tp_kv``)."""
         cfg = self.cfg
         src = x if kv is None else kv
         q, k, v = _proj(x, lp["wq"]), _proj(src, lp["wk"]), _proj(src, lp["wv"])
@@ -346,20 +394,54 @@ class LM(nn.Module):
             k = apply_rope(k, cos, sin, cfg.rope_fraction)
         return q, k, v
 
+    def _expands(self, tp: MeshCtx | None) -> bool:
+        """Whether a rank expands the KV heads to its query heads: the
+        reference's rule, where the KV heads do not divide "model" (and the
+        heads do: ``tp_ctx``)."""
+        return tp is not None and self.cfg.n_kv_heads % tp.n_model != 0
+
+    def _tp_layers(self, layers: dict, tp: MeshCtx | None) -> dict:
+        """The stacked layers' weights as this rank's heads read them
+        (``_tp_kv``, once for every layer); ``layers`` itself without ``tp``."""
+        return layers if tp is None else {**layers, **self._tp_kv(layers, tp)}
+
+    def _tp_kv(self, lp: dict, tp: MeshCtx) -> dict:
+        """The K/V weights and biases (stacked or one layer's) as this rank's
+        heads read them: its block of the KV heads, or all of them where it
+        expands them. The reference's specs shard the biases (and, where the
+        KV heads do not divide "model", the weights) over head_dim: those
+        are gathered over "model" (their gradients summed back:
+        ``gather_seq``) and cut to the rank's KV heads."""
+        cfg, out = self.cfg, {}
+        kv = cfg.n_kv_heads // tp.n_model
+        for name in ("wk", "wv", "bk", "bv"):
+            if name not in lp:
+                continue
+            w = lp[name]
+            if w.shape[-1] != cfg.hd:
+                w = tp.gather_seq(w, dim=w.ndim - 1)
+            if not self._expands(tp) and w.shape[-2] == cfg.n_kv_heads:
+                w = w.narrow(-2, tp.model_rank * kv, kv)
+            out[name] = w
+        return out
+
     def _out_proj(self, lp: dict, o: torch.Tensor) -> torch.Tensor:
         B, S = o.shape[:2]
         return (o.reshape(B * S, -1) @ lp["wo"].reshape(-1, self.cfg.d_model)).reshape(B, S, -1)
 
     def _attn(self, lp: dict, x: torch.Tensor, *, cos=None, sin=None, window: int | None,
               train_pos: torch.Tensor | None, causal: bool = True,
-              kv: torch.Tensor | None = None) -> torch.Tensor:
+              kv: torch.Tensor | None = None, tp: MeshCtx | None = None) -> torch.Tensor:
         """The layer's attention: the flash kernel (``window`` 0 for none),
         or with ``train_pos`` (the query positions, and the key positions
         but in cross-attention) the differentiable ``gqa_attention``
         (``window`` None for none). ``kv`` (B, Sk, D) is the source of the
         keys and values of a cross-attention (the reference's
-        ``kv_override``; keys at 0..Sk-1)."""
+        ``kv_override``; keys at 0..Sk-1). With ``tp``, on this rank's heads
+        of the whole sequence: the out-projection's partial sums."""
         q, k, v = self._qkv(lp, x, cos, sin, kv)
+        if self._expands(tp):
+            k, v = expand_kv_to_local_heads(k, v, q.shape[2], tp)
         if train_pos is not None:
             k_pos = train_pos if kv is None else torch.arange(k.shape[1], device=k.device)
             o = gqa_attention(q, k, v, q_pos=train_pos, k_pos=k_pos, causal=causal,
@@ -370,71 +452,107 @@ class LM(nn.Module):
         return self._out_proj(lp, o.transpose(1, 2))
 
     def _dense_block(self, lp: dict, h: torch.Tensor, *, cos, sin, window: int | None,
-                     train_pos: torch.Tensor | None = None
+                     train_pos: torch.Tensor | None = None, tp: MeshCtx | None = None
                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """(h, the MLP's auxiliary loss: ``_mlp``)."""
+        """(h, the MLP's auxiliary loss: ``_mlp``). With ``tp``, h is this
+        rank's block of the sequence, gathered for the attention."""
         cfg = self.cfg
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        h = h + self._attn(lp, x, cos=cos, sin=sin, window=window, train_pos=train_pos)
-        y, aux = self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps))
+        attn = dict(cos=cos, sin=sin, window=window, train_pos=train_pos)
+        if tp is None:
+            h = h + self._attn(lp, x, **attn)
+        else:
+            h = h + tp.scatter_seq(self._attn(lp, tp.gather_seq(x), tp=tp, **attn))
+        y, aux = self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), tp)
         return h + y, aux
 
-    def _mlp(self, lp: dict, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def _mlp(self, lp: dict, x: torch.Tensor, tp: MeshCtx | None = None,
+             decode: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The block's MLP and its auxiliary loss: SwiGLU (None), or for MoE
-        ``moe_layer`` (aux = E * sum(me * ce), f32)."""
+        ``moe_layer`` (aux = E * sum(me * ce), f32). With ``tp``: x is this
+        rank's block of the sequence (gathered for SwiGLU's columns, the
+        partial sums scattered back) or, with ``decode``, the whole token;
+        the MoE layer runs its expert-parallel branch."""
         cfg = self.cfg
         if cfg.family == "moe":
             return moe_layer(x, lp["wr"], lp["w_gate"], lp["w_up"], lp["w_down"],
-                             top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
-        return swiglu_mlp(x, lp["wg"], lp["wu"], lp["wd"]), None
+                             top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor, ctx=tp)
+        if tp is None:
+            return swiglu_mlp(x, lp["wg"], lp["wu"], lp["wd"]), None
+        if decode:
+            return tp.psum_model(swiglu_mlp(x, lp["wg"], lp["wu"], lp["wd"])), None
+        return tp.scatter_seq(swiglu_mlp(tp.gather_seq(x), lp["wg"], lp["wu"], lp["wd"])), None
 
-    def _mamba_layer(self, lp: dict, h: torch.Tensor) -> torch.Tensor:
-        return h + ssd.mamba2_mixer(lp, rms_norm(h, lp["ln"], self.cfg.norm_eps), self.cfg)
+    def _mamba_layer(self, lp: dict, h: torch.Tensor, tp: MeshCtx | None = None) -> torch.Tensor:
+        x = rms_norm(h, lp["ln"], self.cfg.norm_eps)
+        if tp is None:
+            return h + ssd.mamba2_mixer(lp, x, self.cfg)
+        return h + tp.scatter_seq(ssd.mamba2_mixer(lp, tp.gather_seq(x), self.cfg, tp))
 
-    def _forward(self, params: Params, batch: dict, *,
-                 train: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+    def _forward(self, params: Params, batch: dict, *, train: bool = False,
+                 tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The family's stack over ``batch``'s inputs (the reference's
         ``input_specs``: ``tokens``; ``embeds`` and ``positions`` for the
         VLM; ``audio_embeds`` and ``tokens`` for the encoder-decoder):
         (h (B, S, D) before the final norm, the MoE layers' summed auxiliary
-        loss or None)."""
+        loss or None). With ``tp``, h is this rank's block of the sequence."""
         if self.cfg.family == "encdec":
             return self._run_encdec(params, batch, train=train), None
-        h, positions = self._inputs(params, batch)
-        return self._run_stack(params, h, positions=positions, train=train)
+        h, positions = self._inputs(params, batch, tp)
+        return self._run_stack(params, h, positions=positions, train=train, tp=tp)
 
-    def _inputs(self, params: Params, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    def _embed(self, params: Params, tokens: torch.Tensor,
+               tp: MeshCtx | None = None) -> torch.Tensor:
+        """The embedding's rows of ``tokens`` in the configuration's dtype.
+        With ``tp`` (the vocab split over "model"), the rows this rank's
+        block holds and zeros for the others: the sum over "model" is the
+        embedding."""
+        emb = params["embed"]
+        if tp is None:
+            return emb[tokens].to(dt(self.cfg))
+        V = emb.shape[0]
+        local = tokens.long() - tp.model_rank * V
+        own = ((local >= 0) & (local < V))[..., None]
+        return torch.where(own, emb[local.clamp(0, V - 1)], 0).to(dt(self.cfg))
+
+    def _inputs(self, params: Params, batch: dict,
+                tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """The stack's input in the configuration's dtype (bf16 for every
         configuration of the catalog, the reference's cast) and its
         positions: ``embeds`` and ``positions`` (3, B, S) given (embeddings
         input), or the embedded ``tokens`` at 0..S-1 (B, S), stacked three
-        times for M-RoPE."""
+        times for M-RoPE. With ``tp`` the embedding is scattered over the
+        sequence (the positions stay whole)."""
         cfg = self.cfg
         if cfg.embeddings_input:
             return batch["embeds"].to(dt(cfg)), batch["positions"]
         tokens = batch["tokens"]
         B, S = tokens.shape
-        h = params["embed"][tokens].to(dt(cfg))
+        h = self._embed(params, tokens, tp)
+        if tp is not None:
+            h = tp.scatter_seq(h)
         positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
         if cfg.rope_style == "mrope":
             positions = positions[None].expand(3, B, S)
         return h, positions
 
     def _run_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
-                   train: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+                   train: bool = False,
+                   tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The family's layer stack (not the encoder-decoder's:
         ``_run_encdec``) over the embedded inputs h (B, S, D), positions
         (B, S) or for M-RoPE (3, B, S): (h, the MoE layers' summed auxiliary
-        loss, None for the other families)."""
+        loss, None for the other families). ``tp``: dense, MoE and SSM."""
         family = self.cfg.family
         if family == "ssm":
-            return self._run_ssm_stack(params, h, train=train), None
+            return self._run_ssm_stack(params, h, train=train, tp=tp), None
         if family == "hybrid":
             return self._run_hybrid_stack(params, h, positions=positions, train=train), None
-        return self._run_decoder_stack(params, h, positions=positions, train=train)
+        return self._run_decoder_stack(params, h, positions=positions, train=train, tp=tp)
 
     def _run_decoder_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
-                           train: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+                           train: bool = False,
+                           tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layer stack: h (B, S, D) bf16, positions (B, S), or (3, B, S)
         for M-RoPE. Query and key positions are ``positions[0]``, for M-RoPE
         the temporal stream's ``positions[0, 0]`` (as in the reference);
@@ -443,25 +561,27 @@ class LM(nn.Module):
         and runs under ``torch.utils.checkpoint`` (its activations are
         recomputed in the backward). Returns (h, aux): the MoE layers'
         auxiliary losses added in layer order (the reference's f32 carry
-        from 0), None for the dense family."""
-        S = h.shape[1]
+        from 0), None for the dense family. With ``tp``, h is this rank's
+        block of the sequence, the positions whole."""
+        S = positions.shape[-1]
         cos, sin = self._rope(positions)
         q_pos = positions[0, 0] if self.cfg.rope_style == "mrope" else positions[0]
         train_pos = {"train_pos": q_pos} if train else {}
         aux = None
-        for lp, window in zip(_layers(params["layers"]), self._windows(S)):
+        layers = _layers(self._tp_layers(params["layers"], tp))
+        for lp, window in zip(layers, self._windows(S)):
             h, a = _checkpointed(self._dense_block, lp, h, train=train, cos=cos, sin=sin,
-                                 window=window, **train_pos)
+                                 window=window, tp=tp, **train_pos)
             if a is not None:
                 aux = a if aux is None else aux + a
         return h, aux
 
-    def _run_ssm_stack(self, params: Params, h: torch.Tensor, *,
-                       train: bool = False) -> torch.Tensor:
+    def _run_ssm_stack(self, params: Params, h: torch.Tensor, *, train: bool = False,
+                       tp: MeshCtx | None = None) -> torch.Tensor:
         """The SSM stack: h + mamba2_mixer(rms_norm(h)) for each layer; with
         ``train``, each layer under ``torch.utils.checkpoint``."""
         for lp in _layers(params["layers"]):
-            h = _checkpointed(self._mamba_layer, lp, h, train=train)
+            h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp)
         return h
 
     def _run_hybrid_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
@@ -545,6 +665,12 @@ class LM(nn.Module):
             return h @ params["embed"].T
         return h @ params["head"]
 
+    def _logits(self, params: Params, h: torch.Tensor, tp: MeshCtx | None = None) -> torch.Tensor:
+        """f32 logits (B, V) of h (B, 1, D); with ``tp`` each rank's block of
+        the vocab gathered over "model"."""
+        logits = self._head(params, h)[:, 0].float()
+        return logits if tp is None else tp.all_gather(logits, dim=-1)
+
     # ------------------------------------------------------------- training
     def loss_fn(self, params: Params, batch: dict, ctx: MeshCtx | None = None) -> torch.Tensor:
         """The training loss (f32 0-d) of ``batch`` = {"tokens", "labels"}
@@ -562,11 +688,14 @@ class LM(nn.Module):
 
         With a mesh ``ctx`` the batch is this rank's block and the
         cross-entropy runs in chunks (``_cross_entropy``); the loss is this
-        block's mean, which the train step averages over the ranks.
+        block's mean, which the train step averages over the ranks. Where
+        the step is tensor-parallel (``tp_ctx``) the parameters are this
+        rank's blocks, and every rank of a model group gets the same loss.
 
         The MoE forward is deterministic (stable sorts, no atomics), so the
         recompute in the backward routes exactly as the forward did."""
-        h, aux = self._forward(params, batch, train=True)
+        tp = self.tp_ctx(ctx)
+        h, aux = self._forward(params, batch, train=True, tp=tp)
         ce = self._cross_entropy(params, h, batch["labels"], ctx)
         return ce if aux is None else ce + 0.01 * aux
 
@@ -577,23 +706,32 @@ class LM(nn.Module):
         With a mesh the loss streams over sequence chunks, each under
         ``torch.utils.checkpoint``: the peak holds one chunk's f32 logits,
         and the head's product is recomputed chunk by chunk in the backward;
-        the chunks' summed losses, over B * S."""
+        the chunks' summed losses, over B * S. Where the mesh runs tensor
+        parallelism (``tp_ctx``) the sequence is gathered first and each
+        chunk's logits hold this rank's block of the vocab
+        (``vocab_parallel_ce``), as the reference lays them out."""
+        tp = self.tp_ctx(ctx)
+        if tp is not None:
+            h = tp.gather_seq(h)
         B, S, _ = h.shape
         if ctx is None or S <= chunk:
-            return self._chunk_loss(params, h, labels).mean()
+            return self._chunk_loss(params, h, labels, tp).mean()
         if S % chunk:
             raise ValueError(f"the chunked cross-entropy needs S ({S}) divisible by {chunk}")
         tot = h.new_zeros((), dtype=torch.float32)
         for i in range(0, S, chunk):
             hc, lc = h[:, i:i + chunk], labels[:, i:i + chunk]
-            tot = tot + checkpoint(lambda x, y: self._chunk_loss(params, x, y).sum(), hc, lc,
+            tot = tot + checkpoint(lambda x, y: self._chunk_loss(params, x, y, tp).sum(), hc, lc,
                                    use_reentrant=False)
         return tot / (B * S)
 
-    def _chunk_loss(self, params: Params, h: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    def _chunk_loss(self, params: Params, h: torch.Tensor, labels: torch.Tensor,
+                    tp: MeshCtx | None = None) -> torch.Tensor:
         """Each position's f32 cross-entropy (B, S): logsumexp minus the
         label's logit."""
         logits = self._head(params, h).float()
+        if tp is not None:
+            return vocab_parallel_ce(logits, labels, tp)
         lse = torch.logsumexp(logits, dim=-1)
         return lse - logits.gather(-1, labels[..., None].long())[..., 0]
 
@@ -651,8 +789,8 @@ class LM(nn.Module):
             out[name] = ctx.ns(*spec)
         return out
 
-    def decode_step(self, params: Params, cache: dict[str, torch.Tensor],
-                    batch: dict) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    def decode_step(self, params: Params, cache: dict[str, torch.Tensor], batch: dict,
+                    ctx: MeshCtx | None = None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """One token for the whole batch against the cache.
 
         batch: {"token": (B,) int, "cur_len": int}, or for embeddings input
@@ -662,48 +800,77 @@ class LM(nn.Module):
         in place spares a copy of the whole cache per token) and returns
         (logits (B, V) f32, cache). The SSM family reads no ``cur_len``. The
         embedding's output takes the configuration's dtype, as in the prefill
-        and ``loss_fn``; the encoder-decoder adds ``dec_pos[cur_len]``."""
+        and ``loss_fn``; the encoder-decoder adds ``dec_pos[cur_len]``.
+
+        With ``ctx`` where the model is tensor-parallel (``tp_ctx``), the
+        parameters and the cache are this rank's blocks (``param_specs``,
+        ``cache_specs``: the KV heads, or head_dim where the rank expands
+        them, the SSM state's heads, the conv window's channels), the token
+        this rank's block of the batch, the same on every rank of a model
+        group: the out-projections' partial sums are all-reduced over
+        "model" and the logits gathered over it."""
         cfg = self.cfg
+        tp = self.tp_ctx(ctx)
         cur = int(batch["cur_len"])
         if "k" in cache and not 0 <= cur < cache["k"].shape[2]:
             raise ValueError(f"cur_len {cur} outside the {cache['k'].shape[2]}-long cache")
         if cfg.embeddings_input:
             x = batch["embed"].to(dt(cfg))
         else:
-            x = params["embed"][batch["token"]].to(dt(cfg))
+            x = self._embed(params, batch["token"], tp)
+            if tp is not None:
+                x = tp.psum_model(x)
         if cfg.family == "encdec":
             x = x + params["dec_pos"][cur]
         h = x[:, None, :]
         family = cfg.family
         if family == "ssm":
-            h = self._decode_ssm(params, cache, h)
+            h = self._decode_ssm(params, cache, h, tp)
         elif family == "hybrid":
             h = self._decode_hybrid(params, cache, h, cur)
         elif family == "encdec":
             h = self._decode_encdec(params, cache, h, cur)
         else:
-            h = self._decode_dense(params, cache, h, cur)
-        return self._head(params, h)[:, 0].float(), cache
+            h = self._decode_dense(params, cache, h, cur, tp)
+        return self._logits(params, h, tp), cache
 
     def _decode_attn(self, lp: dict, h: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur: int, *, window: int | None,
-                     pos1: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+                     pos1: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                     tp: MeshCtx | None = None) -> torch.Tensor:
+        """The attention of one token against its layer's cache (B, S, KV,
+        hd), the new K/V written at ``cur``. With ``tp``, on this rank's
+        heads (the out-projection's partial sums); where the rank expands
+        the KV heads its cache holds a block of head_dim, gathered to read."""
         S = k_cache.shape[1]  # the per-layer cache is (B, S, KV, hd)
         q, k_new, v_new = self._qkv(lp, h, cos, sin)
-        k_cache[:, cur] = k_new[:, 0]
-        v_cache[:, cur] = v_new[:, 0]
         k_pos = torch.arange(S, dtype=torch.int32, device=h.device)
-        o = gqa_attention(q, k_cache, v_cache, q_pos=pos1, k_pos=k_pos, causal=True,
-                          window=window)
+        if not self._expands(tp):
+            k_cache[:, cur] = k_new[:, 0]
+            v_cache[:, cur] = v_new[:, 0]
+            k, v = k_cache, v_cache
+        else:
+            def written(c: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+                if c.shape[-1] == new.shape[-1]:
+                    c[:, cur] = new[:, 0]
+                    return c
+                c[:, cur] = new[:, 0].chunk(tp.n_model, dim=-1)[tp.model_rank]
+                return tp.all_gather(c, dim=-1)
+
+            k, v = expand_kv_to_local_heads(written(k_cache, k_new), written(v_cache, v_new),
+                                            q.shape[2], tp)
+        o = gqa_attention(q, k, v, q_pos=pos1, k_pos=k_pos, causal=True, window=window)
         return self._out_proj(lp, o)
 
     def _decode_block(self, lp: dict, h: torch.Tensor, k_cache: torch.Tensor,
-                      v_cache: torch.Tensor, cur: int, **attn) -> torch.Tensor:
+                      v_cache: torch.Tensor, cur: int, tp: MeshCtx | None = None,
+                      **attn) -> torch.Tensor:
         """A pre-norm attention block's decode step: attention against its
         cache, then its MLP."""
         x = rms_norm(h, lp["ln1"], self.cfg.norm_eps)
-        h = h + self._decode_attn(lp, x, k_cache, v_cache, cur, **attn)
-        return h + self._mlp(lp, rms_norm(h, lp["ln2"], self.cfg.norm_eps))[0]
+        a = self._decode_attn(lp, x, k_cache, v_cache, cur, tp=tp, **attn)
+        h = h + (a if tp is None else tp.psum_model(a))
+        return h + self._mlp(lp, rms_norm(h, lp["ln2"], self.cfg.norm_eps), tp, decode=True)[0]
 
     def _decode_rope(self, h: torch.Tensor, cur: int) -> dict:
         """Position ``cur`` and its RoPE, the same for every layer (M-RoPE:
@@ -716,29 +883,29 @@ class LM(nn.Module):
         return {"pos1": pos1, "cos": cos, "sin": sin}
 
     def _decode_dense(self, params: Params, cache: dict[str, torch.Tensor],
-                      h: torch.Tensor, cur: int) -> torch.Tensor:
+                      h: torch.Tensor, cur: int, tp: MeshCtx | None = None) -> torch.Tensor:
         rope = self._decode_rope(h, cur)
         windows = self._windows(cache["k"].shape[2])
-        for i, lp in enumerate(_layers(params["layers"])):
-            h = self._decode_block(lp, h, cache["k"][i], cache["v"][i], cur, window=windows[i],
-                                   **rope)
+        for i, lp in enumerate(_layers(self._tp_layers(params["layers"], tp))):
+            h = self._decode_block(lp, h, cache["k"][i], cache["v"][i], cur, tp,
+                                   window=windows[i], **rope)
         return h
 
     def _decode_mamba(self, lp: dict, h: torch.Tensor, cache: dict[str, torch.Tensor],
-                      i: int) -> torch.Tensor:
+                      i: int, tp: MeshCtx | None = None) -> torch.Tensor:
         """Mamba2 layer i's decode step; its conv window and state are
         written into the cache."""
         x = rms_norm(h, lp["ln"], self.cfg.norm_eps)
         y, conv, state = ssd.mamba2_decode_step(lp, x[:, 0], cache["conv"][i], cache["ssm"][i],
-                                                self.cfg)
+                                                self.cfg, tp)
         cache["conv"][i].copy_(conv)
         cache["ssm"][i].copy_(state)
-        return h + y[:, None]
+        return h + (y if tp is None else tp.psum_model(y))[:, None]
 
     def _decode_ssm(self, params: Params, cache: dict[str, torch.Tensor],
-                    h: torch.Tensor) -> torch.Tensor:
+                    h: torch.Tensor, tp: MeshCtx | None = None) -> torch.Tensor:
         for i, lp in enumerate(_layers(params["layers"])):
-            h = self._decode_mamba(lp, h, cache, i)
+            h = self._decode_mamba(lp, h, cache, i, tp)
         return h
 
     def _decode_hybrid(self, params: Params, cache: dict[str, torch.Tensor],

@@ -16,31 +16,50 @@ tensor dim shard it in mesh order, outermost first, so that the block a
 rank holds is the reference's: on ("pod", "data") the index is
 ``data + pod * n_data``.
 
-This slice runs data parallelism over the batch axes with ZeRO-1 moments.
 Every step runs on this rank's blocks, so the model's code sees local
-tensors; on a mesh with ``n_model > 1`` only the pure data-parallel models
-run (their batch is sharded over every axis). Tensor and expert parallelism
-over "model", and the sequence sharding of ``token_spec``, are later items
-(ROADMAP A); their specs are computed all the same.
+tensors and makes its layout changes itself, as named collectives of
+``MeshCtx`` (counted by kind in ``MeshCtx.counts``): over "model" the
+sequence's gather (``gather_seq``) and reduce-scatter (``scatter_seq``),
+``psum_model`` and ``all_to_all``; the optimizer's reduce-scatter and
+all-gather over the batch axes. Each of the model's collectives is
+differentiable, with the reference's Megatron-SP layout in mind: between
+blocks the hidden state is sharded over the sequence on "model"; what a
+rank computes from a gathered (replicated) tensor gets a partial gradient,
+which the collective's backward sums. Data parallelism runs over the batch
+axes with ZeRO-1 moments; tensor and expert parallelism over "model" for
+the dense, MoE and SSM families where heads, KV heads, FFN, experts, SSM
+heads and vocab divide it. The fallback layouts (head_dim or only the
+sequence sharded), the other families on "model", and the sequence sharding
+of ``token_spec`` are later items (ROADMAP A); their specs are computed all
+the same.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Callable
+from typing import Any
 
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
-from repro_torch.tree import tree_map
-
-TENSOR_PARALLEL = ("tensor and expert parallelism over the \"model\" axis for a model that is "
-                   "not pure data-parallel (ROADMAP A, \"Tensor parallelism\")")
+TENSOR_PARALLEL = ("tensor parallelism over the \"model\" axis for the hybrid, VLM and "
+                   "encoder-decoder families (ROADMAP A, \"Other families on model\")")
+FALLBACK_LAYOUTS = ("a fallback layout over the \"model\" axis, with head_dim or only the "
+                    "sequence sharded, where the heads and KV heads (or the vocab, FFN, experts "
+                    "or SSM heads) do not divide it (ROADMAP A, \"Fallback layouts\")")
 SEQUENCE_SHARDING = ("the sequence sharding of MeshCtx.token_spec, for a batch that does not "
                      "fill the batch axes (ROADMAP A, \"Sequence sharding\")")
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
+# the attribute ``launch.mesh.make_shared_card_mesh`` sets on the CUDA mesh it
+# builds over gloo (which takes every collective below for CUDA tensors in the
+# card machine's torch 2.11)
+SHARED_CARD = "repro_shared_card"
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "avg": dist.ReduceOp.AVG}
+# ``reduce_scatter_tensor``/``all_gather_into_tensor`` took new names in torch 2.13
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
 @dataclass(frozen=True)
@@ -64,8 +83,12 @@ class NamedSharding:
 
 @dataclass
 class MeshCtx:
+    """The mesh, its process groups, and the collectives the steps make on
+    it. ``counts`` (kind -> calls) counts every collective this context
+    made; a caller may reset it."""
     mesh: DeviceMesh | AbstractMesh
     notes: list = field(default_factory=list)
+    counts: dict = field(default_factory=dict)
 
     def __post_init__(self):
         self._groups: dict[tuple[str, ...], Any] = {}
@@ -77,7 +100,9 @@ class MeshCtx:
         want = _BACKENDS.get(self.mesh.device_type)
         if want is None:
             raise ValueError(f"mesh device {self.mesh.device_type!r}: expected 'cuda' or 'cpu'")
-        if want == "nccl" and not dist.is_nccl_available():
+        if getattr(self.mesh, SHARED_CARD, False) and self.mesh.device_type == "cuda":
+            want = "gloo"  # ranks that share one card (make_shared_card_mesh): NCCL refuses them
+        elif want == "nccl" and not dist.is_nccl_available():
             raise RuntimeError("a CUDA mesh needs NCCL, which this torch was built without")
         backend = dist.get_backend(self.mesh.get_group(0))
         if want not in backend:
@@ -174,11 +199,12 @@ class MeshCtx:
         return (None, self.batch_axes) + (None,) * extra_dims
 
     def constrain(self, x: torch.Tensor, *spec) -> torch.Tensor:
-        """The reference's sharding constraint. The port's steps run on local
-        blocks laid out by the batch's spec, so at ``n_model == 1`` this is
-        the identity; a layout over "model" is tensor parallelism."""
-        if self.n_model != 1:
-            raise NotImplementedError(TENSOR_PARALLEL)
+        """The reference's sharding constraint: checks that ``spec`` names
+        this mesh's axes and returns ``x``. The port's steps hold local
+        blocks and make each layout change themselves, as the collectives
+        below; the layouts they do not make (``FALLBACK_LAYOUTS``) are
+        refused when a step is built."""
+        self.ns(*spec)
         return x
 
     def model_dim_choice(self, *dim_sizes: int) -> int:
@@ -192,33 +218,226 @@ class MeshCtx:
         """This rank's block of ``x`` laid out as ``sharding`` (``place``)."""
         return place(x, sharding).to_local()
 
+    # ----------------------------------------------------------- collectives
+    def size(self, axes: tuple[str, ...]) -> int:
+        return math.prod(self.shape[a] for a in axes)
+
+    @property
+    def model_rank(self) -> int:
+        return self.index(("model",))
+
+    def _comm(self, kind: str, axes: tuple[str, ...], x: torch.Tensor, fn) -> torch.Tensor:
+        """``fn(x, group)`` over the group of ``axes``, counted by kind."""
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+        return fn(x.contiguous(), self.group(axes))
+
+    def all_reduce(self, x: torch.Tensor, axes: tuple[str, ...] = ("model",),
+                   op: str = "sum") -> torch.Tensor:
+        """``x`` reduced (``op``: sum, max or avg) over ``axes``, a new tensor."""
+        def run(t, group):
+            out = t.clone()
+            dist.all_reduce(out, op=_OPS[op], group=group)
+            return out
+
+        return self._comm("all_reduce", tuple(axes), x, run)
+
+    def all_gather(self, x: torch.Tensor, axes: tuple[str, ...] = ("model",),
+                   dim: int = 0) -> torch.Tensor:
+        """The blocks of ``axes``' ranks concatenated along ``dim``, in the
+        order of ``index(axes)``."""
+        n = self.size(tuple(axes))
+
+        def run(t, group):
+            out = t.new_empty((n * t.shape[0], *t.shape[1:]))
+            _all_gather(out, t, group=group)
+            return out
+
+        return self._comm("all_gather", tuple(axes), x.movedim(dim, 0), run).movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axes: tuple[str, ...] = ("model",),
+                       dim: int = 0, op: str = "sum") -> torch.Tensor:
+        """``x`` reduced over ``axes``; this rank's block of it along ``dim``."""
+        n = self.size(tuple(axes))
+
+        def run(t, group):
+            out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
+            _reduce_scatter(out, t, op=_OPS[op], group=group)
+            return out
+
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over {n} ranks")
+        return self._comm("reduce_scatter", tuple(axes), x.movedim(dim, 0), run).movedim(0, dim)
+
+    def all_to_all(self, x: torch.Tensor, axes: tuple[str, ...] = ("model",)) -> torch.Tensor:
+        """Block p of ``x``'s dim 0 goes to rank p of ``axes``; block p of the
+        result came from rank p (the reference's tiled ``all_to_all`` with
+        split and concat axis 0)."""
+        def run(t, group):
+            out = torch.empty_like(t)
+            dist.all_to_all_single(out, t, group=group)
+            return out
+
+        return self._comm("all_to_all", tuple(axes), x, run)
+
+    # the model's layout changes over "model", differentiable (module docstring)
+    def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The sequence's blocks gathered over "model" (backward: their
+        gradients summed and scattered back)."""
+        return _GatherSeq.apply(x, self, dim)
+
+    def scatter_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """Partial sums over "model" added in f32 and scattered along the
+        sequence, in ``x``'s dtype (backward: the gradient gathered)."""
+        return _ScatterSeq.apply(x, self, dim)
+
+    def psum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Partial sums over "model" added in f32, in ``x``'s dtype, on every
+        rank; each rank's use of the sum gives a partial gradient, so the
+        backward sums them too."""
+        return _PsumModel.apply(x, self)
+
+    def all_to_all_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``all_to_all`` over "model" (backward: the gradient sent back)."""
+        return _AllToAll.apply(x, self)
+
+    def pmean_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` averaged over every axis (the reference's ``pmean`` over the
+        mesh's axis names) in f32. Every rank of a model group holds the
+        same loss, and the step averages the gradients over the batch axes,
+        so the backward scales by 1 / n_model."""
+        return _PmeanAll.apply(x, self)
+
+
+def _f32_sum(op, x: torch.Tensor, *args) -> torch.Tensor:
+    """``op`` (a sum over "model") of ``x`` taken in f32, in ``x``'s dtype."""
+    return op(x.float(), ("model",), *args).to(x.dtype)
+
+
+class _GatherSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx: MeshCtx, dim: int):
+        fctx.ctx, fctx.dim = ctx, dim
+        return ctx.all_gather(x, ("model",), dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _f32_sum(fctx.ctx.reduce_scatter, g, fctx.dim), None, None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx: MeshCtx, dim: int):
+        fctx.ctx, fctx.dim = ctx, dim
+        return _f32_sum(ctx.reduce_scatter, x, dim)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx.all_gather(g, ("model",), fctx.dim), None, None
+
+
+class _PsumModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx: MeshCtx):
+        fctx.ctx = ctx
+        return _f32_sum(ctx.all_reduce, x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return _f32_sum(fctx.ctx.all_reduce, g), None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx: MeshCtx):
+        fctx.ctx = ctx
+        return ctx.all_to_all(x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return fctx.ctx.all_to_all(g), None
+
+
+class _PmeanAll(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx: MeshCtx):
+        fctx.ctx = ctx
+        axes = (*ctx.batch_axes, "model")
+        return ctx.all_reduce(x.float(), axes) / ctx.size(axes)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.ctx.n_model, None
+
+
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, ctx: MeshCtx) -> torch.Tensor:
+    """Each position's f32 cross-entropy from this rank's block of the vocab
+    (``logits`` (..., V/n) f32, the vocab split over "model" in rank order),
+    the same on every rank of the model group: the max and the sum of exp
+    reduced over "model", the label's logit from the rank that holds it.
+    The backward gives each rank its own block's gradient."""
+    return _VocabParallelCE.apply(logits, labels, ctx)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, logits, labels, ctx: MeshCtx):
+        V = logits.shape[-1]
+        m = ctx.all_reduce(logits.amax(dim=-1), op="max")
+        e = torch.exp(logits - m[..., None])
+        local = labels.long() - ctx.model_rank * V
+        own = (local >= 0) & (local < V)
+        idx = local.clamp(0, V - 1)[..., None]
+        ll = torch.where(own, logits.gather(-1, idx)[..., 0], 0.0)
+        sums = ctx.all_reduce(torch.stack([e.sum(dim=-1), ll]))
+        fctx.save_for_backward(e / sums[0][..., None], idx, own)
+        return torch.log(sums[0]) + m - sums[1]
+
+    @staticmethod
+    def backward(fctx, g):
+        p, idx, own = fctx.saved_tensors
+        grad = p.scatter_add(-1, idx, -own[..., None].to(p.dtype))
+        return grad * g[..., None], None, None
+
 
 def place(x: torch.Tensor, sharding: NamedSharding) -> DTensor:
     """``x`` laid out as ``sharding`` on its mesh (the counterpart of
-    ``jax.device_put``): a DTensor is redistributed; a plain tensor is the
-    global value, the same on every rank, of which each rank keeps its
-    block (no communication)."""
+    ``jax.device_put``): a plain tensor is the global value, the same on
+    every rank, of which each rank keeps its block (no communication); a
+    DTensor laid out otherwise is gathered whole first (``whole``)."""
     mesh = sharding.mesh
     if isinstance(mesh, AbstractMesh):
         raise RuntimeError("an AbstractMesh has no devices: build the MeshCtx on a DeviceMesh")
     if isinstance(x, DTensor):
-        return x.redistribute(mesh, sharding.placements)
+        if tuple(x.placements) == tuple(sharding.placements):
+            return x
+        x = whole(x)
     return distribute_tensor(x, mesh, sharding.placements, src_data_rank=None)
 
 
-def shard_map_compat(f: Callable, *, mesh: MeshCtx, in_specs: tuple, out_specs) -> Callable:
-    """``f`` run on this rank's blocks (the counterpart of ``jax.shard_map``,
-    whose name the reference's helper keeps): each argument, a tree of
-    tensors (DTensors, or plain tensors holding the global value), is laid
-    out as its tree of shardings in ``in_specs`` and ``f`` gets the local
-    blocks; ``f``'s output, a tree of local blocks, becomes DTensors laid
-    out as the tree ``out_specs``. ``f`` makes any collective itself."""
-    def run(*args):
-        local = [tree_map(mesh.local, a, s) for a, s in zip(args, in_specs)]
-        return tree_map(lambda t, s: DTensor.from_local(t, mesh.device_mesh(), s.placements,
-                                                        run_check=False), f(*local), out_specs)
+def whole(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor's global value, on every rank: its blocks gathered over each
+    mesh dim that shards it, the innermost first, so that blocks nested on
+    one tensor dim come back in mesh order; a plain tensor as it is. The
+    gathers are ``torch.distributed``'s own: DTensor's ``full_tensor`` and
+    ``redistribute`` run its functional collectives, which crashed (SIGSEGV)
+    over gloo with CUDA tensors, a shared-card mesh, on the card's torch
+    2.11."""
+    if not isinstance(x, DTensor):
+        return x
+    mesh, t = x.device_mesh, x.to_local()
+    for i in reversed(range(mesh.ndim)):
+        p = x.placements[i]
+        if isinstance(p, Shard) and mesh.size(i) > 1:
+            src = t.movedim(p.dim, 0).contiguous()
+            out = src.new_empty((mesh.size(i) * src.shape[0], *src.shape[1:]))
+            _all_gather(out, src, group=mesh.get_group(i))
+            t = out.movedim(0, p.dim)
+    return t.contiguous()
 
-    return run
+
+def on_model(sharding: NamedSharding) -> bool:
+    """Whether ``sharding`` shards a dim over "model"."""
+    return any(e == "model" or (isinstance(e, tuple) and "model" in e) for e in sharding.spec)
 
 
 def spec_with_model_on(shape: tuple[int, ...], ctx: MeshCtx, candidates: list[int]) -> tuple:

@@ -17,6 +17,14 @@ d_inner scales by ``1 + norm``. The reference computes the SSD with XLA
 einsums outside any Pallas kernel, so plain f32 matmuls are its port here
 (with TF32 off, as ``chip_smoke.py`` sets it).
 
+With a ``MeshCtx`` whose "model" axis is larger than 1 (``tp``) the mixer
+runs on this rank's SSM heads (the reference's head parallelism): ``wz``,
+``wx``, ``wdt``, ``norm`` and ``wo`` are the rank's blocks of ``d_inner`` or
+of the heads; ``dt_bias``, ``A_log``, ``Dskip`` and ``conv_w``, replicated,
+are cut to the rank's heads and channels (its ``x`` channels and the shared
+B and C); the gated RMSNorm's mean over ``d_inner`` sums its squares over
+"model"; the output is the out-projection's partial sums.
+
 Parameter layout per layer (the caller stacks a leading L axis):
   wz, wx (D, d_inner) | wB, wC (D, G*N) | wdt (D, H) | dt_bias (H,)
   A_log (H,) | Dskip (H,) | conv_w (K, conv_dim) | norm (d_inner,)
@@ -27,8 +35,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from typing import TYPE_CHECKING
+
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import NEG, dt
+
+if TYPE_CHECKING:
+    from repro_torch.models.sharding import MeshCtx
 
 G = 1  # B/C groups (mamba2 default ngroups=1)
 
@@ -58,14 +71,40 @@ def _in_proj(p: dict, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     return z, xbc, x @ p["wdt"]
 
 
-def mamba2_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """x (B, L, D) -> (B, L, D). Chunked SSD over the full sequence."""
+def _local(p: dict, cfg: ArchConfig, tp: "MeshCtx | None") -> tuple[dict, int, int]:
+    """The per-head leaves ``dt_bias``, ``A_log``, ``Dskip`` and the conv's
+    weights cut to this rank's heads and channels (``p`` itself without
+    ``tp``), with the rank's head and ``d_inner`` counts."""
+    if tp is None:
+        return p, cfg.ssm_heads, cfg.d_inner
+    n, r = tp.n_model, tp.model_rank
+    H, d_in = cfg.ssm_heads // n, cfg.d_inner // n
+    out = dict(p)
+    for name in ("dt_bias", "A_log", "Dskip"):
+        out[name] = p[name].narrow(0, r * H, H)
+    out["conv_w"] = p["conv_w"][:, _channels(cfg, tp, p["conv_w"].device)]
+    return out, H, d_in
+
+
+def _channels(cfg: ArchConfig, tp: "MeshCtx", device: torch.device) -> torch.Tensor:
+    """This rank's channels of the conv: its block of the x channels, then
+    the B and C channels every rank uses."""
+    d_in = cfg.d_inner // tp.n_model
+    mine = torch.arange(tp.model_rank * d_in, (tp.model_rank + 1) * d_in, device=device)
+    shared = torch.arange(cfg.d_inner, cfg.d_inner + 2 * G * cfg.ssm_state, device=device)
+    return torch.cat([mine, shared])
+
+
+def mamba2_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig,
+                 tp: "MeshCtx | None" = None) -> torch.Tensor:
+    """x (B, L, D) -> (B, L, D). Chunked SSD over the full sequence. With
+    ``tp``, on this rank's heads: the out-projection's partial sums."""
     B, L, D = x.shape
-    H, P, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
+    P, N = cfg.ssm_headdim, cfg.ssm_state
     Q = min(cfg.ssm_chunk, L)
     if L % Q:
         raise ValueError(f"sequence length {L} is not a multiple of the chunk {Q}")
-    d_in = cfg.d_inner
+    p, H, d_in = _local(p, cfg, tp)
     z, xbc, dt_raw = _in_proj(p, x)
     xbc = F.silu(_causal_conv(xbc, p["conv_w"]).float()).to(x.dtype)
     xin, Bp, Cp = xbc[..., :d_in], xbc[..., d_in:d_in + G * N], xbc[..., d_in + G * N:]
@@ -77,14 +116,20 @@ def mamba2_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     y = y + xh.float() * p["Dskip"].float()[None, None, :, None]
     y = y.reshape(B, L, d_in).to(x.dtype)
     y = y * F.silu(z.float()).to(x.dtype)
-    return _gated_norm(y, p["norm"], cfg.norm_eps).to(x.dtype) @ p["wo"]
+    return _gated_norm(y, p["norm"], cfg.norm_eps, tp).to(x.dtype) @ p["wo"]
 
 
-def _gated_norm(y: torch.Tensor, norm: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm over d_inner in f32, scaled by ``1 + norm``."""
+def _gated_norm(y: torch.Tensor, norm: torch.Tensor, eps: float,
+                tp: "MeshCtx | None" = None) -> torch.Tensor:
+    """RMSNorm over d_inner in f32, scaled by ``1 + norm``. With ``tp`` y is
+    this rank's block of d_inner: the f32 sum of squares is summed over
+    "model"."""
     y32 = y.float()
-    inv = torch.rsqrt((y32 * y32).mean(dim=-1, keepdim=True) + eps)
-    return y32 * inv * (1.0 + norm.float())
+    if tp is None:
+        ms = (y32 * y32).mean(dim=-1, keepdim=True)
+    else:
+        ms = tp.psum_model((y32 * y32).sum(dim=-1, keepdim=True)) / (y.shape[-1] * tp.n_model)
+    return y32 * torch.rsqrt(ms + eps) * (1.0 + norm.float())
 
 
 def _ssd_chunked(x: torch.Tensor, dt_: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
@@ -145,18 +190,35 @@ def _inter_chunk(xc: torch.Tensor, dtc: torch.Tensor, Bc: torch.Tensor, Cc: torc
 
 
 def mamba2_decode_step(p: dict, x: torch.Tensor, conv_state: torch.Tensor,
-                       ssm_state: torch.Tensor,
-                       cfg: ArchConfig) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+                       ssm_state: torch.Tensor, cfg: ArchConfig, tp: "MeshCtx | None" = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Single-token recurrence. x (B, D); conv_state (B, K-1, conv_dim) bf16;
     ssm_state (B, G, Hg, N, P) f32. Returns (y (B, D), conv_state',
     ssm_state'), new tensors as the reference's (the caller writes them into
-    its cache)."""
+    its cache). With ``tp``: ssm_state holds this rank's heads and
+    conv_state its block of the channels (``cache_specs``, which splits
+    conv_dim evenly over "model", not by heads: the window is gathered, the
+    rank's channels read from it, and its block written back); y is the
+    out-projection's partial sums."""
     B, D = x.shape
-    H, Pd, N = cfg.ssm_heads, cfg.ssm_headdim, cfg.ssm_state
-    Hg, d_in = H // G, cfg.d_inner
+    Pd, N = cfg.ssm_headdim, cfg.ssm_state
+    p, H, d_in = _local(p, cfg, tp)
+    Hg = H // G
     z, xbc, dt_raw = _in_proj(p, x)
     # the conv over [state ; new], summed over the K taps in f32
-    window = torch.cat([conv_state, xbc[:, None, :]], dim=1)          # (B, K, C)
+    if tp is None:
+        window = torch.cat([conv_state, xbc[:, None, :]], dim=1)      # (B, K, C)
+        new_state = window[:, 1:]
+    else:
+        whole = torch.cat([tp.all_gather(xbc[:, :d_in], dim=-1), xbc[:, d_in:]], dim=-1)
+        sharded = conv_state.shape[-1] != whole.shape[-1]
+        if sharded:
+            conv_state = tp.all_gather(conv_state, dim=-1)
+        window = torch.cat([conv_state, whole[:, None, :]], dim=1)
+        new_state = window[:, 1:]
+        if sharded:
+            new_state = new_state.chunk(tp.n_model, dim=-1)[tp.model_rank]
+        window = window[..., _channels(cfg, tp, x.device)]
     wf, cw = window.float(), p["conv_w"].float()
     conv_out = wf[:, 0] * cw[0]
     for j in range(1, cw.shape[0]):
@@ -174,8 +236,8 @@ def mamba2_decode_step(p: dict, x: torch.Tensor, conv_state: torch.Tensor,
     y = (Cp[:, :, None, None, :] @ ssm_state)[..., 0, :]              # (B, G, Hg, P)
     y = y + xh * p["Dskip"].float().reshape(1, G, Hg, 1)
     y = y.reshape(B, d_in) * F.silu(z.float())
-    y = _gated_norm(y, p["norm"], cfg.norm_eps).to(x.dtype)
-    return y @ p["wo"], window[:, 1:], ssm_state
+    y = _gated_norm(y, p["norm"], cfg.norm_eps, tp).to(x.dtype)
+    return y @ p["wo"], new_state, ssm_state
 
 
 def mamba2_param_shapes(cfg: ArchConfig) -> dict:

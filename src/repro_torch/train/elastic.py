@@ -17,9 +17,8 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor
 
-from repro_torch.models.sharding import place
+from repro_torch.models.sharding import place, whole
 from repro_torch.train.checkpoint import ECCheckpointStore
 from repro_torch.tree import tree_leaves, tree_map
 
@@ -50,10 +49,10 @@ def elastic_resize(
     None, on the other ranks). Returns (restored step, restored state,
     blocks moved) on every rank, the state whole, for ``reshard_state`` onto
     the new mesh."""
-    whole = tree_map(lambda x: x.full_tensor() if isinstance(x, DTensor) else x, state)
+    full = tree_map(whole, state)
     many = dist.is_initialized() and dist.get_world_size() > 1
     if not many or dist.get_rank() == 0:
-        st = store.save(step, whole, shard_id)
+        st = store.save(step, full, shard_id)
         if not st.success:
             raise RuntimeError(f"elastic resize needs a successful checkpoint: {st}")
         moved = store.reconfigure(shard_id, n_hosts=new_hosts, parity=new_parity)
@@ -70,7 +69,7 @@ def elastic_resize(
     dist.broadcast_object_list(head, src=0)
     rstep, moved, shapes = head
     if dist.get_rank() != 0:
-        device = next(x.device for x in tree_leaves(whole))
+        device = next(x.device for x in tree_leaves(full))
         rstate = tree_map(lambda sd: torch.empty(sd[0], dtype=sd[1], device=device), shapes)
     for x in tree_leaves(rstate):
         dist.broadcast(x, src=0)

@@ -14,22 +14,18 @@ The state is ``{"m": tree, "v": tree, "step": int32 0-d tensor}``. On a mesh
 plus the batch axes on the first still-unsharded divisible dim
 (``adamw_specs``): each rank keeps and updates its block of them, and the
 only traffic is the gradients' reduce-scatter and the fresh parameters'
-all-gather.
+all-gather, over the batch axes (a parameter sharded over "model" too keeps
+that block), made by the ``MeshCtx``'s counted collectives.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor
 
-from repro_torch.models.sharding import MeshCtx, NamedSharding
+from repro_torch.models.sharding import MeshCtx, NamedSharding, on_model
 from repro_torch.tree import Tree, named_leaves, tree_leaves, tree_map
-
-# ``reduce_scatter_tensor``/``all_gather_into_tensor`` took new names in torch 2.13
-_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-_all_gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 
 
 @dataclass(frozen=True)
@@ -149,41 +145,38 @@ def adamw_update_sharded(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfi
     leaf with no divisible dim is all-reduced whole), in f32 and rounded
     back to the gradient's dtype: the reference's compiled sharded step
     all-reduces its bf16 weights' gradients in f32. The global-norm clip
-    sums the shards' squares, all-reduced over the batch axes. Each rank
-    then runs ``adamw_update``'s update on its blocks (the same ops in the
-    same order) and all-gathers its block of the new parameters.
+    sums the shards' squares, all-reduced over the batch axes, and for the
+    leaves ``param_specs`` shards over "model" over that axis too. Each
+    rank then runs ``adamw_update``'s update on its blocks (the same ops in
+    the same order) and all-gathers its block of the new parameters over
+    the batch axes.
 
     Returns ``(params, state)`` as DTensors laid out as the specs: the
     moments and ``step`` as this rank keeps them, the parameters whole
     again. Given the same whole gradients on every rank, and where the clip
     does not bind, the result equals ``adamw_update``'s bit for bit."""
-    mesh, group = ctx.device_mesh(), ctx.group(ctx.batch_axes)
+    mesh, axes = ctx.device_mesh(), ctx.batch_axes
     n_dp, idx = ctx.n_batch, ctx.index(ctx.batch_axes)
     ps, zs = dict(named_leaves(param_specs)), dict(named_leaves(zero_specs))
     ms, vs = dict(named_leaves(state["m"])), dict(named_leaves(state["v"]))
     step = ctx.local(state["step"], ctx.replicated()) + 1
-    blocks, partial = {}, []
+    blocks = {}
     for name, g in named_leaves(grads):
         zdim = _zero_dim(ps[name], zs[name])
-        g32 = g.float()
         if zdim is None:
-            dist.all_reduce(g32, op=dist.ReduceOp.AVG, group=group)
-            g_s = g32.to(g.dtype)
+            g_s = ctx.all_reduce(g.float(), axes, "avg").to(g.dtype)
         else:
-            src = g32.movedim(zdim, 0).contiguous()
-            out = src.new_empty((src.shape[0] // n_dp, *src.shape[1:]))
-            _reduce_scatter(out, src, op=dist.ReduceOp.AVG, group=group)
-            g_s = out.movedim(0, zdim).to(g.dtype).contiguous()
+            g_s = ctx.reduce_scatter(g.float(), axes, zdim, "avg").to(g.dtype).contiguous()
         blocks[name] = (zdim, g_s)
-        if zdim is not None:
-            partial.append(torch.sum(g_s.float() ** 2))
-    # each leaf's squared norm: the ZeRO leaves' blocks summed over the ranks
-    sums = torch.stack(partial) if partial else None
-    if sums is not None:
-        dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
-    sums = iter(sums if sums is not None else ())
-    gnorm2 = sum(next(sums) if zdim is not None else torch.sum(g_s.float() ** 2)
-                 for zdim, g_s in blocks.values())
+    # each leaf's squared norm: its blocks summed over the ranks that split it
+    sq = {name: torch.sum(g_s.float() ** 2) for name, (_, g_s) in blocks.items()}
+    splits = [([n for n, (z, _) in blocks.items() if z is not None], axes)]
+    if ctx.n_model > 1:
+        splits.append(([n for n in blocks if on_model(ps[n])], ("model",)))
+    for names, over in splits:
+        if names:
+            sq.update(zip(names, ctx.all_reduce(torch.stack([sq[n] for n in names]), over)))
+    gnorm2 = sum(sq.values())
     scale, b1c, b2c = _factors(cfg, gnorm2, step)
 
     out = {}
@@ -196,10 +189,7 @@ def adamw_update_sharded(params: Tree, grads: Tree, state: Tree, cfg: AdamWConfi
         m_l, v_l = ctx.local(ms[name], zs[name]), ctx.local(vs[name], zs[name])
         p2, m2, v2 = _upd(cfg, p_l, g_s, m_l, v_l, scale, b1c, b2c)
         if zdim is not None:
-            src = p2.movedim(zdim, 0).contiguous()
-            full = src.new_empty((src.shape[0] * n_dp, *src.shape[1:]))
-            _all_gather(full, src, group=group)
-            p2 = full.movedim(0, zdim).contiguous()
+            p2 = ctx.all_gather(p2, axes, zdim).contiguous()
         wrap = lambda t, s: DTensor.from_local(t, mesh, s.placements, run_check=False)  # noqa: E731
         out[name] = (wrap(p2, ps[name]), wrap(m2, zs[name]), wrap(v2, zs[name]))
     pick = lambda i: _unflatten(params, {n: t[i] for n, t in out.items()})  # noqa: E731

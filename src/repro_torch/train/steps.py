@@ -2,20 +2,25 @@
 
 Without a mesh (``ctx=None``) a step runs on one device. With a ``MeshCtx``
 it is data-parallel over the batch axes with ZeRO-1 moments: each rank runs
-the model on its block of the batch (``batch_shardings``), whole weights in
-hand, and the collectives are the gradients' reduce-scatter and the fresh
-parameters' all-gather (``adamw_update_sharded``), the loss's mean, and the
-prefill's and decode's logits gathered over the batch. A pure data-parallel
-model (``LM.pure_dp``) runs on any mesh, its batch sharded over every axis
-where it divides them; any other model needs ``n_model == 1``. Tensor and
-expert parallelism over "model", and the sequence sharding of a batch that
-does not fill the batch axes, raise ``NotImplementedError`` (ROADMAP A).
+the model on its block of the batch (``batch_shardings``), and the
+collectives are the gradients' reduce-scatter and the fresh parameters'
+all-gather (``adamw_update_sharded``), the loss's mean, and the prefill's
+and decode's logits gathered over the batch. A pure data-parallel model
+(``LM.pure_dp``) runs with whole weights on any mesh, its batch sharded
+over every axis where it divides them. Any other model on a mesh whose
+"model" axis is larger than 1 runs tensor and expert parallelism over it
+(``LM.tp_ctx``): each rank holds its blocks of ``param_specs`` (and, to
+decode, of ``cache_specs``), the model makes its collectives over "model"
+itself, and the gradient of every leaf that ``param_specs`` does not shard
+over "model", which saw only this rank's tokens or heads, is summed over
+"model" in f32 before the optimizer. What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item: the hybrid, VLM and
+encoder-decoder families on "model", the fallback layouts, and the
+sequence sharding of a batch that does not fill the batch axes.
 """
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
-from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.lm import LM, Params
@@ -25,8 +30,8 @@ from repro_torch.models.sharding import (
     TENSOR_PARALLEL,
     MeshCtx,
     NamedSharding,
+    on_model,
     place,
-    shard_map_compat,
 )
 from repro_torch.train.optimizer import (
     AdamWConfig,
@@ -95,11 +100,12 @@ def make_train_step(model: LM, ctx: MeshCtx | None = None, opt_cfg: AdamWConfig 
     plain tensors holding the global value, e.g. ``adamw_init``'s), laid
     out as ``training_state_specs`` or any other way; ``batch`` is the
     global batch, the same on every rank. The parameters are gathered to
-    ``param_specs`` (replicated here), each rank takes the loss (its block's
-    mean) and gradients of its block of the batch, which
-    ``adamw_update_sharded`` averages over the batch axes; the returned
-    parameters are laid out as ``param_specs``, the moments as
-    ``adamw_specs``, and the loss is the mean over the ranks."""
+    ``param_specs`` (replicated for a pure data-parallel model, else
+    sharded over "model"), each rank takes the loss (its block's mean) and
+    gradients of its block of the batch, which ``adamw_update_sharded``
+    averages over the batch axes; the returned parameters are laid out as
+    ``param_specs``, the moments as ``adamw_specs``, and the loss is the
+    mean over the ranks."""
     opt_cfg = opt_cfg or AdamWConfig()
     if ctx is None:
         def train_step(params: Params, opt_state: Tree, batch: dict):
@@ -109,7 +115,7 @@ def make_train_step(model: LM, ctx: MeshCtx | None = None, opt_cfg: AdamWConfig 
 
         return train_step
 
-    _refuse_model_axis(model, ctx)
+    tp = model.tp_ctx(ctx)
     pspecs = model.param_specs(ctx)
     zspecs = adamw_specs(pspecs, model.param_template(), ctx)["m"]
 
@@ -119,11 +125,13 @@ def make_train_step(model: LM, ctx: MeshCtx | None = None, opt_cfg: AdamWConfig 
         local = tree_map(lambda p: p.to_local(), params)
         loss, grads = loss_and_grads(model, local, {k: ctx.local(v, bspecs[k])
                                                     for k, v in batch.items()}, ctx)
-        if "model" in dp_axes and ctx.n_model > 1:  # the batch is sharded over "model" too
-            grads = tree_map(lambda g: _mean(g, ctx.group(("model",))), grads)
+        if tp is not None:
+            grads = _sum_over_model(grads, pspecs, ctx)
+        elif "model" in dp_axes and ctx.n_model > 1:  # the batch is sharded over "model" too
+            grads = tree_map(lambda g: _mean(g, ctx, ("model",)), grads)
         params, opt_state = adamw_update_sharded(params, grads, opt_state, opt_cfg, ctx,
                                                  pspecs, zspecs)
-        return params, opt_state, _mean(loss, ctx.group(dp_axes))
+        return params, opt_state, _mean(loss, ctx, dp_axes)
 
     return sharded_train_step
 
@@ -140,24 +148,28 @@ def make_prefill_step(model: LM, ctx: MeshCtx | None = None):
     ``dtype="float32"`` configuration then serves in f32 throughout (the
     reference casts it to bf16).
 
-    With ``ctx`` each rank runs its block of the global ``batch`` with the
-    whole weights (DTensors or plain tensors) and the logits are gathered
-    over the batch's axes: every rank returns all B rows."""
+    With ``ctx`` each rank runs its block of the global ``batch`` with its
+    blocks of the weights (DTensors or plain tensors holding the global
+    value; whole for a pure data-parallel model, else laid out as
+    ``param_specs``, the last position's hidden state taken from the rank
+    that holds it and the logits gathered over "model") and the logits are
+    gathered over the batch's axes: every rank returns all B rows."""
     @torch.no_grad()
-    def local_prefill(params: Params, batch: dict) -> torch.Tensor:
-        h, _ = model._forward(params, batch)
-        return model._head(params, h[:, -1:, :])[:, 0].float()
+    def local_prefill(params: Params, batch: dict, tp: MeshCtx | None = None) -> torch.Tensor:
+        h, _ = model._forward(params, batch, tp=tp)
+        last = h[:, -1:] if tp is None else tp.gather_seq(h[:, -1:])[:, -1:]
+        return model._logits(params, last, tp)
 
     if ctx is None:
         return local_prefill
-    _refuse_model_axis(model, ctx)
+    tp = model.tp_ctx(ctx)
+    pspecs = model.param_specs(ctx) if tp is not None else None
 
     def prefill_step(params: Params, batch: dict) -> torch.Tensor:
         bspecs, dp_axes = _batch_layout(model, ctx, batch, "prefill")
-        run = shard_map_compat(local_prefill, mesh=ctx,
-                               in_specs=(tree_map(lambda _: ctx.replicated(), params), bspecs),
-                               out_specs=ctx.ns(dp_axes, None))
-        return run(params, batch).full_tensor()
+        local = _local_params(params, pspecs, ctx)
+        logits = local_prefill(local, {k: ctx.local(v, bspecs[k]) for k, v in batch.items()}, tp)
+        return ctx.all_gather(logits, dp_axes)
 
     return prefill_step
 
@@ -166,34 +178,36 @@ def make_serve_step(model: LM, ctx: MeshCtx | None = None):
     """``serve_step(params, cache, batch) -> (logits, cache)``: one decode
     step (``LM.decode_step``; the cache is updated in place).
 
-    With ``ctx`` (``n_model == 1``) each rank decodes its block of the batch:
-    ``cache`` is a tree of DTensors laid out as ``LM.cache_specs`` (its
-    local blocks updated in place), ``batch`` the global token (or
-    embedding) and ``cur_len``; the logits are gathered over the batch
-    axes."""
+    With ``ctx`` each rank decodes its block of the batch: ``cache`` is a
+    tree of DTensors laid out as ``LM.cache_specs`` (its local blocks
+    updated in place), ``batch`` the global token (or embedding) and
+    ``cur_len``; where "model" is larger than 1 the parameters are this
+    rank's blocks of ``param_specs`` and the cache's heads are sharded over
+    it (``LM.decode_step``); the logits are gathered over the batch axes."""
     @torch.no_grad()
     def serve_step(params: Params, cache: dict, batch: dict):
         return model.decode_step(params, cache, batch)
 
     if ctx is None:
         return serve_step
-    if ctx.n_model != 1:  # the cache's heads shard over "model"
-        raise NotImplementedError(TENSOR_PARALLEL)
+    tp = model.tp_ctx(ctx)
+    if ctx.n_model != 1 and tp is None:  # a pure data-parallel model: whisper-base
+        raise NotImplementedError(f"{model.cfg.name}'s decode on a mesh with "
+                                  f"model={ctx.n_model}: {TENSOR_PARALLEL}")
+    pspecs = model.param_specs(ctx) if tp is not None else None
 
+    @torch.no_grad()
     def sharded_serve_step(params: Params, cache: dict, batch: dict):
         key = "embed" if "embed" in batch else "token"
         B, S = batch[key].shape[0], cache["k"].shape[2] if "k" in cache else 0
         if not (B >= ctx.n_batch and B % ctx.n_batch == 0):
             raise NotImplementedError(SEQUENCE_SHARDING)
         cspecs = model.cache_specs(B, S, ctx)
-        local = tree_map(lambda p: ctx.local(p, ctx.replicated()), params)
         blocks = {k: ctx.local(v, cspecs[k]) for k, v in cache.items()}
         tok = ctx.local(batch[key], ctx.ns(ctx.batch_axes, *([None] * (batch[key].ndim - 1))))
-        logits, _ = serve_step(local, blocks, {key: tok, "cur_len": batch["cur_len"]})
-        mesh = ctx.device_mesh()
-        gathered = DTensor.from_local(logits, mesh, ctx.ns(ctx.batch_axes, None).placements,
-                                      run_check=False).full_tensor()
-        return gathered, cache
+        logits, _ = model.decode_step(_local_params(params, pspecs, ctx), blocks,
+                                      {key: tok, "cur_len": batch["cur_len"]}, ctx)
+        return ctx.all_gather(logits, ctx.batch_axes), cache
 
     return sharded_serve_step
 
@@ -212,11 +226,28 @@ def training_state_specs(model: LM, ctx: MeshCtx) -> tuple[dict, dict]:
     return ospecs["m"], ospecs
 
 
-def _refuse_model_axis(model: LM, ctx: MeshCtx) -> None:
-    """A model that is not pure data-parallel runs only where "model" is 1."""
-    if ctx.n_model != 1 and not model.pure_dp:
-        raise NotImplementedError(f"{model.cfg.name} on a mesh with model={ctx.n_model}: "
-                                  f"{TENSOR_PARALLEL}")
+def _local_params(params: Params, pspecs: Tree | None, ctx: MeshCtx) -> Params:
+    """This rank's blocks of ``params`` laid out as ``pspecs``; whole where
+    ``pspecs`` is None."""
+    if pspecs is None:
+        return tree_map(lambda p: ctx.local(p, ctx.replicated()), params)
+    return tree_map(ctx.local, params, pspecs)
+
+
+def _sum_over_model(grads: Tree, pspecs: Tree, ctx: MeshCtx) -> Tree:
+    """The gradients of the leaves that ``pspecs`` does not shard over
+    "model" (the norms, the router, the SSM's shared and per-head leaves:
+    each rank's is that of its tokens or heads alone) summed over "model"
+    in f32, in one all-reduce, and rounded back to their dtypes; the
+    sharded leaves' as they are."""
+    names = [n for n, s in named_leaves(pspecs) if not on_model(s)]
+    flat = dict(named_leaves(grads))
+    if names:
+        summed = ctx.all_reduce(torch.cat([flat[n].float().reshape(-1) for n in names]))
+        for n, part in zip(names, summed.split([flat[n].numel() for n in names])):
+            flat[n] = part.view(flat[n].shape).to(flat[n].dtype)
+    leaves = iter(flat[n] for n, _ in named_leaves(grads))
+    return tree_map(lambda _: next(leaves), grads)
 
 
 def _batch_layout(model: LM, ctx: MeshCtx, batch: dict,
@@ -231,11 +262,11 @@ def _batch_layout(model: LM, ctx: MeshCtx, batch: dict,
     if dp_axes is None:
         raise NotImplementedError(f"a batch of {B} on {ctx.n_batch} batch ranks: "
                                   f"{SEQUENCE_SHARDING}")
+    if "model" not in dp_axes and ctx.n_model > 1 and S % ctx.n_model:
+        raise ValueError(f"a sequence of {S} does not split over model={ctx.n_model}")
     return {k: bspecs[k] for k in batch}, tuple(dp_axes)
 
 
-def _mean(x: torch.Tensor, group) -> torch.Tensor:
-    """``x`` averaged over ``group`` in f32, in ``x``'s dtype."""
-    out = x.float()
-    dist.all_reduce(out, op=dist.ReduceOp.AVG, group=group)
-    return out.to(x.dtype)
+def _mean(x: torch.Tensor, ctx: MeshCtx, axes: tuple[str, ...]) -> torch.Tensor:
+    """``x`` averaged over ``axes`` in f32, in ``x``'s dtype."""
+    return ctx.all_reduce(x.float(), axes, "avg").to(x.dtype)

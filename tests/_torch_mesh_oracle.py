@@ -59,6 +59,8 @@ _SCRIPT = textwrap.dedent(
     ctx = MeshCtx(mesh)
     cfg = get_arch("{arch}").reduced()
     model = build_model(cfg, max_pos={max_pos})
+    if {pure_dp} is not None:
+        model.pure_dp = {pure_dp}
     tmpl = model.param_shapes()
     flat, tree = jax.tree_util.tree_flatten_with_path(tmpl)
     name = lambda path: ".".join(k.key for k in path)
@@ -96,12 +98,15 @@ _SCRIPT = textwrap.dedent(
 
 def reference_run(arch: str, shape: tuple[int, ...], names: tuple[str, ...], params: dict,
                   batch: dict, workdir: Path, *, max_pos: int, lr: float,
-                  prefill: dict | None = None, timeout: float = 420) -> dict:
+                  prefill: dict | None = None, pure_dp: bool | None = None,
+                  timeout: float = 420) -> dict:
     """The reference's sharded step (and prefill) on an Auto mesh of
     ``shape``/``names``: ``{"loss", "params": {dotted name: f32 array},
     "logits"}``. ``params`` (dotted name -> numpy, bf16 as f32) and
     ``batch``/``prefill`` (numpy; float inputs as f32 of bf16 values) are
-    what both packages are fed."""
+    what both packages are fed. ``pure_dp`` overrides the model's
+    ``pure_dp`` (False: the reduced configs run tensor and expert parallel
+    over "model", as the catalog's models do)."""
     workdir.mkdir(parents=True, exist_ok=True)
     src, dst = workdir / "in.npz", workdir / "out.npz"
     arrays = {**{f"p:{k}": np.asarray(v, np.float32) for k, v in params.items()},
@@ -109,7 +114,7 @@ def reference_run(arch: str, shape: tuple[int, ...], names: tuple[str, ...], par
               **{f"f:{k}": v for k, v in (prefill or {}).items()}}
     np.savez(src, **arrays)
     script = _SCRIPT.format(n=int(np.prod(shape)), shape=tuple(shape), names=tuple(names),
-                            ndim=len(shape), arch=arch, max_pos=max_pos, lr=lr)
+                            ndim=len(shape), arch=arch, max_pos=max_pos, lr=lr, pure_dp=pure_dp)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", script, str(src), str(dst)], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=timeout)
@@ -126,10 +131,11 @@ class OracleCase:
     ``tests/test_torch_train.py``) and its ``make_inputs`` (B x S train
     batch, seed 1; prefill batch, seed 2): the reference's sharded step and
     prefill (``reference_run``) and the port's on gloo ranks
-    (``_torch_mesh_ranks``, case ``step``)."""
+    (``_torch_mesh_ranks``, case ``step``); ``pure_dp`` overrides both
+    models' ``pure_dp``."""
 
     def __init__(self, arch: str, shape: tuple[int, ...], names: tuple[str, ...], workdir: Path,
-                 *, B: int, S: int, lr: float):
+                 *, B: int, S: int, lr: float, pure_dp: bool | None = None):
         import jax
 
         from repro.configs import get_arch
@@ -155,11 +161,12 @@ class OracleCase:
                          for k, v in d.items()}
         self.cfg = cfg
         self.ref = reference_run(arch, shape, names, dict(named_leaves(jp)), f32(inputs[0]),
-                                 workdir / "reference", max_pos=S, lr=lr, prefill=f32(inputs[1]))
+                                 workdir / "reference", max_pos=S, lr=lr, prefill=f32(inputs[1]),
+                                 pure_dp=pure_dp)
         torch_in = [{k: tensor_from_numpy(v) for k, v in d.items()} for d in inputs]
         self.port = run_ranks("step", int(np.prod(shape)), workdir / "port", dict(
             arch=arch, shape=shape, names=names, max_pos=S, params=params_from_numpy(jp),
-            batch=torch_in[0], prefill=torch_in[1], lr=lr))
+            batch=torch_in[0], prefill=torch_in[1], lr=lr, pure_dp=pure_dp))
 
 
 def assert_step_meets_reference_bound(case: OracleCase) -> None:

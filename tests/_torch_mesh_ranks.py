@@ -85,7 +85,8 @@ def _layout(tree, specs) -> dict:
 def case_step(args: dict) -> dict:
     """One sharded train step from ``args["params"]`` (stored in the ZeRO
     layout of ``training_state_specs``, as the reference's test stores
-    them), and the sharded prefill of ``args["prefill"]``."""
+    them), and the sharded prefill of ``args["prefill"]``; ``args["pure_dp"]``,
+    where given, overrides the model's ``pure_dp``."""
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import build_model
     from repro_torch.train.elastic import reshard_state
@@ -98,6 +99,8 @@ def case_step(args: dict) -> dict:
 
     ctx = _ctx(args["shape"], args["names"])
     model = build_model(get_arch(args["arch"]).reduced(), max_pos=args["max_pos"], device="cpu")
+    if args.get("pure_dp") is not None:
+        model.pure_dp = args["pure_dp"]
     pstore, ospecs = training_state_specs(model, ctx)
     params = reshard_state(args["params"], pstore)
     opt = reshard_state(adamw_init(args["params"]), ospecs)
@@ -107,6 +110,111 @@ def case_step(args: dict) -> dict:
            "misplaced": {**_layout(p1, model.param_specs(ctx)), **_layout(o1["m"], ospecs["m"])}}
     out["logits"] = make_prefill_step(model, ctx)(args["params"], args["prefill"])
     return out
+
+
+def case_tp(args: dict) -> dict:
+    """Tensor and expert parallelism over "model", the reduced config run as
+    a model that is not pure data-parallel, once for each entry of
+    ``args["runs"]`` (dtype -> its ``params``, ``batch``, ``prefill``,
+    ``tokens`` and whether to ``train``), on one mesh: with ``train``, one
+    sharded train step from the parameters stored in the ZeRO layout and
+    the gradients the step hands the optimizer (summed over "model" where
+    the spec does not shard the leaf, averaged over the batch axes,
+    gathered whole); then the sharded prefill and ``args["steps"]`` decode
+    steps; the collectives each made, by kind. Returns dtype -> results."""
+    ctx = _ctx(args["shape"], args["names"])
+    return {dtype: _tp_run(ctx, {**args, **run}, dtype) for dtype, run in args["runs"].items()}
+
+
+def _tp_run(ctx, args: dict, dtype: str) -> dict:
+    import dataclasses
+
+    from torch.distributed.tensor import DTensor
+
+    import repro_torch.train.steps as steps
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import (
+        make_prefill_step,
+        make_serve_step,
+        make_train_step,
+        training_state_specs,
+    )
+    from repro_torch.tree import tree_map
+
+    cfg = dataclasses.replace(get_arch(args["arch"]).reduced(), dtype=dtype)
+    model = build_model(cfg, max_pos=args["max_pos"], device="cpu")
+    model.pure_dp = False
+    pspecs = model.param_specs(ctx)
+    counts, out = {}, {}
+    if args["train"]:
+        pstore, ospecs = training_state_specs(model, ctx)
+        params = reshard_state(args["params"], pstore)
+        opt = reshard_state(adamw_init(args["params"]), ospecs)
+        # the gradients the step hands its optimizer, as it hands them
+        update, handed = steps.adamw_update_sharded, {}
+
+        def recording(params, grads, *rest):
+            handed["grads"] = grads
+            return update(params, grads, *rest)
+
+        ctx.counts.clear()
+        steps.adamw_update_sharded = recording
+        try:
+            p1, o1, loss = make_train_step(model, ctx, AdamWConfig(lr=args["lr"]))(
+                params, opt, args["batch"])
+        finally:
+            steps.adamw_update_sharded = update
+        counts["train"] = dict(ctx.counts)
+        out = {"loss": float(loss), "params": _whole(p1), "opt": _whole(o1),
+               "misplaced": {**_layout(p1, pspecs), **_layout(o1["m"], ospecs["m"])}}
+        grads = tree_map(lambda g: ctx.all_reduce(g.float(), ctx.batch_axes, "avg"),
+                         handed["grads"])
+        mesh = ctx.device_mesh()
+        out["grads"] = _whole(tree_map(lambda g, s: DTensor.from_local(g, mesh, s.placements,
+                                                                       run_check=False),
+                                       grads, pspecs))
+    ctx.counts.clear()
+    out["logits"] = make_prefill_step(model, ctx)(args["params"], args["prefill"])
+    counts["prefill"] = dict(ctx.counts)
+    ctx.counts.clear()
+    out["decode"] = _decode(model, make_serve_step(model, ctx), args, ctx)
+    counts["decode"] = dict(ctx.counts)
+    out["counts"] = counts
+    return out
+
+
+def case_shared_card(args: dict) -> dict:
+    """On the card: ``make_shared_card_mesh`` over this gloo group, which
+    ``MeshCtx`` takes, and a CUDA mesh over gloo built any other way, which
+    it refuses (NCCL's); the reduced config, not pure data-parallel, served
+    on the shared-card mesh: the sharded prefill of ``args["prefill"]`` and
+    ``args["steps"]`` decode steps, their logits on the host."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_shared_card_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import MeshCtx
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+    from repro_torch.tree import tree_map
+
+    torch.cuda.set_device(0)
+    ctx = MeshCtx(make_shared_card_mesh(args["shape"]))
+    refused = None
+    try:
+        MeshCtx(init_device_mesh("cuda", args["shape"], mesh_dim_names=args["names"]))
+    except ValueError as e:
+        refused = str(e)
+    model = build_model(get_arch(args["arch"]).reduced(), max_pos=args["max_pos"])
+    model.pure_dp = False
+    params = tree_map(lambda t: t.cuda(), args["params"])
+    logits = make_prefill_step(model, ctx)(params, {k: v.cuda() for k, v in args["prefill"].items()})
+    args = {**args, "tokens": args["tokens"].cuda()}
+    return {"refused": refused, "logits": logits.cpu(), "counts": dict(ctx.counts),
+            "decode": [x.cpu() for x in _decode(model, make_serve_step(model, ctx), args, ctx)]}
 
 
 def case_adamw(args: dict) -> dict:

@@ -21,8 +21,14 @@ capacity drops. So the two sides are held to:
 
 Every disagreement is counted and returned for printing, never absorbed
 into a looser tolerance.
+
+``ep_moe``/``ep_emulated`` emulate the expert-parallel branch on one
+process, the counterpart of the sharded prefill for
+``tests/test_torch_mesh_tp.py`` and ``chip_smoke.py``'s phase 9.
 """
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -39,6 +45,59 @@ def bf16_ulp(a) -> np.ndarray:
     """The bf16 spacing at |a| (8 significant bits)."""
     m = np.maximum(np.abs(np.asarray(a, np.float32)), np.float32(2.0**-126))
     return np.exp2(np.floor(np.log2(m)) - 7)
+
+
+def ep_moe(x, wr, w_gate, w_up, w_down, *, top_k: int, capacity_factor: float,
+           n_batch: int, n_model: int):
+    """``moe_layer``'s expert-parallel branch on an (n_batch, n_model) mesh,
+    emulated on one process from the whole x (B, S, D) and the whole expert
+    weights: each (batch block, sequence block) routed alone, the buffers'
+    blocks exchanged and read back as the reference reads them, the aux
+    loss averaged over the blocks."""
+    from repro_torch.models.layers import _capacity, _combine, _contrib, _dispatch, _experts, _route
+
+    Bw, Sw, D = x.shape
+    E = wr.shape[1]
+    El, Bl, Sl = E // n_model, Bw // n_batch, Sw // n_model
+    C = _capacity(Bl * Sl, top_k, E, capacity_factor)
+    rows, aux = [], []
+    for d in range(n_batch):
+        xts = [x[d * Bl:(d + 1) * Bl, m * Sl:(m + 1) * Sl].reshape(-1, D) for m in range(n_model)]
+        routes = [_route(xt, wr, top_k=top_k, capacity=C) for xt in xts]
+        sent = [_dispatch(xt, r, E * C).reshape(n_model, El * C, D) for xt, r in zip(xts, routes)]
+        done = []
+        for m in range(n_model):  # rank m's experts, on what every rank sent it
+            recv = torch.cat([sent[p][m] for p in range(n_model)])
+            ws = (w[m * El:(m + 1) * El] for w in (w_gate, w_up, w_down))
+            done.append(_experts(recv.reshape(El, n_model * C, D), *ws).reshape(n_model, -1, D))
+        ys = []
+        for m, (xt, r) in enumerate(zip(xts, routes)):
+            back = torch.cat([done[p][m] for p in range(n_model)])
+            ys.append(_combine(_contrib(back, r, x.dtype), r.st, r.se, xt.shape[0], E)
+                      .reshape(Bl, Sl, D))
+            aux.append(E * torch.sum(r.me * r.ce))
+        rows.append(torch.cat(ys, dim=1))
+    return torch.cat(rows), torch.stack(aux).mean()
+
+
+@contextlib.contextmanager
+def ep_emulated(n_batch: int, n_model: int):
+    """While active, the LM's MoE layers with S > 1 run ``ep_moe``: the
+    single-device counterpart of the sharded expert-parallel prefill."""
+    from repro_torch.models import lm
+
+    real = lm.moe_layer
+
+    def moe(x, *a, ctx=None, **kw):
+        if x.shape[1] == 1:
+            return real(x, *a, **kw)
+        return ep_moe(x, *a, n_batch=n_batch, n_model=n_model, **kw)
+
+    lm.moe_layer = moe
+    try:
+        yield
+    finally:
+        lm.moe_layer = real
 
 
 class RouteLog:

@@ -18,6 +18,9 @@ a third one on one device, with every SSD output moved by one f32 ulp,
 which shows whether the criteria can hold there (``norm_nudged``, every
 RMS norm's output, does so for a model without an SSD); ``hold_step`` is
 the one policy that decides, from it, whether and how a step is held.
+``tp_rounding`` rounds the unsharded model's row-parallel products as n
+ranks of tensor parallelism round them: the probe, and the one-device
+counterpart, of the sharded serving steps.
 """
 import contextlib
 
@@ -229,3 +232,52 @@ def norm_nudged(to: float):
         yield
     finally:
         lm.rms_norm = real
+
+
+@contextlib.contextmanager
+def tp_rounding(n: int):
+    """While active, every product that tensor parallelism splits into
+    partial sums over "model" (the attention's out-projection over its
+    heads, SwiGLU's down-projection over d_ff, the Mamba2 mixer's
+    out-projection over d_inner; in the prefill and the decode step) runs
+    as ``n`` partial products over contiguous blocks, each rounded to its
+    dtype, added in f32 and rounded again: how ``n`` ranks round it
+    (``scatter_seq``, ``psum_model``), on one device. It shows how far the
+    unsharded model carries that rounding."""
+    from repro_torch.models import lm, ssd
+
+    def split(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """y (..., K) @ w (K, D) as n partial products summed in f32."""
+        k = y.shape[-1] // n
+        parts = [(y[..., i * k:(i + 1) * k] @ w[i * k:(i + 1) * k]).float() for i in range(n)]
+        return sum(parts[1:], parts[0]).to(y.dtype)
+
+    def out_proj(self, lp, o):
+        B, S = o.shape[:2]
+        return split(o.reshape(B, S, -1), lp["wo"].reshape(-1, self.cfg.d_model))
+
+    def mlp(x, wi_gate, wi_up, wo):
+        h = torch.nn.functional.silu((x @ wi_gate).float()).to(x.dtype) * (x @ wi_up)
+        return split(h, wo)
+
+    def identity_wo(p: dict) -> dict:
+        """``p`` with an identity out-projection: the mixer's own output,
+        exactly (each product adds one term and zeros)."""
+        d = p["wo"].shape[0]
+        return {**p, "wo": torch.eye(d, dtype=p["wo"].dtype, device=p["wo"].device)}
+
+    real = lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step
+
+    def mixer(p, x, cfg, tp=None):
+        return split(real[2](identity_wo(p), x, cfg, tp), p["wo"])
+
+    def step(p, x, conv, state, cfg, tp=None):
+        y, conv, state = real[3](identity_wo(p), x, conv, state, cfg, tp)
+        return split(y, p["wo"]), conv, state
+
+    lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step = (
+        out_proj, mlp, mixer, step)
+    try:
+        yield
+    finally:
+        lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step = real

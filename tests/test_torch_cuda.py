@@ -218,6 +218,11 @@ FLASH_CASES = [
     (4, 28, 4, 2048, 2048, 128, True, 0, torch.bfloat16),
     (1, 8, 8, 333, 77, 64, False, 0, torch.bfloat16),       # ragged, Sq > Sk, non-causal
     (1, 14, 2, 200, 200, 128, True, 0, torch.float32),      # GQA 7 at hd 128 in f32
+    # one rank's prefill on a (data=1, model=2) mesh, the heads split over
+    # "model": qwen2-0.5b's 7 query heads on its one KV head at hd 64 (GQA 7
+    # at hd 64), olmoe-1b-7b's 8 heads on 8 KV heads at hd 128
+    (4, 7, 1, 2048, 2048, 64, True, 0, torch.bfloat16),
+    (4, 8, 8, 2048, 2048, 128, True, 0, torch.bfloat16),
 ]
 
 
@@ -776,3 +781,43 @@ def test_sharded_prefill_on_a_one_rank_nccl_mesh(cuda):
         assert abs(float(loss) - float(want)) <= 2e-2
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_shared_card_mesh_runs_tensor_parallel_on_one_card(cuda, tmp_path):
+    """Two processes sharing the card on ``make_shared_card_mesh((1, 2))``,
+    over gloo (NCCL refuses two ranks on one GPU); a CUDA mesh over gloo
+    built any other way is refused. Reduced qwen2-0.5b, not pure
+    data-parallel: the sharded prefill (the flash kernel on each rank's 2
+    heads) and three decode steps within the serving criterion (4 bf16 ulps
+    at the logits' magnitude) of the unsharded ones on the card."""
+    from _torch_mesh_ranks import run_ranks
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models.registry import build_model, make_inputs
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    cfg = get_arch("qwen2_0_5b").reduced()
+    model = build_model(cfg, max_pos=256, device="cpu")
+    model.pure_dp = False
+    params = model.init_params(torch.Generator().manual_seed(0))
+    prefill = {"tokens": make_inputs(cfg, ShapeConfig("t", 256, 4, "prefill"), seed=2,
+                                     device="cpu")["tokens"]}
+    ranks = run_ranks("shared_card", 2, tmp_path, dict(
+        arch="qwen2_0_5b", shape=(1, 2), names=("data", "model"), max_pos=256, params=params,
+        prefill=prefill, tokens=prefill["tokens"], cache_len=16, steps=3))
+    card = build_model(cfg, max_pos=256, device="cuda")
+    cparams = {k: ({n: t.to(cuda) for n, t in v.items()} if isinstance(v, dict) else v.to(cuda))
+               for k, v in params.items()}
+    want = make_prefill_step(card)(cparams, {"tokens": prefill["tokens"].to(cuda)}).cpu()
+    cache, serve, steps = card.init_cache(4, 16), make_serve_step(card), []
+    for i in range(3):
+        logits, cache = serve(cparams, cache, {"token": prefill["tokens"][:, i].to(cuda),
+                                               "cur_len": i})
+        steps.append(logits.cpu())
+    for r in ranks:
+        assert r["refused"] and "nccl" in r["refused"]
+        assert r["counts"].get("all_gather", 0) > 0
+        torch.testing.assert_close(r["logits"], want, rtol=0, atol=4 * 2.0**-6)
+        for got, ref in zip(r["decode"], steps, strict=True):
+            torch.testing.assert_close(got, ref, rtol=0, atol=4 * 2.0**-6)

@@ -288,22 +288,30 @@ def test_abstract_mesh_computes_specs_only():
     assert ctx.constrain(tokens, ("data",), None) is tokens
 
 
-@pytest.mark.parametrize("arch", ["qwen2_0_5b", "olmoe_1b_7b", "mamba2_2_7b", "zamba2_7b"])
-def test_model_axis_refused_where_the_model_is_not_pure_dp(arch):
-    """A model above ``PURE_DP_MAX_PARAMS`` on a mesh with model > 1 needs
-    tensor or expert parallelism, a later slice: the step builders raise,
-    naming the ROADMAP item; a pure data-parallel one (whisper-base) builds."""
-    ctx = MeshCtx(AbstractMesh((2, 2), ("data", "model")))
+@pytest.mark.parametrize("arch,n_model,item", [
+    ("zamba2_7b", 2, "Other families on model"),
+    ("qwen2_0_5b", 4, "Fallback layouts"),
+    ("qwen2_vl_7b", 2, "Other families on model"),
+    ("qwen2_vl_7b", 4, "Other families on model"),
+], ids=["zamba2_7b", "qwen2_0_5b-model4", "qwen2_vl_7b-model2", "qwen2_vl_7b-model4"])
+def test_model_axis_refused_where_the_model_is_not_pure_dp(arch, n_model, item):
+    """What tensor parallelism over "model" does not run yet raises from
+    every step builder, naming its ROADMAP item: the hybrid and VLM
+    families, and the fallback layouts (qwen2-0.5b's 14 heads and 2 KV
+    heads on model=4: the reference shards head_dim). A pure data-parallel
+    model (whisper-base) builds its train and prefill steps; ``constrain``
+    checks the spec and returns its input."""
+    ctx = MeshCtx(AbstractMesh((2, n_model), ("data", "model")))
     model = LM(get_arch(arch), device="cpu")
     assert not model.pure_dp
     for build in (make_train_step, make_prefill_step, make_serve_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP A, \"{item}\""):
             build(model, ctx)
     whisper = LM(get_arch("whisper_base"), max_pos=448, device="cpu")
     assert whisper.pure_dp and whisper.n_params() == 83440128
     assert make_train_step(whisper, ctx) and make_prefill_step(whisper, ctx)
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        ctx.constrain(torch.zeros(2), None)
+    x = torch.zeros(2)
+    assert ctx.constrain(x, "model") is x
 
 
 def test_a_batch_that_does_not_fill_the_batch_axes_is_refused():

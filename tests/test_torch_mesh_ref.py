@@ -1,8 +1,11 @@
 """The port's sharded train step and prefill against the reference's, on
 (data=2, model=1) for qwen2-0.5b, olmoe-1b-7b and mamba2-2.7b, and on
 (data=2, model=2) for whisper-base (pure data-parallel: its batch sharded
-over both axes); reduced configs, B = 4, S = 256 (the chunked
-cross-entropy runs: S > 128). The (pod=2, data=2, model=1) mesh is in
+over both axes); and tensor and expert parallel over "model", on (data=1,
+model=2) and (data=2, model=2) for qwen2-0.5b, olmoe-1b-7b and mamba2-2.7b
+run as models that are not pure data-parallel (``pure_dp=False`` on both
+sides: the reduced configs are below the threshold); reduced configs,
+B = 4, S = 256 (the chunked cross-entropy runs: S > 128). The (pod=2, data=2, model=1) mesh is in
 ``test_torch_mesh_ref_pod.py``, so that the reference's compiles spread
 over two test workers.
 
@@ -30,16 +33,22 @@ from _torch_mesh_oracle import (  # noqa: I001  (tests/ helper)
     assert_step_meets_reference_bound,
 )
 
-MESH = ((2, 1), ("data", "model"))
-CASES = {"qwen2_0_5b": MESH, "olmoe_1b_7b": MESH, "mamba2_2_7b": MESH,
-         "whisper_base": ((2, 2), ("data", "model"))}
+NAMES = ("data", "model")
+MESH = ((2, 1), NAMES)
+# id -> (arch, mesh, pure_dp override)
+CASES = {"qwen2_0_5b": ("qwen2_0_5b", MESH, None), "olmoe_1b_7b": ("olmoe_1b_7b", MESH, None),
+         "mamba2_2_7b": ("mamba2_2_7b", MESH, None),
+         "whisper_base": ("whisper_base", ((2, 2), NAMES), None)}
+CASES.update({f"{arch}-tp{'x'.join(map(str, shape))}": (arch, (shape, NAMES), False)
+              for arch in ("qwen2_0_5b", "olmoe_1b_7b", "mamba2_2_7b")
+              for shape in ((1, 2), (2, 2))})
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
 def case(request, tmp_path_factory) -> OracleCase:
-    shape, names = CASES[request.param]
-    return OracleCase(request.param, shape, names, tmp_path_factory.mktemp(request.param),
-                      B=B, S=S, lr=LR)
+    arch, (shape, names), pure_dp = CASES[request.param]
+    return OracleCase(arch, shape, names, tmp_path_factory.mktemp(request.param),
+                      B=B, S=S, lr=LR, pure_dp=pure_dp)
 
 
 def test_sharded_step_meets_the_reference_bound(case):
