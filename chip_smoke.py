@@ -55,7 +55,8 @@ Phases, each of which fails the run (non-zero exit) on any error:
    4 decode steps' logits within 8 bf16 ulps, greedy tokens >= 90 %, each
    layer's SSM state within 8 bf16 ulps, each held where the CPU meets it
    against its own 1-ulp jitter; zamba2 in bf16 does not (its random
-   shared attention is near-argmax), and is held in f32 instead;
+   shared attention is near-argmax), and is checked in f32 only
+   (``SSM_CHECK_F32_ONLY``), held;
 5d. encoder-decoder and VLM serving: whisper-base (6 encoder and 6 decoder
    layers) at its published context (1500 audio frames, at most 448
    tokens: ``max_pos`` 448) and qwen2-vl-7b at full width and depth, one
@@ -94,11 +95,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    kernels are first held against their plain versions, and timed, at a
    4 MiB file's and at the checkpoint's shapes.
 
-7. training: qwen2-0.5b at full width and depth (random weights from the
-   seed), B=4 x 2048, AdamW at lr 1e-3 (``make_train_step``; the loss
+7. training: qwen2-0.5b at full width, ``TRAIN_DEPTH`` (2) of its 24
+   layers (a ``reduced:`` line; random weights from the seed), B=4 x 2048,
+   AdamW at lr 1e-3 (``make_train_step``; the loss
    attends with ``gqa_attention``, every layer under
    ``torch.utils.checkpoint``), checkpointing its whole state (parameters,
-   AdamW's f32 moments and step, the data state; ~4.94 GB) through
+   AdamW's f32 moments and step, the data state; ~1.66 GB) through
    ``ECCheckpointStore(device="cuda")`` on 8 hosts with 2 parity and the
    paper's blocks: steps 1-2, a save, steps 3-4, an incremental save, step
    5, then a crash of the trainer and of the fault budget's hosts, a restore
@@ -106,7 +108,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    first); train tokens/s, peak device memory, each save's and the
    restore's GB/s, blocks rewritten and the storage kernels' launches. The
    storage kernels are then held against their plain versions on the bytes
-   of the step-4 save (4.94 GB, past 2**32 positions), the save's blocks
+   of the step-4 save, and on them repeated past 2**32 positions, the save's blocks
    are accounted for (chunks, tombstones, bytes unchanged by leaf), the
    gradient's norm is printed by leaf, and one more step runs under
    ``torch.profiler``. One train step on the card
@@ -119,9 +121,10 @@ Phases, each of which fails the run (non-zero exit) on any error:
    held only where it is well-conditioned (``train_card_vs_cpu``).
 
 7b. training of the MoE, SSM and hybrid families: olmoe-1b-7b, mamba2-2.7b
-   and zamba2-7b at their published widths, the depth cut to what one
-   card's 80 GB holds (``FAMILY_TRAIN_DEPTHS``; each cut printed as a
-   ``reduced:`` line), weights drawn on the card from the seed, B=4 x 2048,
+   and zamba2-7b at their published widths, the depth cut for the
+   script's time (``FAMILY_TRAIN_DEPTHS``: 2, 8 and 7 layers; one card's
+   80 GB holds 5, 56 and 27; each cut printed as a ``reduced:`` line),
+   weights drawn on the card from the seed, B=4 x 2048,
    AdamW at lr 1e-3: a warm-up and 3 timed steps (train tokens/s, peak
    device memory, finite losses), the gradient's norm (olmoe: the
    recompute routes as the forward did; the drop share of its first and
@@ -140,8 +143,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    against their plain versions on the restored save's bytes.
 
 7c. training of the encoder-decoder and VLM families: whisper-base at full
-   width and depth and qwen2-vl-7b at full width with the depth cut to fit
-   (``EMBED_TRAIN_DEPTHS``; a ``reduced:`` line; the allocator's segments
+   width and depth and qwen2-vl-7b at full width with the depth cut to 4
+   layers (``EMBED_TRAIN_DEPTHS``; one card holds 8; a ``reduced:`` line;
+   the allocator's segments
    expandable for the phase), weights drawn on the card, B=4 x 2048
    embeddings from ``make_inputs`` (whisper: 4 x 448 tokens, its published
    decoder context, and 1024 audio frames: the reference's training
@@ -177,32 +181,43 @@ Phases, each of which fails the run (non-zero exit) on any error:
 
 9. tensor and expert parallelism over "model": the flash kernel against
    its plain version, and timed beside SDPA, at one rank's shapes of a
-   (data=1, model=2) mesh ((4, 7, 2048, 64) on one KV head, (4, 8, 2048,
-   128)); then two processes of this script (``--tp-rank``), sharing the
+   (data=1, model=2) mesh (``TP_FLASH_CASES``: qwen2-0.5b's, olmoe-1b-7b's,
+   zamba2-7b's, qwen2-vl-7b's and whisper-base's heads halved); then two
+   processes of this script (``--tp-rank``), sharing the
    card over gloo on ``make_shared_card_mesh((1, 2))`` (NCCL refuses two
    ranks on one GPU: their times are two ranks time-sharing one card). For
-   qwen2-0.5b, olmoe-1b-7b and mamba2-2.7b at full width and depth (weights
-   drawn on the card from the seed, each rank keeping its blocks): a
-   warm-up and a counted sharded prefill of 4 x 2048 tokens (flash counted
-   from 0 on each rank; collectives by kind; olmoe's expert-parallel drops
-   in its first and last layer), 32 greedy sharded decode steps against a
-   2048-long cache; on rank 0 both against the unsharded ones on the card,
+   qwen2-0.5b, olmoe-1b-7b and mamba2-2.7b at full width and the depth
+   ``TP_SERVE_DEPTHS`` (4, 2, 8: ``reduced:`` lines), zamba2-7b and
+   qwen2-vl-7b at full width and depth, and whisper-base at its published
+   context (1500 frames, 448 tokens) twice, as it is (pure data-parallel:
+   its prefill data-parallel over both axes, its decode tensor-parallel on
+   the serve specs, as the reference's serve step runs it) and with tensor
+   parallelism forced (weights drawn on the card from the seed, each rank
+   keeping its blocks): a warm-up (4 x 256 tokens) and a counted prefill
+   of 4 x 2048 tokens (flash counted from 0 on each rank; collectives by
+   kind; olmoe's expert-parallel drops in its first and last layer), 32
+   sharded decode steps (greedy; qwen2-vl's fed the prefill's embeddings;
+   whisper's with its cross K/V filled from the encoder) against a
+   2048-long cache (whisper's 448); on rank 0 both against the unsharded ones on the card,
    held where the unsharded run meets the criterion against itself
    rounded as the ranks round (``tp_rounding``) and printed where it does
    not (ill-conditioned), and equal bit for bit to that rounded run where
-   ``TP_EXACT`` says (qwen2-0.5b, olmoe-1b-7b's decode); olmoe's
+   ``TP_EXACT`` says (qwen2-0.5b, olmoe-1b-7b's decode, qwen2-vl-7b's
+   prefill); olmoe's
    expert-parallel prefill against the unsharded prefill with that branch
    emulated (``ep_emulated``), its decode compared where the routes agree;
    training at full width, the depth ``TP_TRAIN_DEPTHS`` (``reduced:``
    lines, each with its reason): a warm-up and 3 timed steps (tokens/s,
    peak memory on each rank, collectives a step); qwen2-0.5b's one
    full-width f32 layer, sharded against unsharded, held (``mesh_hold``);
-   and for each arch at full width, 2 layers, the sharded prefill and 4
-   decode steps against the unsharded ones in bf16 (held as at full depth)
-   and in f32 (within 1e-4 of the largest |logit| where the rounded
-   unsharded run is, and mamba2's decode again with its conv window in
-   f32, held: the sharded math's witness). A rank that fails fails the
-   run.
+   and for each arch at full width, 2 layers (whisper's encoder too), the
+   sharded prefill and 4 decode steps against the unsharded ones in bf16
+   (held as at full depth) and in f32, the decode's K/V cache and score
+   chain too (within 1e-4 of the largest |logit| of the unsharded run
+   computed as the ranks compute it, rounded as they round and with their
+   column blocks, and of the plain unsharded run wherever that twin is
+   within it too; the SSM families' decode again with the conv window in
+   f32: the sharded math's witness). A rank that fails fails the run.
 
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
@@ -712,7 +727,7 @@ def device_busy(prof, trace: Path, wall: float, tag: str) -> list:
 
     prof.export_chrome_trace(str(trace))
     text = trace.read_bytes()
-    trace.with_name(trace.name + ".gz").write_bytes(gzip.compress(text))
+    trace.with_name(trace.name + ".gz").write_bytes(gzip.compress(text, compresslevel=1))
     trace.unlink()
     busy: dict[str, float] = {}
     kinds: dict[str, list] = {}
@@ -1769,7 +1784,10 @@ SSM_MODELS = ("mamba2_2_7b", "zamba2_7b")
 # random weights the shared block's attention is near-argmax (scores of std
 # ~100), so past it the bf16 model is ill-conditioned: there the criteria
 # are printed, and held on the same model in f32 (``dtype="float32"``).
+# zamba2's is run in f32 only, for the script's 1200 s: its bf16 check never
+# held (the CPU missed it against its own 1-ulp jitter in every run)
 SSM_CHECK_LAYERS = {"mamba2_2_7b": 2, "zamba2_7b": 7}
+SSM_CHECK_F32_ONLY = ("zamba2_7b",)
 CHECK_LOGIT_ULPS = 8
 SSM_STATE_ULPS = 8
 CHECK_DECODE_STEPS = 4
@@ -1834,7 +1852,7 @@ def ulp_nudger(seed: int):
     g = torch.Generator().manual_seed(seed)
 
     def nudge(t: torch.Tensor) -> torch.Tensor:
-        up = torch.rand(t.shape, generator=g) < 0.5
+        up = (torch.rand(t.shape, generator=g) < 0.5).to(t.device)
         return torch.nextafter(t, torch.where(up, math.inf, -math.inf).to(t.dtype))
 
     return nudge
@@ -2136,6 +2154,60 @@ def attention_jitter(seed: int):
         lm.flash_attention, lm.gqa_attention = flash, gqa
 
 
+@contextlib.contextmanager
+def tp_columns(n: int):
+    """While active (inside ``tp_rounding(n)``), every product that tensor
+    parallelism splits by its columns over "model" runs as ``n`` products,
+    one for each block of columns, each on a contiguous copy of its block:
+    on the shapes on which the ranks run it. These are the attention's q, k
+    and v projections over their heads (the cross-attention's too; k and v
+    where the KV heads divide ``n``), SwiGLU's gate and up and the GELU
+    MLP's first product over d_ff, and the head over the vocab where it
+    divides ``n``. In f32, cuBLAS may pick another algorithm for a block's
+    shape, whose sums differ in the last bit, which ``tp_rounding`` does not
+    model. With ``tp_rounding``, it makes the unsharded run compute as the
+    ranks compute. The Mamba2 in-projection is not split here."""
+    from repro_torch.models import layers, lm
+
+    def cols(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """x (..., K) @ w (K, N) as n products over contiguous column blocks."""
+        k = w.shape[-1] // n
+        x2 = x.reshape(-1, x.shape[-1])
+        y = torch.cat([x2 @ w[:, i * k:(i + 1) * k].contiguous() for i in range(n)], dim=-1)
+        return y.reshape(*x.shape[:-1], -1)
+
+    def rows(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """``tp_rounding``'s row-parallel product: n partial sums in f32."""
+        k = y.shape[-1] // n
+        parts = [(y[..., i * k:(i + 1) * k] @ w[i * k:(i + 1) * k]).float() for i in range(n)]
+        return sum(parts[1:], parts[0]).to(y.dtype)
+
+    def proj(x, w):
+        if w.shape[1] % n:
+            return real[0](x, w)
+        return cols(x, w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+    def mlp(x, wi_gate, wi_up, wo):
+        return rows(torch.nn.functional.silu(cols(x, wi_gate).float()).to(x.dtype)
+                    * cols(x, wi_up), wo)
+
+    def gelu(x, wi, bi, wo, bo):
+        return rows(layers._gelu_tanh(cols(x, wi) + bi).to(x.dtype), wo) + bo
+
+    def head(self, params, h, tp=None):
+        if self.cfg.vocab % n:
+            return real[3](self, params, h, tp)
+        w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        return cols(self._final_norm(params, h), w)
+
+    real = lm._proj, lm.swiglu_mlp, lm.gelu_mlp, lm.LM._head
+    lm._proj, lm.swiglu_mlp, lm.gelu_mlp, lm.LM._head = proj, mlp, gelu, head
+    try:
+        yield
+    finally:
+        lm._proj, lm.swiglu_mlp, lm.gelu_mlp, lm.LM._head = real
+
+
 def _embed_run(cfg, weights, batch: dict, where: str) -> tuple:
     """The prefill's last-position logits, every position's greedy token,
     and the logits of CHECK_DECODE_STEPS teacher-forced decode steps from a
@@ -2195,8 +2267,13 @@ def embed_card_vs_cpu(seed: int, arch: str, dtype: str = "bfloat16") -> bool:
 
 
 # ---------------------------------------------------------------- phase 7
-# qwen2-0.5b trained at full width and depth, checkpointing its whole state
+# qwen2-0.5b trained at full width, checkpointing its whole state, at
+# TRAIN_DEPTH of its 24 layers (a reduced: line): at 24 the state is 4.94 GB
+# and its two saves took 61.5 and 79.5 s of a script that must finish in
+# 1200 s. The storage kernels still run past 2**32 positions: they are held
+# on the saved state repeated to more than 2**32 bytes
 TRAIN_B, TRAIN_S, TRAIN_LR = 4, 2048, 1e-3  # the reference launcher's rate
+TRAIN_DEPTH = 2
 # The redone step 5 starts from the restored step-4 state, equal bit for bit,
 # with the same batch: its forward repeats on the same card. The tolerance
 # allows only for cuBLAS choosing another algorithm (the backward's atomics,
@@ -2238,7 +2315,12 @@ def drive_training(seed: int, out_dir: Path, card: str, totals: dict, worst: dic
     from repro_torch.train.steps import loss_and_grads, make_train_step
     from repro_torch.tree import named_leaves
 
-    cfg = get_arch(MODEL)
+    import dataclasses
+
+    cfg = dataclasses.replace(get_arch(MODEL), n_layers=TRAIN_DEPTH)
+    log(f"reduced: train {MODEL} n_layers {get_arch(MODEL).n_layers} -> {TRAIN_DEPTH} (the "
+        f"script's 1200 s: the 24-layer state's two saves took 61.5 and 79.5 s; the storage "
+        f"kernels are held past 2**32 positions on the saved state repeated)")
     t0 = time.perf_counter()
     model = build_model(cfg, max_pos=TRAIN_S, device="cuda")
     params = model.init_params(torch.Generator().manual_seed(seed))
@@ -2353,7 +2435,12 @@ def drive_training(seed: int, out_dir: Path, card: str, totals: dict, worst: dic
     chunks4 = check_storage_kernels_at(f"the training state ({len(blob4)} bytes)",
                                        host_tensor(blob4).to("cuda"), (8,), card, worst)
     account_blocks(fm_stats, blob2, blob4, chunks4)
-    del blob2, blob4
+    del blob2
+    times = (1 << 32) // len(blob4) + 1  # past 2**32 positions
+    check_storage_kernels_at(f"the training state {times} times over ({times * len(blob4)} "
+                             f"bytes, past 2**32)", host_tensor(blob4).to("cuda").repeat(times),
+                             (8,), card, worst)
+    del blob4
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -2612,15 +2699,21 @@ def train_card_vs_cpu(seed: int) -> None:
 
 # ---------------------------------------------------------------- phase 7b
 # the MoE, SSM and hybrid families trained at the architectures' published
-# widths on one card, at the most layers whose measured peak stays under
-# ~70 GB (full depth does not fit: AdamW here is functional, so the old and
-# the new params/m/v are alive together during the update, ~22 bytes a
-# parameter with the bf16 gradients)
-FAMILY_TRAIN_DEPTHS = {"olmoe_1b_7b": 5, "mamba2_2_7b": 56, "zamba2_7b": 27}
+# widths on one card, at depths cut for the script's time (full depth does
+# not fit: AdamW here is functional, so the old and the new params/m/v are
+# alive together during the update, ~22 bytes a parameter with the bf16
+# gradients; one card's measured peak stayed under ~70 GB at the depths
+# TRAIN_DEPTH_CUT names)
+FAMILY_TRAIN_DEPTHS = {"olmoe_1b_7b": 2, "mamba2_2_7b": 8, "zamba2_7b": 7}
 # phase 7c: whisper-base at full depth (6 + 6 layers), qwen2-vl-7b cut the
 # same way (~28 bytes a parameter, ~6.5 GB for each layer of 233 M, on top
-# of ~10 GB for the f32 logits and their gradient: 9 layers reach ~70 GB)
-EMBED_TRAIN_DEPTHS = {"whisper_base": 6, "qwen2_vl_7b": 8}
+# of ~10 GB for the f32 logits and their gradient: 9 layers reached ~70 GB)
+EMBED_TRAIN_DEPTHS = {"whisper_base": 6, "qwen2_vl_7b": 4}
+# both cut further for the script's 1200 s: one card held olmoe at 5 layers,
+# mamba2 at 56, zamba2 at 27 and qwen2-vl at 8; zamba2's 7 are one group, its
+# shared block and one trailing layer
+TRAIN_DEPTH_CUT = ("the script's 1200 s; one card's 80 GB holds olmoe 5, mamba2 56, zamba2 27, "
+                   "qwen2-vl 8 layers")
 FAMILY_TIMED_STEPS = 3
 # card vs CPU at full width in f32: the fewest layers that hold each part
 FAMILY_CHECK_LAYERS = {"olmoe_1b_7b": 1, "mamba2_2_7b": 1, "zamba2_7b": 7}
@@ -2729,7 +2822,8 @@ def drive_family_training(arch: str, seed: int, card: str, out_dir: Path) -> dic
     cfg = dataclasses.replace(full, n_layers=depth)
     tag = f"train {'qwen2-vl' if arch == 'qwen2_vl_7b' else arch.split('_')[0]}"
     if depth < full.n_layers:
-        log(f"reduced: n_layers {full.n_layers} -> {depth} ({cfg.name} training on one card)")
+        log(f"reduced: n_layers {full.n_layers} -> {depth} ({cfg.name} training: "
+            f"{TRAIN_DEPTH_CUT})")
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -3351,47 +3445,93 @@ def mesh_whisper(ctx, seed: int, card: str, out_dir: Path, totals: dict, worst: 
 # gloo (make_shared_card_mesh: NCCL refuses two ranks on one GPU). Their
 # times are two ranks time-sharing one card, not tensor-parallel scaling.
 TP_MESH = (1, 2)
-TP_ARCHS = ("qwen2_0_5b", "olmoe_1b_7b", "mamba2_2_7b")
+TP_ARCHS = ("qwen2_0_5b", "olmoe_1b_7b", "mamba2_2_7b", "zamba2_7b", "qwen2_vl_7b",
+            "whisper_base")
 TP_DECODE_STEPS, TP_TRAIN_STEPS, TP_CACHE = 32, 3, 2048
+# the serving warm-up's prefill: PREFILL_B x this many tokens (whisper's
+# whole batch), which loads every kernel and collective the counted
+# prefill runs; the whole prefill took zamba2 23.5 s over gloo
+TP_WARMUP_S = 256
+# serving depth on the two ranks where it is cut (a reduced: line each): PR
+# 22's three archs, served there at full depth, so that the script with this
+# phase's other families meets its time (the depth's cost is linear)
+TP_SERVE_DEPTHS = {"qwen2_0_5b": 4, "olmoe_1b_7b": 2, "mamba2_2_7b": 8}
+TP_SERVE_CUT = ("the script's 1200 s: the phase's three later families are served at full depth; "
+                "these three were at full depth in the slice that ported them")
 # training depth on the two ranks, and why it is cut (a reduced: line each).
 # Memory would allow olmoe 5 layers (34.0 GB a rank, 38.6 reserved) and
 # mamba2 44 (30.6 GB a rank, 36.2 reserved) on an H100, but with them the
 # whole script ran 1240.8 s of its 1200 s on a slow host (phase 9 329.1 s):
 # olmoe took 8.5 s a step there and mamba2 0.51 s a layer a step
-TP_TRAIN_DEPTHS = {"qwen2_0_5b": 24, "olmoe_1b_7b": 4, "mamba2_2_7b": 8}
+TP_TRAIN_DEPTHS = {"qwen2_0_5b": 4, "olmoe_1b_7b": 2, "mamba2_2_7b": 2, "zamba2_7b": 7,
+                   "qwen2_vl_7b": 2, "whisper_base": 6}
 TP_TRAIN_CUTS = {
-    "olmoe_1b_7b": "the script's 1200 s: on a slow host a 5-layer step took 8.5 s and the script "
-                   "1240.8 s; memory would allow 5 layers",
-    "mamba2_2_7b": "the script's 1200 s: on a slow host a step took 0.51 s a layer, 22.2 s at 44 "
-                   "layers, and the script 1240.8 s; memory would allow 44 layers",
+    "qwen2_0_5b": "the script's 1200 s: a 24-layer step took 9.4 s on the two ranks",
+    "olmoe_1b_7b": "the script's 1200 s: a 4-layer step took 7.4 s on the two ranks; memory "
+                   "would allow 5 layers",
+    "mamba2_2_7b": "the script's 1200 s: a step took 0.47 s a layer on the two ranks; memory "
+                   "would allow 44 layers",
+    "zamba2_7b": "the script's 1200 s: one group of 6 Mamba2 layers, the shared block and one "
+                 "trailing layer",
+    "qwen2_vl_7b": "the script's 1200 s: a 4-layer step took 9.3 s on the two ranks",
 }
-TP_RANK_TIMEOUT = 540
+TP_RANK_TIMEOUT = 720
 # the f32 witness of the sharded serving math at full width (``tp_shallow``):
-# the ranks' partial sums add the row-parallel products in another order,
-# which moves f32 logits by ~1e-6 of their largest; a wrong head, channel,
-# expert or vocab block moves them by far more. A check is held where the
-# unsharded run rounded as the ranks round (``tp_rounding``) meets it too.
-# The reference keeps the Mamba2 conv window in bf16 even in an f32 model:
-# where an input sits at a bf16 rounding boundary, ~1e-7 moves it by a bf16
-# ulp, which the next decode steps carry to ~1e-4 of the logits, and the
-# ranks' in-projections (other shapes, so other cuBLAS kernels) move it as
-# ``tp_rounding`` does not. So those steps are printed with the window's
-# flips counted, and the SSM decode is held again with its window in f32
+# the ranks' partial sums add the row-parallel products in another order
+# (``tp_rounding``), and cuBLAS may sum a column-parallel product on a
+# rank's block of columns in another order than on the whole (``tp_columns``;
+# in f32, nearly every element of qwen2-vl-7b's q projection on 1792 of its
+# 3584 columns: ``column_bits``); both move f32 logits by ~1e-6 of their
+# largest, a wrong head, channel, expert or vocab block by far more. The
+# twin, the unsharded run computed as the ranks compute it (both emulated),
+# must lie within the tolerance of the sharded run at every check, and the
+# sharded run within it of the plain unsharded run wherever the twin is: a
+# model that carries those last bits past the tolerance (ill-conditioned)
+# is held to its twin alone. The reference keeps the Mamba2 conv window in
+# bf16 even in an f32 model: where an input sits at a bf16 rounding
+# boundary, ~1e-7 moves it by a bf16 ulp, which the next decode steps carry
+# to ~1e-4 of the logits, and the ranks' in-projections (other shapes, not
+# emulated) move it as the twin does not. So those steps are printed with
+# the window's flips counted, and the SSM decode is held again, every step,
+# with its window in f32. zamba2 is checked at 2 layers, its Mamba2 layers'
+# widths: at 7 (its shared block follows the 6th) the rounded f32 run moved
+# 1.1e-4-1.1e-3 from the plain one, the prefill included (ill-conditioned)
 TP_SHALLOW_LAYERS, TP_SHALLOW_STEPS, TP_WITNESS_RTOL = 2, 4, 1e-4
 # what the sharded bf16 serving equals bit for bit: the unsharded run under
 # ``tp_rounding`` (each row-parallel product as the ranks' rounded partial
-# sums). Not mamba2, whose conv, SSD and norm sums also run on other shapes,
-# and not the MoE prefill, whose emulated exchange (``ep_emulated``) runs the
-# expert products on other shapes
-TP_EXACT = {"qwen2_0_5b": ("prefill", "decode"), "olmoe_1b_7b": ("decode",)}
+# sums). Not mamba2 and zamba2, whose conv, SSD and norm sums also run on
+# other shapes, not the MoE prefill, whose emulated exchange
+# (``ep_emulated``) runs the expert products on other shapes, and not
+# qwen2-vl's decode at full depth, which flipped a rounding at some step
+# (its 2-layer decode is equal)
+TP_EXACT = {"qwen2_0_5b": ("prefill", "decode"), "olmoe_1b_7b": ("decode",),
+            "qwen2_vl_7b": ("prefill",)}
 # one rank's flash shapes at model=2: qwen2-0.5b's 7 heads on its one KV head
-# (GQA 7 at hd 64), olmoe-1b-7b's 8 heads on 8 KV heads at hd 128
+# (GQA 7 at hd 64), olmoe-1b-7b's 8 heads on 8 KV heads at hd 128, zamba2-7b's
+# shared block's 16 heads at hd 112, qwen2-vl-7b's 14 heads on 2 KV heads at
+# hd 128, whisper-base's 4 heads at its published context: the encoder
+# (non-causal), the decoder (causal) and the cross-attention
 TP_FLASH_CASES = (
     ("qwen2 model=2 rank", PREFILL_B, 7, 1, PREFILL_S, PREFILL_S, 64, True, 0, torch.bfloat16,
      1.0),
     ("olmoe model=2 rank", PREFILL_B, 8, 8, PREFILL_S, PREFILL_S, 128, True, 0, torch.bfloat16,
      1.0),
+    ("zamba2 model=2 rank", PREFILL_B, 16, 16, PREFILL_S, PREFILL_S, 112, True, 0,
+     torch.bfloat16, 1.0),
+    ("qwen2-vl model=2 rank", PREFILL_B, 14, 2, PREFILL_S, PREFILL_S, 128, True, 0,
+     torch.bfloat16, 1.0),
+    ("whisper encoder model=2 rank", PREFILL_B, 4, 4, WHISPER_FRAMES, WHISPER_FRAMES, 64, False,
+     0, torch.bfloat16, 1.0),
+    ("whisper decoder model=2 rank", PREFILL_B, 4, 4, WHISPER_TOKENS, WHISPER_TOKENS, 64, True, 0,
+     torch.bfloat16, 1.0),
+    ("whisper cross model=2 rank", PREFILL_B, 4, 4, WHISPER_TOKENS, WHISPER_FRAMES, 64, False, 0,
+     torch.bfloat16, 1.0),
 )
+# whisper-base's own serve step (the pure data-parallel model: its prefill
+# data-parallel over both axes, its decode tensor-parallel on the serve
+# specs, as the reference's serve step runs it), beside the same model with
+# tensor parallelism forced (``pure_dp = False``) under its own name
+WHISPER_SERVE_STEP = "whisper_base serve step"
 
 
 def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> dict:
@@ -3415,14 +3555,15 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> 
         err = float((got.float() - flash_attention_ref(q, k, v, causal=causal).float()).abs().max())
         if not err <= FLASH_TOL[dtype] or not torch.isfinite(got).all():
             raise AssertionError(f"flash_attention {label}: max |err| {err} > {FLASH_TOL[dtype]}")
-        log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} bf16 causal: "
-            f"max |err| {err:.3e} (tolerance {FLASH_TOL[dtype]})")
+        log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} bf16 "
+            f"{'causal' if causal else 'non-causal'}: max |err| {err:.3e} (tolerance "
+            f"{FLASH_TOL[dtype]})")
         worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
         del q, k, v, got
         time_flash(case, rng, card)
     torch.cuda.empty_cache()
 
-    work = out_dir / "tp_ranks"
+    work = (out_dir / "tp_ranks").resolve()  # the ranks' file:// rendezvous needs a whole path
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     world = int(np.prod(TP_MESH))
@@ -3451,20 +3592,22 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> 
                 + (work / f"rank{r}.log").read_text()[-6000:])
         raise AssertionError(f"phase 9: ranks {bad} failed (rank, exit code)")
     ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
-    for arch in TP_ARCHS:
+    for arch, r0 in ranks[0].items():
         launches = [r[arch]["flash_launches"] for r in ranks]
         totals["flash_attention"] = totals.get("flash_attention", 0) + sum(launches)
-        r0 = ranks[0][arch]
         log(f"tp {arch}: flash_attention launches in the counted sharded prefill, by rank: "
             f"{launches}; peak device memory by rank, serving {[r[arch]['peak'] for r in ranks]}"
-            f", training at {r0['train_depth']} layers {[r[arch]['train_peak'] for r in ranks]} "
-            f"bytes; rank 0's collectives by kind: the prefill {r0['counts']['prefill']}, a "
-            f"decode step {r0['counts']['decode']}, a train step {r0['train_counts']}, none "
-            f"staged through host buffers; prefill "
-            f"{r0['prefill_tokens_per_s']:.1f}, decode {r0['decode_tokens_per_s']:.1f}, train "
-            f"{r0['train_tokens_per_s']:.1f} tokens/s on two ranks sharing the card ({card})")
-        if "drops" in ranks[0][arch]:
-            for layer in ranks[0][arch]["drops"]:
+            + (f", training at {r0['train_depth']} layers {[r[arch]['train_peak'] for r in ranks]}"
+               if "train_depth" in r0 else "")
+            + f" bytes; rank 0's collectives by kind: the prefill {r0['counts']['prefill']}, a "
+            f"decode step {r0['counts']['decode']}"
+            + (f", a train step {r0['train_counts']}" if "train_counts" in r0 else "")
+            + f", none staged through host buffers; prefill {r0['prefill_tokens_per_s']:.1f}, "
+            f"decode {r0['decode_tokens_per_s']:.1f}"
+            + (f", train {r0['train_tokens_per_s']:.1f}" if "train_tokens_per_s" in r0 else "")
+            + f" tokens/s on two ranks sharing the card ({card})")
+        if "drops" in r0:
+            for layer in r0["drops"]:
                 dropped = sum(r[arch]["drops"][layer][0] for r in ranks)
                 routed = sum(r[arch]["drops"][layer][1] for r in ranks)
                 log(f"tp {arch}: expert-parallel prefill layer {layer}: {dropped} of {routed} "
@@ -3475,9 +3618,12 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> 
 
 def tp_rank_main(rank: int, work: Path, seed: int) -> int:
     """One rank of phase 9: the gloo group, ``make_shared_card_mesh``, then
-    each arch's serving (``tp_serve``) and training (``tp_train``); the
-    results to ``work/rank<r>.json``. Rank 0 also runs the unsharded
-    counterparts on the card (rank 1 waits in its next collective)."""
+    each arch's serving (``tp_serve``; for whisper-base first its own serve
+    step, the pure data-parallel model, then the model with tensor
+    parallelism forced) and training (``tp_train``) and the shallow checks
+    (``tp_shallow``); the results to ``work/rank<r>.json``. Rank 0 also runs
+    the unsharded counterparts on the card (rank 1 waits in its next
+    collective)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_shared_card_mesh
@@ -3497,6 +3643,8 @@ def tp_rank_main(rank: int, work: Path, seed: int) -> int:
             f"(CUDA tensors straight through gloo, nothing staged), rank {rank} ({card})")
         out = {}
         for arch in TP_ARCHS:
+            if arch == "whisper_base":
+                out[WHISPER_SERVE_STEP] = tp_serve(ctx, arch, seed, card, rank, pure_dp=True)
             out[arch] = {**tp_serve(ctx, arch, seed, card, rank),
                          **tp_train(ctx, arch, seed, card, rank)}
             tp_shallow(ctx, arch, seed, card, rank)
@@ -3623,23 +3771,85 @@ def tp_decode_judge(tag: str, seen: list, want: list, jit: list, routes: tuple |
                     differ(jit, jkept), 1 - SMALL_ARGMAX_SHARE) and held
 
 
-def tp_serve(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
-    """``arch`` at full width and depth on the mesh (weights drawn on the
-    card from ``seed``, the same on both ranks, each keeping its blocks):
-    a warm-up and a counted sharded prefill of PREFILL_B x PREFILL_S tokens
-    (flash counted from 0; collectives by kind; for the MoE family each
-    rank's drops in its first and last layer), then TP_DECODE_STEPS greedy
-    sharded decode steps against a TP_CACHE-long cache from zero. Rank 0
-    holds them against the unsharded prefill and decode (teacher-forced on
-    the sharded tokens) on the card: the logits within CHECK_LOGIT_ULPS
-    bf16 ulps of the largest |logit|, the decode's greedy tokens at
-    SMALL_ARGMAX_SHARE of all positions, each held by ``tp_judge`` (and
-    equal to the unsharded run under ``tp_rounding`` where TP_EXACT says).
-    The MoE family's expert-parallel prefill routes each rank's tokens with
-    a capacity from them, through the reference's exchange (ROADMAP C): its
-    unsharded counterpart runs that branch emulated (``ep_emulated``); its
-    decode routes whole."""
+def _tp_inputs(model, params: dict, seed: int) -> tuple[dict, dict | None]:
+    """The PREFILL_B-row prefill batch of ``model``'s family: PREFILL_S
+    tokens uniform over the vocab from ``default_rng(seed)``; the VLM's
+    PREFILL_S embeddings and M-RoPE positions (``_embed_inputs``); whisper's
+    WHISPER_FRAMES audio frames and WHISPER_TOKENS tokens
+    (``whisper_inputs``). For whisper also its decode cache's cross K/V of
+    those frames, from the encoder over the whole ``params`` (``cross_kv``),
+    else None."""
+    cfg = model.cfg
+    if cfg.family == "encdec":
+        batch = whisper_inputs(PREFILL_B, seed, "cuda")
+        xk, xv = _encdec().cross_kv(model, params, batch["audio_embeds"])
+        return batch, {"xk": xk, "xv": xv}
+    if cfg.embeddings_input:
+        return _embed_inputs(cfg, PREFILL_B, PREFILL_S, seed, "cuda"), None
+    return {"tokens": torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")}, None
+
+
+def _tp_prefix(batch: dict, n: int) -> dict:
+    """``batch``'s first ``n`` positions (tokens, embeddings, M-RoPE
+    positions)."""
+    return {k: v[..., :n] if k != "embeds" else v[:, :n] for k, v in batch.items()}
+
+
+def _tp_cache(model, cache_len: int, cross: dict | None, ctx=None, f32: tuple = ()):
+    """A decode cache of PREFILL_B rows from zero, whisper's cross K/V
+    ``cross`` copied in, the entries named in ``f32`` kept in f32 (the
+    reference's cache is bf16 whatever the model's dtype), laid out as
+    ``cache_specs`` on ``ctx``'s mesh where given."""
+    from repro_torch.train.elastic import reshard_state
+
+    c = model.init_cache(PREFILL_B, cache_len)
+    c.update({k: v.clone() for k, v in (cross or {}).items()})
+    c.update({k: c[k].float() for k in f32 if k in c})
+    return c if ctx is None else reshard_state(c, model.cache_specs(PREFILL_B, cache_len, ctx))
+
+
+@contextlib.contextmanager
+def f32_scores():
+    """While active, ``gqa_attention`` (the decode's attention) runs its score
+    chain in the query's dtype, not bf16 (the reference's, whatever the
+    model's dtype): an f32 model's decode in f32 throughout. With a bf16
+    chain a one-ulp difference in an f32 query flips a bf16 score now and
+    then, and over the few keys of the first decode steps one flip moved
+    whisper's f32 logits by 1e-2 of the largest."""
+    from repro_torch.models import lm
+
+    gqa = lm.gqa_attention
+    lm.gqa_attention = lambda q, *a, **k: gqa(q, *a, **{"score_dtype": q.dtype, **k})
+    try:
+        yield
+    finally:
+        lm.gqa_attention = gqa
+
+
+def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, pure_dp: bool = False) -> dict:
+    """``arch`` at full width, at its depth (TP_SERVE_DEPTHS, a ``reduced:``
+    line where cut; weights drawn on the card from ``seed``, the same on
+    both ranks, each keeping its blocks; whisper's final norms drawn), as a
+    model that is not pure data-parallel, or with ``pure_dp`` as whisper-base
+    is: a warm-up and a counted sharded prefill of PREFILL_B rows
+    (``_tp_inputs``: flash counted from 0; collectives by kind; for the MoE
+    family each rank's drops in its first and last layer), then
+    TP_DECODE_STEPS sharded decode steps against a cache from zero
+    (TP_CACHE long, whisper's WHISPER_TOKENS with its cross K/V filled):
+    greedy, but the VLM's, fed the prefill's embeddings. Rank 0 holds them
+    against the unsharded prefill and decode (teacher-forced on the sharded
+    tokens) on the card: the logits within CHECK_LOGIT_ULPS bf16 ulps of the
+    largest |logit|, the decode's greedy tokens at SMALL_ARGMAX_SHARE of all
+    positions, each held by ``tp_judge`` (and equal to the unsharded run
+    under ``tp_rounding`` where TP_EXACT says). The MoE family's
+    expert-parallel prefill routes each rank's tokens with a capacity from
+    them, through the reference's exchange (ROADMAP C): its unsharded
+    counterpart runs that branch emulated (``ep_emulated``); its decode
+    routes whole. With ``pure_dp`` the prefill is data-parallel over both
+    axes and the serve step decodes on the serve specs' blocks."""
     import contextlib
+    import dataclasses
     import gc
 
     sys.path.insert(0, str(ROOT / "tests"))
@@ -3649,78 +3859,95 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models.registry import build_model
-    from repro_torch.train.elastic import reshard_state
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
     cfg = get_arch(arch)
-    model = build_model(cfg, max_pos=TP_CACHE, device="cuda")
+    if arch in TP_SERVE_DEPTHS:
+        log(f"reduced: tp {arch} serving n_layers {cfg.n_layers} -> {TP_SERVE_DEPTHS[arch]} "
+            f"({TP_SERVE_CUT})")
+        cfg = dataclasses.replace(cfg, n_layers=TP_SERVE_DEPTHS[arch])
+    encdec = cfg.family == "encdec"
+    cache_len = WHISPER_TOKENS if encdec else TP_CACHE
+    model = build_model(cfg, max_pos=cache_len, device="cuda")
+    model.pure_dp = pure_dp
+    tag = f"tp {WHISPER_SERVE_STEP if pure_dp else arch}"
     params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
-    placed = _placed(params, model.param_specs(ctx), ctx)
-    if rank != 0:
+    if encdec:
+        _encdec().draw_final_norms(params, seed + 9)
+    batch, cross = _tp_inputs(model, params, seed)
+    # the pure data-parallel model prefills on whole weights, decodes on the serve specs
+    placed = _placed(params, model.param_specs(ctx, serve=pure_dp), ctx)
+    weights = params if pure_dp else placed
+    if rank != 0 and not pure_dp:
         del params
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
+    n_tokens = PREFILL_B * batch["tokens" if "tokens" in batch else "embeds"].shape[1]
     prefill = make_prefill_step(model, ctx)
-    prefill(placed, {"tokens": tokens})  # warm-up
+    prefill(weights, batch if encdec else _tp_prefix(batch, TP_WARMUP_S))  # warm-up
     torch.cuda.synchronize()
     fa.launches = 0
     ctx.counts.clear()
     t = time.perf_counter()
-    logits = prefill(placed, {"tokens": tokens})
+    logits = prefill(weights, batch)
     torch.cuda.synchronize()
     pre_wall = time.perf_counter() - t
     out = {"flash_launches": fa.launches, "counts": {"prefill": dict(ctx.counts)},
-           "prefill_tokens_per_s": PREFILL_B * PREFILL_S / pre_wall}
+           "prefill_tokens_per_s": n_tokens / pre_wall}
     if cfg.family == "moe":  # this rank's routes, recorded in a prefill of their own
         with mc.RouteLog() as routes:
-            prefill(placed, {"tokens": tokens})
+            prefill(weights, batch)
         out["drops"] = {str(i): [int(r["routed"].sum() - r["kept"].sum()), int(r["routed"].sum())]
                         for i, r in ((i, routes.calls[i]) for i in (0, cfg.n_layers - 1))}
         del routes
-    want_flash = cfg.n_layers if cfg.family != "ssm" else 0
-    if out["flash_launches"] != want_flash:
-        raise AssertionError(f"tp {arch}: rank {rank}'s sharded prefill launched flash_attention "
-                             f"{out['flash_launches']} times, not {want_flash}")
+    if out["flash_launches"] != attention_layers(cfg):
+        raise AssertionError(f"{tag}: rank {rank}'s sharded prefill launched flash_attention "
+                             f"{out['flash_launches']} times, not {attention_layers(cfg)}")
     if not torch.isfinite(logits).all() or logits.shape != (PREFILL_B, cfg.vocab):
-        raise AssertionError(f"tp {arch}: sharded prefill logits {tuple(logits.shape)} not finite")
-    log(f"tp {arch}: {model.n_params()} parameters, full width and depth ({cfg.n_layers} "
-        f"layers); sharded prefill {PREFILL_B} x {PREFILL_S}: {pre_wall:.4f} s, "
-        f"{out['prefill_tokens_per_s']:.1f} tokens/s on two ranks sharing the card, flash "
-        f"launches on this rank {out['flash_launches']}, collectives {out['counts']['prefill']} "
-        f"({card})")
+        raise AssertionError(f"{tag}: sharded prefill logits {tuple(logits.shape)} not finite")
+    log(f"{tag}: {model.n_params()} parameters, full width, {cfg.n_layers} layers"
+        + (f" and {cfg.encoder_layers} encoder layers on {WHISPER_FRAMES} frames" if encdec
+           else "")
+        + f"; {'data-parallel' if pure_dp else 'sharded'} prefill {n_tokens} tokens: "
+        f"{pre_wall:.4f} s, {out['prefill_tokens_per_s']:.1f} tokens/s on two ranks sharing the "
+        f"card, flash launches on this rank {out['flash_launches']}, collectives "
+        f"{out['counts']['prefill']} ({card})")
     if rank == 0:
         moe = cfg.family == "moe"
         with mc.ep_emulated(*TP_MESH) if moe else contextlib.nullcontext():
-            plain = make_prefill_step(model)(params, {"tokens": tokens})
+            plain = make_prefill_step(model)(params, batch)
             with crit.tp_rounding(TP_MESH[-1]):
-                jit = make_prefill_step(model)(params, {"tokens": tokens})
+                jit = make_prefill_step(model)(params, batch)
         _, err, tol = _logits_close(logits, plain)
-        tag = (f"tp {arch}: sharded prefill against the unsharded prefill"
-               + (" (its expert-parallel branch emulated)" if moe else "")
-               + f" on the card (max |logit| {float(plain.abs().max()):.3e}, greedy tokens agree "
-               f"{int((logits.argmax(-1) == plain.argmax(-1)).sum())}/{PREFILL_B}), max |diff|")
-        out["prefill_held"] = tp_judge(tag, err, _logits_close(jit, plain)[1], tol,
-                                       float((logits - jit).abs().max()),
-                                       "prefill" in TP_EXACT.get(arch, ()))
+        what = "data-parallel" if pure_dp else "sharded"
+        out["prefill_held"] = tp_judge(
+            f"{tag}: {what} prefill against the unsharded prefill"
+            + (" (its expert-parallel branch emulated)" if moe else "")
+            + f" on the card (max |logit| {float(plain.abs().max()):.3e}, greedy tokens agree "
+            f"{int((logits.argmax(-1) == plain.argmax(-1)).sum())}/{PREFILL_B}), max |diff|",
+            err, _logits_close(plain if pure_dp else jit, plain)[1], tol,
+            None if pure_dp else float((logits - jit).abs().max()),
+            "prefill" in TP_EXACT.get(arch, ()))
         del plain, jit
 
     B = PREFILL_B
-    cspecs = model.cache_specs(B, TP_CACHE, ctx)
     serve = make_serve_step(model, ctx)
-    scratch = reshard_state(model.init_cache(B, TP_CACHE), cspecs)
-    serve(placed, scratch, {"token": tokens[:, 0], "cur_len": 0})  # warm-up
-    del scratch
-    cache = reshard_state(model.init_cache(B, TP_CACHE), cspecs)
-    fed, seen = [tokens[:, 0]], []
+    serve(placed, _tp_cache(model, cache_len, cross, ctx), _decode_batch(batch, 0))  # warm-up
+    cache = _tp_cache(model, cache_len, cross, ctx)
+    fed, seen = [batch["tokens"][:, 0].contiguous() if "tokens" in batch else None], []
+
+    def feed(i: int) -> dict:
+        """Step i's input: the VLM's prefill embedding i, else the greedy token fed."""
+        return _decode_batch(batch, i) if cfg.embeddings_input else {"token": fed[i],
+                                                                     "cur_len": i}
+
     torch.cuda.synchronize()
     t = time.perf_counter()
     for i in range(TP_DECODE_STEPS):
         if i == 1:
             ctx.counts.clear()
-        step_logits, cache = serve(placed, cache, {"token": fed[-1], "cur_len": i})
+        step_logits, cache = serve(placed, cache, feed(i))
         if i == 1:
             out["counts"]["decode"] = dict(ctx.counts)
         seen.append(step_logits)
@@ -3728,24 +3955,28 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
     torch.cuda.synchronize()
     dec_wall = time.perf_counter() - t
     out["decode_tokens_per_s"] = B * TP_DECODE_STEPS / dec_wall
-    log(f"tp {arch}: sharded decode, {TP_DECODE_STEPS} greedy steps of batch {B} against a "
-        f"{TP_CACHE}-long cache: {dec_wall:.4f} s, {out['decode_tokens_per_s']:.1f} tokens/s on "
-        f"two ranks sharing the card, collectives a step {out['counts']['decode']} ({card})")
+    log(f"{tag}: sharded decode, {TP_DECODE_STEPS} "
+        + ("steps fed the prefill's embeddings" if cfg.embeddings_input else "greedy steps")
+        + f" of batch {B} against a {cache_len}-long cache"
+        + (f" (its cross K/V of {WHISPER_FRAMES} frames filled from the encoder)" if encdec
+           else "")
+        + f": {dec_wall:.4f} s, {out['decode_tokens_per_s']:.1f} tokens/s on two ranks sharing "
+        f"the card, collectives a step {out['counts']['decode']} ({card})")
     del cache
     moe_routes = None
     if cfg.family == "moe":  # the same steps again, rank 0 recording its routes
-        cache = reshard_state(model.init_cache(B, TP_CACHE), cspecs)
+        cache = _tp_cache(model, cache_len, cross, ctx)
         with mc.RouteLog() as log_routes:
             for i in range(TP_DECODE_STEPS):
-                _, cache = serve(placed, cache, {"token": fed[i], "cur_len": i})
+                _, cache = serve(placed, cache, feed(i))
         moe_routes = log_routes.calls
         del cache
     if rank == 0:
         def unsharded() -> tuple[list, list]:
-            plain_cache, step, got = model.init_cache(B, TP_CACHE), make_serve_step(model), []
+            plain_cache, step, got = _tp_cache(model, cache_len, cross), make_serve_step(model), []
             with mc.RouteLog() as calls:
                 for i in range(TP_DECODE_STEPS):
-                    want, plain_cache = step(params, plain_cache, {"token": fed[i], "cur_len": i})
+                    want, plain_cache = step(params, plain_cache, feed(i))
                     got.append(want)
             return got, calls.calls
 
@@ -3754,30 +3985,37 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
             jit, jit_routes = unsharded()
         routes = (moe_routes, want_routes, jit_routes) if moe_routes is not None else None
         out["decode_held"] = tp_decode_judge(
-            f"tp {arch}: sharded decode against the unsharded decode ({TP_DECODE_STEPS} steps "
-            f"teacher-forced on the sharded tokens", seen, want, jit, routes,
+            f"{tag}: sharded decode against the unsharded decode ({TP_DECODE_STEPS} steps "
+            f"teacher-forced on the sharded run's inputs", seen, want, jit, routes,
             "decode" in TP_EXACT.get(arch, ()))
-        del want, jit, params
+        del want, jit
     out["peak"] = torch.cuda.max_memory_allocated()
-    del placed, model
+    del placed, model, weights, cross, batch
+    params = None
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
-    """``arch`` at full width and TP_SHALLOW_LAYERS layers, in bf16 and in
-    f32 (weights drawn on the card): the sharded prefill of PREFILL_B x
-    PREFILL_S tokens and TP_SHALLOW_STEPS decode steps, against the
-    unsharded ones on rank 0 (the MoE prefill's with its expert-parallel
-    branch emulated, ``ep_emulated``), each also against the unsharded run
-    under ``tp_rounding``. In bf16 held as ``tp_serve`` holds them; in f32
-    within TP_WITNESS_RTOL of the largest |logit|, where the rounded
-    unsharded run is within it too: the sharded math's witness where the
-    bf16 model is ill-conditioned. For the SSM family the decode steps that
-    read the bf16 conv window back are printed, with the window's entries
-    that differ after step 0 counted, and the f32 run is repeated with the
-    window kept in f32, every step held."""
+    """``arch`` at full width and TP_SHALLOW_LAYERS layers (whisper's encoder
+    too), not pure data-parallel, in bf16 and
+    in f32 (weights drawn on the card): the sharded prefill of
+    ``_tp_inputs`` and TP_SHALLOW_STEPS decode steps fed the prefill's
+    tokens (or embeddings), against the unsharded ones on rank 0 (the MoE
+    prefill's with its expert-parallel branch emulated, ``ep_emulated``),
+    each also against its twin, the unsharded run under ``tp_rounding``
+    (in f32 also ``tp_columns``). In bf16 held as ``tp_serve`` holds them;
+    in f32 (the decode's K/V cache and score chain too, ``f32_scores``)
+    within TP_WITNESS_RTOL of the largest |logit| of the twin at every
+    check, and of the plain unsharded run where the twin is within it
+    too: the sharded math's witness where the bf16 model is
+    ill-conditioned. For the SSM and hybrid families the decode steps that
+    read the bf16 conv window back are printed, not held, with the
+    window's entries that differ after step 0 counted, and the f32 run is
+    repeated with the window kept in f32 and held at every step; the
+    column-parallel products' differing bits are printed
+    (``column_bits``)."""
     import contextlib
     import dataclasses
     import gc
@@ -3789,35 +4027,34 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import build_model
     from repro_torch.models.sharding import whole
-    from repro_torch.train.elastic import reshard_state
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
+    depth = TP_SHALLOW_LAYERS
     for dtype in ("bfloat16", "float32"):
-        cfg = dataclasses.replace(get_arch(arch), n_layers=TP_SHALLOW_LAYERS, dtype=dtype)
-        log(f"reduced: tp {arch} {dtype} check n_layers {get_arch(arch).n_layers} -> "
-            f"{TP_SHALLOW_LAYERS} (the bf16 model at full depth is ill-conditioned from random "
-            f"weights)")
-        model = build_model(cfg, max_pos=TP_CACHE, device="cuda")
+        full = get_arch(arch)
+        encdec = full.family == "encdec"
+        cfg = dataclasses.replace(full, n_layers=depth, dtype=dtype,
+                                  **({"encoder_layers": depth} if encdec else {}))
+        log(f"reduced: tp {arch} {dtype} check n_layers {full.n_layers} -> {depth}"
+            + (f" and encoder_layers {full.encoder_layers} -> {depth}" if encdec else "")
+            + " (the bf16 model at full depth is ill-conditioned from random weights)")
+        cache_len = WHISPER_TOKENS if encdec else TP_CACHE
+        model = build_model(cfg, max_pos=cache_len, device="cuda")
         model.pure_dp = False
         params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+        if encdec:
+            _encdec().draw_final_norms(params, seed + 9)
         placed = _placed(params, model.param_specs(ctx), ctx)
-        tokens = torch.from_numpy(np.random.default_rng(seed + 1).integers(
-            0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")
-        moe, ssm = cfg.family == "moe", cfg.family == "ssm"
-
-        def cache(sharded: bool, f32_window: bool = False) -> dict:
-            c = model.init_cache(PREFILL_B, TP_CACHE)
-            if f32_window:
-                c["conv"] = c["conv"].float()
-            return reshard_state(c, model.cache_specs(PREFILL_B, TP_CACHE, ctx)) if sharded else c
+        batch, cross = _tp_inputs(model, params, seed + 1)
+        moe, ssm = cfg.family == "moe", cfg.is_ssm
 
         def decode(serve, weights, c) -> tuple[list, list, torch.Tensor]:
             """(the decode steps' logits, their routes, the conv window after
-            the first step, whole, for the SSM family)."""
+            the first step, whole, for the SSM families)."""
             steps, window = [], None
             with mc.RouteLog() as routes:
                 for i in range(TP_SHALLOW_STEPS):
-                    logits, c = serve(weights, c, {"token": tokens[:, i], "cur_len": i})
+                    logits, c = serve(weights, c, _decode_batch(batch, i))
                     steps.append(logits)
                     if ssm and i == 0:
                         window = whole(c["conv"]).clone()
@@ -3825,62 +4062,77 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
 
         def run(sharded: bool, f32_window: bool = False) -> tuple:
             """(prefill logits, decode steps' logits, the decode's routes, its
-            first conv window)."""
+            first conv window); in f32, the decode's K/V cache and score chain
+            in f32 too."""
             step_ctx, weights = (ctx, placed) if sharded else (None, params)
             with mc.ep_emulated(*TP_MESH) if moe and not sharded else contextlib.nullcontext():
-                pre = make_prefill_step(model, step_ctx)(weights, {"tokens": tokens})
-            return [pre], *decode(make_serve_step(model, step_ctx), weights,
-                                  cache(sharded, f32_window))
+                pre = make_prefill_step(model, step_ctx)(weights, batch)
+            f32 = dtype == "float32"
+            cache = _tp_cache(model, cache_len, cross, step_ctx,
+                              (("k", "v") if f32 else ()) + (("conv",) if f32_window else ()))
+            with f32_scores() if f32 else contextlib.nullcontext():
+                return [pre], *decode(make_serve_step(model, step_ctx), weights, cache)
 
         got = run(True)
         got32 = run(True, True) if ssm and dtype == "float32" else None
         if rank == 0:
-            want = run(False)
-            with crit.tp_rounding(TP_MESH[-1]):
-                jit = run(False)
-            tag = f"tp {arch} {dtype} {TP_SHALLOW_LAYERS} layers (full width)"
-            if dtype == "float32":
+            f32 = dtype == "float32"
+
+            def twin(f32_window: bool = False) -> tuple:
+                """The unsharded run rounded as the ranks round and, in f32, its
+                column-parallel products on the ranks' blocks (``tp_columns``)."""
+                with crit.tp_rounding(TP_MESH[-1]), (
+                        tp_columns(TP_MESH[-1]) if f32 else contextlib.nullcontext()):
+                    return run(False, f32_window)
+
+            want, jit = run(False), twin()
+            tag = f"tp {arch} {dtype} {depth} layers (full width)"
+            if f32:
                 labels = ["prefill"] + [f"decode step {i}" for i in range(TP_SHALLOW_STEPS)]
                 windowed = set(labels[2:]) if ssm else set()
+                tol = TP_WITNESS_RTOL
 
                 def rel(a: tuple, b: tuple) -> list:
                     return [float((x - w).abs().max() / w.abs().max())
                             for x, w in zip(a[0] + a[1], b[0] + b[1])]
 
-                def line(what: str, errs: list, selfs: list, held: list) -> str:
-                    return (f"{tag}{', ' + what if what else ''}: max |diff| over the largest "
-                            f"|logit|, sharded against "
-                            f"unsharded (the unsharded run rounded as the ranks round against it): "
-                            + ", ".join(f"{label} {e:.3e} ({r:.3e})"
-                                        for label, e, r in zip(labels, errs, selfs))
-                            + f"; tolerance {TP_WITNESS_RTOL}, held: {', '.join(held) or 'none'}"
-                            + f" ({card})")
+                def witness(what: str, got_: tuple, want_: tuple, jit_: tuple, skip: set) -> None:
+                    """Each label sharded within the tolerance of the twin, and of
+                    the unsharded run where the twin is within it of that run
+                    too; the labels in ``skip`` printed, not held."""
+                    errs, selfs, near = rel(got_, want_), rel(jit_, want_), rel(got_, jit_)
+                    bad = [label for label, e, r, d in zip(labels, errs, selfs, near)
+                           if label not in skip and (d > tol or r <= tol < e)]
+                    log(f"{tag}{', ' + what if what else ''}: max |diff| over the largest "
+                        f"|logit|, sharded against unsharded (the twin, the unsharded run "
+                        f"computed as the ranks compute it, against it; sharded against the "
+                        f"twin): "
+                        + ", ".join(f"{label} {e:.3e} ({r:.3e}; {d:.3e})"
+                                    for label, e, r, d in zip(labels, errs, selfs, near))
+                        + f"; tolerance {tol}"
+                        + (f"; held against the twin only, the twin {tol} or more from the "
+                           f"unsharded run: " + ", ".join(label for label, r in zip(labels, selfs)
+                                                         if r > tol and label not in skip)
+                           if any(r > tol for r in selfs) else "")
+                        + (f"; printed, not held: {', '.join(sorted(skip))} (they read the bf16 "
+                           f"window back)" if skip else "") + f" ({card})")
+                    if bad:
+                        raise AssertionError(f"{tag}, {what}: not held: {bad} (sharded against "
+                                             f"unsharded {errs}, twin {selfs}, sharded against "
+                                             f"twin {near})")
 
-                errs, selfs = rel(got, want), rel(jit, want)
-                held = [label for label, r in zip(labels, selfs)
-                        if r <= TP_WITNESS_RTOL and label not in windowed]
-                log(line("the conv window in bf16 as the reference keeps it" if ssm else "",
-                         errs, selfs, held)
-                    + (f"; printed, not held: {', '.join(sorted(windowed))}, which read the bf16 "
-                       f"window back" if ssm else ""))
-                for label, e in zip(labels, errs):
-                    if label in held and not e <= TP_WITNESS_RTOL:
-                        raise AssertionError(f"{tag}: {label} {e} > {TP_WITNESS_RTOL}")
+                witness("the conv window in bf16 as the reference keeps it" if ssm else "",
+                        got, want, jit, windowed)
                 if ssm:
                     a, b = got[3].float(), want[3].float()
                     ulps = (a - b).abs() / torch.from_numpy(mc.bf16_ulp(b.cpu().numpy())).to(b)
                     log(f"{tag}: the bf16 conv window after decode step 0, sharded against "
                         f"unsharded: {int((a != b).sum())} of {b.numel()} entries differ, by at "
-                        f"most {float(ulps.max()):.3f} bf16 ulps; the rounded run's "
+                        f"most {float(ulps.max()):.3f} bf16 ulps; the twin's "
                         f"{int((jit[3] != want[3]).sum())}")
-                    want32 = run(False, True)
-                    with crit.tp_rounding(TP_MESH[-1]):
-                        jit32 = run(False, True)
-                    errs, selfs = rel(got32, want32), rel(jit32, want32)
-                    log(line("the conv window kept in f32", errs, selfs, labels))
-                    if not max(errs) <= TP_WITNESS_RTOL:
-                        raise AssertionError(f"{tag}, f32 conv window: {errs} > {TP_WITNESS_RTOL}")
-                    del want32, jit32
+                    witness("the conv window kept in f32", got32, run(False, True), twin(True),
+                            set())
+                column_bits(params, seed, tag, card)
             else:
                 exact = TP_EXACT.get(arch, ())
                 _, err, tol = _logits_close(got[0][0], want[0][0])
@@ -3893,19 +4145,50 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
                                 f"({TP_SHALLOW_STEPS} steps", got[1], want[1], jit[1], routes,
                                 "decode" in exact)
             del want, jit
-        del params, placed, got, got32, model
+        del params, placed, got, got32, model, batch, cross
         gc.collect()
         torch.cuda.empty_cache()
 
 
+def column_bits(params: dict, seed: int, tag: str, card: str) -> None:
+    """What ``tp_columns`` models: for the first layer's column-parallel
+    weights (the attention's and the MLP's, of the hybrid's shared block,
+    of whisper's decoder), how many elements of an f32 product on
+    PREFILL_B * PREFILL_S random rows differ between the whole product and
+    the ranks' contiguous column blocks; printed."""
+    stack = next((params[k] for k in ("layers", "shared", "dec") if "wq" in params.get(k, {})),
+                 None)
+    if stack is None:  # mamba2: no attention, no MLP
+        return
+    lead, n = stack["wq"].ndim - 3, TP_MESH[-1]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(PREFILL_B * PREFILL_S, stack["wq"].shape[-3], device="cuda", generator=g)
+    seen = []
+    for name in ("wq", "wk", "wv", "wg", "wu"):
+        if (name not in stack or name in ("wq", "wk", "wv") and stack[name].shape[-2] % n
+                or name == "wu" and "dec" in params):  # whisper's MLP reads no wu
+            continue
+        w = stack[name][(0,) * lead]
+        w = w.reshape(w.shape[0], -1)
+        k = w.shape[1] // n
+        whole = x @ w
+        blocks = torch.cat([x @ w[:, i * k:(i + 1) * k].contiguous() for i in range(n)], dim=-1)
+        seen.append(f"{name} {tuple(w.shape)} {int((whole != blocks).sum())} of {whole.numel()}")
+    log(f"{tag}: layer 0's f32 column-parallel products on {x.shape[0]} random rows, the elements "
+        f"that differ between the whole product and the ranks' column blocks: {'; '.join(seen)} "
+        f"({card})")
+
+
 def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
     """``arch`` trained on the mesh at full width, the depth TP_TRAIN_DEPTHS
-    (a ``reduced:`` line where cut): weights drawn on the card, each rank
-    keeping its blocks, AdamW's moments made as blocks, B=TRAIN_B x TRAIN_S
-    from ``SyntheticLM``, lr TRAIN_LR: a warm-up and TP_TRAIN_STEPS timed
-    steps (finite losses, train tokens/s, peak device memory, collectives
-    a step). For qwen2-0.5b also one full-width layer in f32, sharded
-    against unsharded (``mesh_hold``), held."""
+    (a ``reduced:`` line where cut), not pure data-parallel: weights drawn
+    on the card (whisper's final norms drawn), each rank keeping its blocks,
+    AdamW's moments made as blocks, B=TRAIN_B x TRAIN_S (``_train_batches``;
+    whisper: MESH_WHISPER_TOKENS tokens on WHISPER_TRAIN_FRAMES frames, as
+    phase 8 trains it), lr TRAIN_LR: a warm-up and TP_TRAIN_STEPS timed
+    steps (finite losses, train tokens/s, peak device memory, collectives a
+    step). For qwen2-0.5b also one full-width layer in f32, sharded against
+    unsharded (``mesh_hold``), held."""
     import dataclasses
     import gc
 
@@ -3920,18 +4203,33 @@ def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
         log(f"reduced: tp {arch} training n_layers {cfg.n_layers} -> {depth} "
             f"({TP_TRAIN_CUTS[arch]})")
         cfg = dataclasses.replace(cfg, n_layers=depth)
-    model = build_model(cfg, max_pos=TRAIN_S, device="cuda")
+    encdec = cfg.family == "encdec"
+    model = build_model(cfg, max_pos=WHISPER_TOKENS if encdec else TRAIN_S, device="cuda")
     model.pure_dp = False
     pspecs = model.param_specs(ctx)
-    params = _placed(model.init_params(torch.Generator(device="cuda").manual_seed(seed)),
-                     pspecs, ctx)
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    if encdec:
+        _encdec().draw_final_norms(params, seed + 9)
+    params = _placed(params, pspecs, ctx)
     ospecs = adamw_specs(pspecs, model.param_template(), ctx)
     opt = {"m": _local_zeros(model.param_template(), ospecs["m"], ctx),
            "v": _local_zeros(model.param_template(), ospecs["v"], ctx),
            "step": torch.zeros((), dtype=torch.int32, device="cuda")}
     gc.collect()
     torch.cuda.empty_cache()
-    next_batch = _train_batches(cfg, TRAIN_B, TRAIN_S, seed, "cuda")
+    if encdec:
+        log(f"reduced: tp whisper training decoder tokens {WHISPER_TOKENS} -> "
+            f"{MESH_WHISPER_TOKENS} on {WHISPER_TRAIN_FRAMES} frames (the chunked cross-entropy "
+            f"of a mesh step takes multiples of 128; the training attention refuses 1500 frames)")
+        seeds = itertools.count(seed)
+
+        def next_batch() -> dict:
+            return {k: v[:, :MESH_WHISPER_TOKENS] if k != "audio_embeds" else v
+                    for k, v in whisper_inputs(TRAIN_B, next(seeds), "cuda",
+                                               frames=WHISPER_TRAIN_FRAMES, labels=True).items()}
+    else:
+        next_batch = _train_batches(cfg, TRAIN_B, TRAIN_S, seed, "cuda")
+    n_tokens = TRAIN_B * (MESH_WHISPER_TOKENS if encdec else TRAIN_S)
     step = make_train_step(model, ctx, AdamWConfig(lr=TRAIN_LR))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3950,12 +4248,13 @@ def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
         losses.append(loss)
     peak = torch.cuda.max_memory_allocated()
     median = sorted(walls[1:])[len(walls[1:]) // 2]
-    log(f"tp {arch}: trained at full width, {cfg.n_layers} layers, B={TRAIN_B} x S={TRAIN_S}: "
-        f"{TRAIN_B * TRAIN_S / median:.1f} train tokens/s on two ranks sharing the card (median "
-        f"step {median:.4f} s of {', '.join(f'{w:.4f}' for w in walls)}, the first a warm-up); "
-        f"losses {', '.join(f'{x:.6f}' for x in losses)}; peak device memory on rank {rank} "
-        f"{peak} bytes ({peak / 1e9:.3f} GB; {torch.cuda.max_memory_reserved() / 1e9:.3f} GB "
-        f"reserved); collectives a step {counts} ({card})")
+    log(f"tp {arch}: trained at full width, {cfg.n_layers} layers, B={TRAIN_B} x "
+        f"{n_tokens // TRAIN_B} tokens: {n_tokens / median:.1f} train tokens/s on two ranks "
+        f"sharing the card (median step {median:.4f} s of {', '.join(f'{w:.4f}' for w in walls)}, "
+        f"the first a warm-up); losses {', '.join(f'{x:.6f}' for x in losses)}; peak device "
+        f"memory on rank {rank} {peak} bytes ({peak / 1e9:.3f} GB; "
+        f"{torch.cuda.max_memory_reserved() / 1e9:.3f} GB reserved); collectives a step {counts} "
+        f"({card})")
     del params, opt, step, model
     gc.collect()
     torch.cuda.empty_cache()
@@ -3967,7 +4266,7 @@ def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
                                      pure_dp=False)
         if not held:
             raise AssertionError(f"tp qwen2 f32 1 layer: {verdict}")
-    return {"train_tokens_per_s": TRAIN_B * TRAIN_S / median, "train_peak": peak,
+    return {"train_tokens_per_s": n_tokens / median, "train_peak": peak,
             "train_depth": cfg.n_layers, "train_counts": counts}
 
 
@@ -4028,7 +4327,7 @@ def main() -> int:
         + ", ".join(f"{a} n_layers {get_arch(a).n_layers} -> {d}"
                     for a, d in {**FAMILY_TRAIN_DEPTHS, **EMBED_TRAIN_DEPTHS}.items()
                     if d < get_arch(a).n_layers)
-        + " (one card's 80 GB); the launcher runs at the reduced configs of the first three")
+        + f" ({TRAIN_DEPTH_CUT}); the launcher runs at the reduced configs of the first three")
     def elapsed(after: str) -> None:
         log(f"elapsed: {time.perf_counter() - t_start:.3f} s after {after} ({card})")
 
@@ -4082,6 +4381,7 @@ def main() -> int:
     # phase 5b: the MoE family, flash_attention counted from zero inside drive_moe
     counts["flash_attention"] += drive_moe(args.seed, card, args.out)
     torch.cuda.empty_cache()
+    elapsed("phase 5b's serving")
     for arch in MOE_CHECK_ARCHS:
         card_vs_cpu(args.seed, arch)
     moe_layer_card_vs_cpu(args.seed, card)
@@ -4091,9 +4391,13 @@ def main() -> int:
     # from zero inside drive_ssm
     for arch in SSM_MODELS:
         counts["flash_attention"] += drive_ssm(arch, args.seed, card, args.out)
+    elapsed("phase 5c's serving")
     for arch in SSM_MODELS:
-        if not ssm_card_vs_cpu(args.seed, arch) and not ssm_card_vs_cpu(args.seed, arch,
-                                                                         "float32"):
+        if arch in SSM_CHECK_F32_ONLY:
+            log(f"reduced: {arch} card vs CPU in float32 only (the script's 1200 s; its bfloat16 "
+                f"check is ill-conditioned from random weights and was printed, never held)")
+        if (arch in SSM_CHECK_F32_ONLY or not ssm_card_vs_cpu(args.seed, arch)) and \
+                not ssm_card_vs_cpu(args.seed, arch, "float32"):
             raise AssertionError(f"{arch}: the f32 card-vs-CPU check did not hold every "
                                  f"criterion")
     torch.cuda.empty_cache()
@@ -4102,6 +4406,7 @@ def main() -> int:
     # counted from zero inside drive_embed
     for arch in EMBED_MODELS:
         counts["flash_attention"] += drive_embed(arch, args.seed, card, args.out)
+    elapsed("phase 5d's serving")
     for arch in EMBED_MODELS:
         if not embed_card_vs_cpu(args.seed, arch) and not embed_card_vs_cpu(args.seed, arch,
                                                                              "float32"):
@@ -4119,6 +4424,7 @@ def main() -> int:
     elapsed("phase 6")
     # phase 7: training with checkpoints, the storage kernels counted from zero inside
     drive_training(args.seed, args.out, card, counts, worst)
+    elapsed("phase 7's training")
     train_card_vs_cpu(args.seed)
     elapsed("phase 7")
     # phase 7b: the MoE, SSM and hybrid families trained at full width (depth cut to fit),
@@ -4126,16 +4432,20 @@ def main() -> int:
     t7b = time.perf_counter()
     trained = [drive_family_training(arch, args.seed, card, args.out)
                for arch in FAMILY_TRAIN_DEPTHS]
+    elapsed("phase 7b's training")
     moe_gather_backward_card_vs_cpu(args.seed, card)
     family_train_card_vs_cpu(args.seed)
+    elapsed("phase 7b's card-vs-CPU steps")
     for arch in FAMILY_TRAIN_DEPTHS:
         drive_train_launcher(arch, card, counts, worst)
     log(f"phase 7b: {time.perf_counter() - t7b:.3f} s; "
         + "; ".join(f"{t['arch']} at {t['depth']} layers {t['tokens_per_s']:.1f} train tokens/s, "
                     f"peak {t['peak'] / 1e9:.3f} GB" for t in trained) + f" ({card})")
+    elapsed("phase 7b")
     # phase 7c: the encoder-decoder and VLM families trained at full width
     t7c = time.perf_counter()
     trained = drive_embed_training(args.seed, card, args.out)
+    elapsed("phase 7c's training")
     embed_train_card_vs_cpu(args.seed)
     log(f"phase 7c: {time.perf_counter() - t7c:.3f} s; "
         + "; ".join(f"{t['arch']} at {t['depth']} layers {t['tokens_per_s']:.1f} train tokens/s, "
@@ -4157,10 +4467,12 @@ def main() -> int:
     tp = drive_tp(args.seed, card, args.out, counts, worst)
     log(f"phase 9: {time.perf_counter() - t9:.3f} s; on (data=1, model=2), two processes "
         f"sharing the card over gloo: "
-        + "; ".join(f"{a} prefill {tp[a]['prefill_tokens_per_s']:.1f}, decode "
-                    f"{tp[a]['decode_tokens_per_s']:.1f}, train at {tp[a]['train_depth']} layers "
-                    f"{tp[a]['train_tokens_per_s']:.1f} tokens/s" for a in TP_ARCHS)
+        + "; ".join(f"{a} prefill {r['prefill_tokens_per_s']:.1f}, decode "
+                    f"{r['decode_tokens_per_s']:.1f}"
+                    + (f", train at {r['train_depth']} layers {r['train_tokens_per_s']:.1f}"
+                       if "train_depth" in r else "") + " tokens/s" for a, r in tp.items())
         + f" ({card})")
+    elapsed("phase 9")
 
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]

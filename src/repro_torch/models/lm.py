@@ -45,17 +45,25 @@ which it never writes (the reference's API: its serve loop decodes from a
 zero cache; a caller may fill them from the encoder's output).
 
 Tensor and expert parallelism (``tp``, a ``MeshCtx`` whose "model" axis is
-larger than 1, for a dense, MoE or SSM model that is not pure
-data-parallel; ``LM.tp_ctx``): the parameters are this rank's blocks of
-``param_specs`` and the layout is the reference's Megatron-SP. Between
-blocks the hidden state holds this rank's block of the sequence; a block
-gathers it at its entry (``MeshCtx.gather_seq``), runs its column-parallel
-in-projections on the rank's heads, FFN columns or SSM heads and its
-row-parallel out-projection, and reduce-scatters the partial sums back to
-the sequence layout (``scatter_seq``); a decode step (S = 1) all-reduces
-them instead (``psum_model``). The embedding and the head are
-vocab-parallel, and so is the cross-entropy (``vocab_parallel_ce``). The
-MoE block runs ``moe_layer``'s expert-parallel branch on the rank's tokens.
+larger than 1, for a model of any family that is not pure data-parallel,
+and for the decode of one that is; ``LM.tp_ctx``): the parameters are this
+rank's blocks of ``param_specs`` and the layout is the reference's
+Megatron-SP. Between blocks the hidden state holds this rank's block of
+the sequence; a block gathers it at its entry (``MeshCtx.gather_seq``),
+runs its column-parallel in-projections on the rank's heads, FFN columns
+or SSM heads and its row-parallel out-projection, and reduce-scatters the
+partial sums back to the sequence layout (``scatter_seq``); a decode step
+(S = 1) all-reduces them instead (``psum_model``). The hybrid's shared
+block and the encoder-decoder's attentions and GELU MLP run so too; the
+encoder's output is gathered once for every cross-attention. The inputs
+given as embeddings (the VLM's, the encoder's audio) are cut to the rank's
+block of the sequence. Where the vocab divides "model", the embedding and
+the head are vocab-parallel, and so is the cross-entropy
+(``vocab_parallel_ce``); where it does not, they hold a block of d_model:
+the embedding's rows are gathered over "model" and the logits are the sum
+over "model" of each rank's block product (``reduce_model``), on which the
+loss runs whole. The MoE block runs ``moe_layer``'s expert-parallel branch
+on the rank's tokens.
 """
 from __future__ import annotations
 
@@ -86,7 +94,6 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.sharding import (
     FALLBACK_LAYOUTS,
-    TENSOR_PARALLEL,
     MeshCtx,
     NamedSharding,
     spec_with_model_on,
@@ -328,31 +335,39 @@ class LM(nn.Module):
 
         return walk(self.param_template())
 
-    def tp_ctx(self, ctx: MeshCtx | None) -> MeshCtx | None:
+    def tp_ctx(self, ctx: MeshCtx | None, serve: bool = False) -> MeshCtx | None:
         """``ctx`` where a step runs tensor and expert parallelism over
-        "model" (a model that is not pure data-parallel, on a mesh whose
-        "model" axis is larger than 1), else None. Raises
-        ``NotImplementedError``, naming the ROADMAP item, for what the port
-        does not run yet: the hybrid, VLM and encoder-decoder families, and
-        the fallback layouts (heads, vocab, FFN, experts or SSM heads that
-        do not divide the axis; KV heads that do not divide it take the
-        reference's expansion to the rank's heads instead)."""
-        if ctx is None or ctx.n_model == 1 or self.pure_dp:
+        "model" (a model that is not pure data-parallel, or with ``serve``
+        any model, as the reference's serve step runs on ``param_specs(ctx,
+        serve=True)``; on a mesh whose "model" axis is larger than 1), else
+        None. Raises ``NotImplementedError``, naming the ROADMAP item, for
+        the fallback layouts the port does not run yet: heads, FFN, experts,
+        ``d_inner`` or SSM heads (those the family has) that do not divide
+        the axis, or a vocab and d_model neither of which does. KV heads
+        that do not divide it take the reference's expansion to the rank's
+        heads; a vocab that does not, the embedding and head on d_model."""
+        if ctx is None or ctx.n_model == 1 or (self.pure_dp and not serve):
             return None
         cfg, n = self.cfg, ctx.n_model
-        if cfg.family not in ("dense", "moe", "ssm"):
-            raise NotImplementedError(f"{cfg.name} on a mesh with model={n}: {TENSOR_PARALLEL}")
-        dims = {"vocab": cfg.vocab}
-        if cfg.family == "ssm":
+        dims = {} if cfg.family == "ssm" else {"heads": cfg.n_heads}
+        if cfg.is_ssm:
             dims.update(d_inner=cfg.d_inner, ssm_heads=cfg.ssm_heads)
-        else:
-            dims.update(heads=cfg.n_heads, **({"experts": cfg.moe_experts} if cfg.family == "moe"
-                                              else {"d_ff": cfg.d_ff}))
+        if cfg.family == "moe":
+            dims["experts"] = cfg.moe_experts
+        elif cfg.family != "ssm":
+            dims["d_ff"] = cfg.d_ff
         bad = {k: v for k, v in dims.items() if v % n}
+        if cfg.vocab % n and cfg.d_model % n:
+            bad.update(vocab=cfg.vocab, d_model=cfg.d_model)
         if bad:
             raise NotImplementedError(f"{cfg.name} on a mesh with model={n} ({bad} do not "
                                       f"divide it): {FALLBACK_LAYOUTS}")
         return ctx
+
+    def _vocab_parallel(self, tp: MeshCtx | None) -> bool:
+        """Whether ``param_specs`` puts "model" on the embedding's and the
+        head's vocab dim (it divides the axis), not on d_model."""
+        return tp is not None and self.cfg.vocab % tp.n_model == 0
 
     # ------------------------------------------------------------- forward
     def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor | None, torch.Tensor | None]:
@@ -406,15 +421,16 @@ class LM(nn.Module):
         return layers if tp is None else {**layers, **self._tp_kv(layers, tp)}
 
     def _tp_kv(self, lp: dict, tp: MeshCtx) -> dict:
-        """The K/V weights and biases (stacked or one layer's) as this rank's
-        heads read them: its block of the KV heads, or all of them where it
-        expands them. The reference's specs shard the biases (and, where the
-        KV heads do not divide "model", the weights) over head_dim: those
-        are gathered over "model" (their gradients summed back:
-        ``gather_seq``) and cut to the rank's KV heads."""
+        """The K/V weights and biases (stacked or one layer's, the
+        cross-attention's too) as this rank's heads read them: its block of
+        the KV heads, or all of them where it expands them. The reference's
+        specs shard the biases (and, where the KV heads do not divide
+        "model", the weights) over head_dim: those are gathered over "model"
+        (their gradients summed back: ``gather_seq``) and cut to the rank's
+        KV heads."""
         cfg, out = self.cfg, {}
         kv = cfg.n_kv_heads // tp.n_model
-        for name in ("wk", "wv", "bk", "bv"):
+        for name in ("wk", "wv", "bk", "bv", "xwk", "xwv", "xbk", "xbv"):
             if name not in lp:
                 continue
             w = lp[name]
@@ -459,10 +475,7 @@ class LM(nn.Module):
         cfg = self.cfg
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
         attn = dict(cos=cos, sin=sin, window=window, train_pos=train_pos)
-        if tp is None:
-            h = h + self._attn(lp, x, **attn)
-        else:
-            h = h + tp.scatter_seq(self._attn(lp, tp.gather_seq(x), tp=tp, **attn))
+        h = h + _sp(lambda v: self._attn(lp, v, tp=tp, **attn), x, tp)
         y, aux = self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), tp)
         return h + y, aux
 
@@ -477,17 +490,14 @@ class LM(nn.Module):
         if cfg.family == "moe":
             return moe_layer(x, lp["wr"], lp["w_gate"], lp["w_up"], lp["w_down"],
                              top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor, ctx=tp)
-        if tp is None:
-            return swiglu_mlp(x, lp["wg"], lp["wu"], lp["wd"]), None
-        if decode:
-            return tp.psum_model(swiglu_mlp(x, lp["wg"], lp["wu"], lp["wd"])), None
-        return tp.scatter_seq(swiglu_mlp(tp.gather_seq(x), lp["wg"], lp["wu"], lp["wd"])), None
+        def mlp(v: torch.Tensor) -> torch.Tensor:
+            return swiglu_mlp(v, lp["wg"], lp["wu"], lp["wd"])
+
+        return (tp.psum_model(mlp(x)) if decode and tp is not None else _sp(mlp, x, tp)), None
 
     def _mamba_layer(self, lp: dict, h: torch.Tensor, tp: MeshCtx | None = None) -> torch.Tensor:
         x = rms_norm(h, lp["ln"], self.cfg.norm_eps)
-        if tp is None:
-            return h + ssd.mamba2_mixer(lp, x, self.cfg)
-        return h + tp.scatter_seq(ssd.mamba2_mixer(lp, tp.gather_seq(x), self.cfg, tp))
+        return h + _sp(lambda v: ssd.mamba2_mixer(lp, v, self.cfg, tp), x, tp)
 
     def _forward(self, params: Params, batch: dict, *, train: bool = False,
                  tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -497,23 +507,41 @@ class LM(nn.Module):
         (h (B, S, D) before the final norm, the MoE layers' summed auxiliary
         loss or None). With ``tp``, h is this rank's block of the sequence."""
         if self.cfg.family == "encdec":
-            return self._run_encdec(params, batch, train=train), None
+            return self._run_encdec(params, batch, train=train, tp=tp), None
         h, positions = self._inputs(params, batch, tp)
-        return self._run_stack(params, h, positions=positions, train=train, tp=tp)
+        return self._run_stack(params, h, positions=positions, train=train, tp=tp,
+                               q_pos=batch.get("mask_pos"))
 
-    def _embed(self, params: Params, tokens: torch.Tensor,
-               tp: MeshCtx | None = None) -> torch.Tensor:
-        """The embedding's rows of ``tokens`` in the configuration's dtype.
-        With ``tp`` (the vocab split over "model"), the rows this rank's
-        block holds and zeros for the others: the sum over "model" is the
-        embedding."""
-        emb = params["embed"]
+    def _embed(self, params: Params, tokens: torch.Tensor, tp: MeshCtx | None = None,
+               decode: bool = False) -> torch.Tensor:
+        """The embedding's rows of ``tokens`` (B, S) in the configuration's
+        dtype. With ``tp``, this rank's block of the sequence (B, S/n, D),
+        or with ``decode`` the whole rows of the tokens (B,), on every rank.
+        Where the vocab is split over "model", each rank looks up the rows
+        its block holds (zeros for the others) and the sum over "model" is
+        the embedding; where d_model is, each rank's block of every row is
+        gathered over "model"."""
+        emb, cast = params["embed"], dt(self.cfg)
         if tp is None:
-            return emb[tokens].to(dt(self.cfg))
+            return emb[tokens].to(cast)
+        if not self._vocab_parallel(tp):
+            rows = tp.gather_seq(emb[tokens].to(cast), dim=-1)
+            return rows if decode else _rank_block(rows, tp)
         V = emb.shape[0]
         local = tokens.long() - tp.model_rank * V
         own = ((local >= 0) & (local < V))[..., None]
-        return torch.where(own, emb[local.clamp(0, V - 1)], 0).to(dt(self.cfg))
+        part = torch.where(own, emb[local.clamp(0, V - 1)], 0).to(cast)
+        return tp.psum_model(part) if decode else tp.scatter_seq(part)
+
+    def _dec_pos(self, params: Params, tp: MeshCtx | None = None) -> torch.Tensor:
+        """The encoder-decoder's whole position table (max_pos, D): with
+        ``tp`` each rank's block gathered over "model" on the dim
+        ``param_specs`` splits (the positions where max_pos divides it),
+        so that every position's row comes from the rank that holds it."""
+        table = params["dec_pos"]
+        full = (self.max_pos, self.cfg.d_model)
+        split = [d for d in (0, 1) if table.shape[d] != full[d]]
+        return tp.gather_seq(table, dim=split[0]) if split else table
 
     def _inputs(self, params: Params, batch: dict,
                 tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -521,38 +549,40 @@ class LM(nn.Module):
         configuration of the catalog, the reference's cast) and its
         positions: ``embeds`` and ``positions`` (3, B, S) given (embeddings
         input), or the embedded ``tokens`` at 0..S-1 (B, S), stacked three
-        times for M-RoPE. With ``tp`` the embedding is scattered over the
+        times for M-RoPE. With ``tp`` the input is this rank's block of the
         sequence (the positions stay whole)."""
         cfg = self.cfg
         if cfg.embeddings_input:
-            return batch["embeds"].to(dt(cfg)), batch["positions"]
+            h = batch["embeds"].to(dt(cfg))
+            return (h if tp is None else _rank_block(h, tp)), batch["positions"]
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = self._embed(params, tokens, tp)
-        if tp is not None:
-            h = tp.scatter_seq(h)
         positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
         if cfg.rope_style == "mrope":
             positions = positions[None].expand(3, B, S)
         return h, positions
 
     def _run_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
-                   train: bool = False,
-                   tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+                   train: bool = False, tp: MeshCtx | None = None,
+                   q_pos: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The family's layer stack (not the encoder-decoder's:
         ``_run_encdec``) over the embedded inputs h (B, S, D), positions
         (B, S) or for M-RoPE (3, B, S): (h, the MoE layers' summed auxiliary
-        loss, None for the other families). ``tp``: dense, MoE and SSM."""
+        loss, None for the other families)."""
         family = self.cfg.family
         if family == "ssm":
             return self._run_ssm_stack(params, h, train=train, tp=tp), None
         if family == "hybrid":
-            return self._run_hybrid_stack(params, h, positions=positions, train=train), None
-        return self._run_decoder_stack(params, h, positions=positions, train=train, tp=tp)
+            return self._run_hybrid_stack(params, h, positions=positions, train=train,
+                                          tp=tp), None
+        return self._run_decoder_stack(params, h, positions=positions, train=train, tp=tp,
+                                       q_pos=q_pos)
 
     def _run_decoder_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
-                           train: bool = False,
-                           tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+                           train: bool = False, tp: MeshCtx | None = None,
+                           q_pos: torch.Tensor | None = None
+                           ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layer stack: h (B, S, D) bf16, positions (B, S), or (3, B, S)
         for M-RoPE. Query and key positions are ``positions[0]``, for M-RoPE
         the temporal stream's ``positions[0, 0]`` (as in the reference);
@@ -562,10 +592,14 @@ class LM(nn.Module):
         recomputed in the backward). Returns (h, aux): the MoE layers'
         auxiliary losses added in layer order (the reference's f32 carry
         from 0), None for the dense family. With ``tp``, h is this rank's
-        block of the sequence, the positions whole."""
+        block of the sequence, the positions whole. ``q_pos`` replaces the
+        query and key positions (a batch's block on a mesh: the global
+        batch's first temporal stream, which the reference masks every row
+        by)."""
         S = positions.shape[-1]
         cos, sin = self._rope(positions)
-        q_pos = positions[0, 0] if self.cfg.rope_style == "mrope" else positions[0]
+        if q_pos is None:
+            q_pos = positions[0, 0] if self.cfg.rope_style == "mrope" else positions[0]
         train_pos = {"train_pos": q_pos} if train else {}
         aux = None
         layers = _layers(self._tp_layers(params["layers"], tp))
@@ -585,7 +619,7 @@ class LM(nn.Module):
         return h
 
     def _run_hybrid_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
-                          train: bool = False) -> torch.Tensor:
+                          train: bool = False, tp: MeshCtx | None = None) -> torch.Tensor:
         """Zamba2: after every ``shared_attn_every`` Mamba2 layers, the one
         shared block (causal, unwindowed attention, then its SwiGLU MLP); the
         trailing ``n_layers mod shared_attn_every`` layers run with no shared
@@ -593,83 +627,121 @@ class LM(nn.Module):
         with ``train`` with ``gqa_attention``; then each Mamba2 layer and
         each application of the shared block runs under
         ``torch.utils.checkpoint`` (the reference checkpoints per group and
-        per layer: the same numbers)."""
+        per layer: the same numbers). With ``tp``, h is this rank's block of
+        the sequence and the shared block's K/V weights are cut to the
+        rank's heads once a step."""
         cos, sin = self._rope(positions)
         E = self.cfg.shared_attn_every
         # "no window" is 0 for the flash kernel, None for gqa_attention (to
         # which 0 would mask every key)
         attn = dict(cos=cos, sin=sin, window=None, train_pos=positions[0]) if train else \
             dict(cos=cos, sin=sin, window=0)
+        shared = self._tp_layers(params["shared"], tp)
         for i, lp in enumerate(_layers(params["layers"])):
-            h = _checkpointed(self._mamba_layer, lp, h, train=train)
+            h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp)
             if (i + 1) % E == 0:
-                h, _ = _checkpointed(self._dense_block, params["shared"], h, train=train, **attn)
+                h, _ = _checkpointed(self._dense_block, shared, h, train=train, tp=tp, **attn)
         return h
 
-    def _run_encdec(self, params: Params, batch: dict, *, train: bool = False) -> torch.Tensor:
+    def _run_encdec(self, params: Params, batch: dict, *, train: bool = False,
+                    tp: MeshCtx | None = None) -> torch.Tensor:
         """Whisper: the encoder over ``batch["audio_embeds"]`` (B, Sa, D) in
         the configuration's dtype (its positions baked into the stub), its
         final layer norm, then the decoder over ``embed[tokens] +
         dec_pos[:St]`` (added in bf16). Attention by the flash kernel (no
         window), or with ``train`` by ``gqa_attention`` with each layer under
-        ``torch.utils.checkpoint``. Returns the decoder's h (B, St, D)."""
-        cfg = self.cfg
-        enc_out = self._encode(params, batch["audio_embeds"], train=train)
+        ``torch.utils.checkpoint``. Returns the decoder's h (B, St, D). With
+        ``tp``, h is this rank's block of the sequence, and the encoder's
+        output is gathered over "model" once for every cross-attention."""
+        enc_out = self._encode(params, batch["audio_embeds"], train=train, tp=tp)
+        if tp is not None:
+            enc_out = tp.gather_seq(enc_out)
         tokens = batch["tokens"]
-        h = (params["embed"][tokens] + params["dec_pos"][:tokens.shape[1]]).to(dt(cfg))
-        attn = _no_rope(h, train)
-        for lp in _layers(params["dec"]):
-            h = _checkpointed(self._dec_layer, lp, h, enc_out, train=train, **attn)
+        St = tokens.shape[1]
+        if tp is None:
+            h = (params["embed"][tokens] + params["dec_pos"][:St]).to(dt(self.cfg))
+        else:
+            h = self._embed(params, tokens, tp) + _rank_block(self._dec_pos(params, tp)[:St],
+                                                             tp, dim=0)
+        attn = _no_rope(St, h.device, train)
+        for lp in _layers(self._tp_layers(params["dec"], tp)):
+            h = _checkpointed(self._dec_layer, lp, h, enc_out, train=train, tp=tp, **attn)
         return h
 
-    def _encode(self, params: Params, audio: torch.Tensor, *,
-                train: bool = False) -> torch.Tensor:
+    def _encode(self, params: Params, audio: torch.Tensor, *, train: bool = False,
+                tp: MeshCtx | None = None) -> torch.Tensor:
         """The encoder's output (B, Sa, D): its layers over ``audio`` (B, Sa,
-        D) in the configuration's dtype, then its final layer norm."""
+        D) in the configuration's dtype, then its final layer norm. With
+        ``tp``, this rank's block of the frames (B, Sa/n, D)."""
         h = audio.to(dt(self.cfg))
-        attn = _no_rope(h, train)
-        for lp in _layers(params["enc"]):
-            h = _checkpointed(self._enc_layer, lp, h, train=train, **attn)
+        attn = _no_rope(h.shape[1], h.device, train)
+        if tp is not None:
+            h = _rank_block(h, tp)
+        for lp in _layers(self._tp_layers(params["enc"], tp)):
+            h = _checkpointed(self._enc_layer, lp, h, train=train, tp=tp, **attn)
         return layer_norm(h, params["enc_final_ln"], params["enc_final_b"], self.cfg.norm_eps)
 
-    def _enc_layer(self, lp: dict, h: torch.Tensor, **attn) -> torch.Tensor:
+    def _enc_layer(self, lp: dict, h: torch.Tensor, tp: MeshCtx | None = None,
+                   **attn) -> torch.Tensor:
         """An encoder layer: non-causal self-attention, then the GELU MLP,
         each after a layer norm (``attn``: ``_no_rope``)."""
         eps = self.cfg.norm_eps
-        h = h + self._attn(lp, layer_norm(h, lp["ln1"], lp["b1"], eps), causal=False, **attn)
-        return h + self._gelu(lp, layer_norm(h, lp["ln2"], lp["b2"], eps))
+        x = layer_norm(h, lp["ln1"], lp["b1"], eps)
+        h = h + _sp(lambda v: self._attn(lp, v, causal=False, tp=tp, **attn), x, tp)
+        return h + self._gelu(lp, layer_norm(h, lp["ln2"], lp["b2"], eps), tp)
 
     def _dec_layer(self, lp: dict, h: torch.Tensor, enc_out: torch.Tensor,
-                   **attn) -> torch.Tensor:
+                   tp: MeshCtx | None = None, **attn) -> torch.Tensor:
         """A decoder layer: causal self-attention, cross-attention against
-        ``enc_out`` (non-causal), then the GELU MLP, each after a layer norm."""
+        ``enc_out`` (non-causal; with ``tp`` the whole gathered sequence),
+        then the GELU MLP, each after a layer norm."""
         eps = self.cfg.norm_eps
-        h = h + self._attn(lp, layer_norm(h, lp["ln1"], lp["b1"], eps), **attn)
-        h = h + self._attn(_cross(lp), layer_norm(h, lp["ln2"], lp["b2"], eps), causal=False,
-                           kv=enc_out, **attn)
-        return h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps))
+        x = layer_norm(h, lp["ln1"], lp["b1"], eps)
+        h = h + _sp(lambda v: self._attn(lp, v, tp=tp, **attn), x, tp)
+        x = layer_norm(h, lp["ln2"], lp["b2"], eps)
+        h = h + _sp(lambda v: self._attn(_cross(lp), v, causal=False, kv=enc_out, tp=tp, **attn),
+                    x, tp)
+        return h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps), tp)
 
     @staticmethod
-    def _gelu(lp: dict, x: torch.Tensor) -> torch.Tensor:
+    def _gelu(lp: dict, x: torch.Tensor, tp: MeshCtx | None = None,
+              decode: bool = False) -> torch.Tensor:
         """The encoder-decoder's MLP: ``gelu_mlp`` over ``wg`` and ``wd`` with
-        zero biases, as the reference calls it."""
+        zero biases, as the reference calls it. With ``tp`` column-parallel
+        on ``wg`` and row-parallel on ``wd`` (x this rank's block of the
+        sequence, or with ``decode`` the whole token): each rank adds the
+        zero bias to its partial sums, which leaves them as they are."""
         zero = x.new_zeros(())
-        return gelu_mlp(x, lp["wg"], zero, lp["wd"], zero)
 
-    def _head(self, params: Params, h: torch.Tensor) -> torch.Tensor:
+        def mlp(v: torch.Tensor) -> torch.Tensor:
+            return gelu_mlp(v, lp["wg"], zero, lp["wd"], zero)
+
+        if tp is None:
+            return mlp(x)
+        return tp.psum_model(mlp(x)) if decode else _sp(mlp, x, tp)
+
+    def _final_norm(self, params: Params, h: torch.Tensor) -> torch.Tensor:
         if self.cfg.family == "encdec":
-            h = layer_norm(h, params["final_ln"], params["final_b"], self.cfg.norm_eps)
-        else:
-            h = rms_norm(h, params["final_ln"], self.cfg.norm_eps)
-        if self.cfg.tie_embeddings:
-            return h @ params["embed"].T
-        return h @ params["head"]
+            return layer_norm(h, params["final_ln"], params["final_b"], self.cfg.norm_eps)
+        return rms_norm(h, params["final_ln"], self.cfg.norm_eps)
+
+    def _head(self, params: Params, h: torch.Tensor, tp: MeshCtx | None = None) -> torch.Tensor:
+        """The final norm of h (whole tokens), then the head's (or the tied
+        embedding's) product; on a rank of a split vocab, its block of the
+        logits; where ``tp`` splits d_model (the vocab does not divide
+        "model"), the sum over "model" of each rank's block product: the
+        whole logits."""
+        w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        x = self._final_norm(params, h)
+        if tp is None or self._vocab_parallel(tp):
+            return x @ w
+        return tp.reduce_model(_rank_block(x, tp, dim=-1) @ w)
 
     def _logits(self, params: Params, h: torch.Tensor, tp: MeshCtx | None = None) -> torch.Tensor:
-        """f32 logits (B, V) of h (B, 1, D); with ``tp`` each rank's block of
-        the vocab gathered over "model"."""
-        logits = self._head(params, h)[:, 0].float()
-        return logits if tp is None else tp.all_gather(logits, dim=-1)
+        """f32 logits (B, V) of h (B, 1, D); with ``tp`` on a split vocab,
+        each rank's block of it gathered over "model"."""
+        logits = self._head(params, h, tp)[:, 0].float()
+        return tp.all_gather(logits, dim=-1) if self._vocab_parallel(tp) else logits
 
     # ------------------------------------------------------------- training
     def loss_fn(self, params: Params, batch: dict, ctx: MeshCtx | None = None) -> torch.Tensor:
@@ -709,7 +781,8 @@ class LM(nn.Module):
         the chunks' summed losses, over B * S. Where the mesh runs tensor
         parallelism (``tp_ctx``) the sequence is gathered first and each
         chunk's logits hold this rank's block of the vocab
-        (``vocab_parallel_ce``), as the reference lays them out."""
+        (``vocab_parallel_ce``), as the reference lays them out, or where
+        d_model is split, the whole vocab (``_head``)."""
         tp = self.tp_ctx(ctx)
         if tp is not None:
             h = tp.gather_seq(h)
@@ -729,8 +802,8 @@ class LM(nn.Module):
                     tp: MeshCtx | None = None) -> torch.Tensor:
         """Each position's f32 cross-entropy (B, S): logsumexp minus the
         label's logit."""
-        logits = self._head(params, h).float()
-        if tp is not None:
+        logits = self._head(params, h, tp).float()
+        if self._vocab_parallel(tp):
             return vocab_parallel_ce(logits, labels, tp)
         lse = torch.logsumexp(logits, dim=-1)
         return lse - logits.gather(-1, labels[..., None].long())[..., 0]
@@ -802,34 +875,34 @@ class LM(nn.Module):
         embedding's output takes the configuration's dtype, as in the prefill
         and ``loss_fn``; the encoder-decoder adds ``dec_pos[cur_len]``.
 
-        With ``ctx`` where the model is tensor-parallel (``tp_ctx``), the
-        parameters and the cache are this rank's blocks (``param_specs``,
+        With ``ctx`` where the model is tensor-parallel (``tp_ctx`` with
+        ``serve``: a pure data-parallel model too), the parameters and the
+        cache are this rank's blocks (``param_specs``,
         ``cache_specs``: the KV heads, or head_dim where the rank expands
         them, the SSM state's heads, the conv window's channels), the token
         this rank's block of the batch, the same on every rank of a model
         group: the out-projections' partial sums are all-reduced over
-        "model" and the logits gathered over it."""
+        "model" and the logits gathered (or, on a split d_model, summed)
+        over it."""
         cfg = self.cfg
-        tp = self.tp_ctx(ctx)
+        tp = self.tp_ctx(ctx, serve=True)
         cur = int(batch["cur_len"])
         if "k" in cache and not 0 <= cur < cache["k"].shape[2]:
             raise ValueError(f"cur_len {cur} outside the {cache['k'].shape[2]}-long cache")
         if cfg.embeddings_input:
             x = batch["embed"].to(dt(cfg))
         else:
-            x = self._embed(params, batch["token"], tp)
-            if tp is not None:
-                x = tp.psum_model(x)
+            x = self._embed(params, batch["token"], tp, decode=True)
         if cfg.family == "encdec":
-            x = x + params["dec_pos"][cur]
+            x = x + self._dec_pos(params, tp)[cur]
         h = x[:, None, :]
         family = cfg.family
         if family == "ssm":
             h = self._decode_ssm(params, cache, h, tp)
         elif family == "hybrid":
-            h = self._decode_hybrid(params, cache, h, cur)
+            h = self._decode_hybrid(params, cache, h, cur, tp)
         elif family == "encdec":
-            h = self._decode_encdec(params, cache, h, cur)
+            h = self._decode_encdec(params, cache, h, cur, tp)
         else:
             h = self._decode_dense(params, cache, h, cur, tp)
         return self._logits(params, h, tp), cache
@@ -909,38 +982,50 @@ class LM(nn.Module):
         return h
 
     def _decode_hybrid(self, params: Params, cache: dict[str, torch.Tensor],
-                       h: torch.Tensor, cur: int) -> torch.Tensor:
+                       h: torch.Tensor, cur: int, tp: MeshCtx | None = None) -> torch.Tensor:
         """The hybrid's decode step: the shared block after each group of
         Mamba2 layers attends against its group's K/V, with no window."""
         rope = self._decode_rope(h, cur)
         E = self.cfg.shared_attn_every
+        shared = self._tp_layers(params["shared"], tp)
         for i, lp in enumerate(_layers(params["layers"])):
-            h = self._decode_mamba(lp, h, cache, i)
+            h = self._decode_mamba(lp, h, cache, i, tp)
             if (i + 1) % E == 0:
                 g = i // E
-                h = self._decode_block(params["shared"], h, cache["k"][g], cache["v"][g], cur,
+                h = self._decode_block(shared, h, cache["k"][g], cache["v"][g], cur, tp,
                                        window=None, **rope)
         return h
 
     def _decode_encdec(self, params: Params, cache: dict[str, torch.Tensor],
-                       h: torch.Tensor, cur: int) -> torch.Tensor:
+                       h: torch.Tensor, cur: int, tp: MeshCtx | None = None) -> torch.Tensor:
         """The decoder's step: causal self-attention against the K/V cache,
         then cross-attention of the query (at position 0, non-causal)
-        against the cache's ``xk``/``xv``, then the GELU MLP."""
-        eps = self.cfg.norm_eps
+        against the cache's ``xk``/``xv``, then the GELU MLP. With ``tp``
+        on this rank's heads, whose cross K/V the cache holds (where the
+        rank expands the KV heads, a block of head_dim, gathered to read),
+        each sublayer's partial sums all-reduced over "model"."""
+        cfg, eps = self.cfg, self.cfg.norm_eps
         rope = self._decode_rope(h, cur)
         Sa = cache["xk"].shape[2]
         q_pos = torch.zeros((1,), dtype=torch.int32, device=h.device)
         k_pos = torch.arange(Sa, dtype=torch.int32, device=h.device)
-        for i, lp in enumerate(_layers(params["dec"])):
+
+        def summed(y: torch.Tensor) -> torch.Tensor:
+            return y if tp is None else tp.psum_model(y)
+
+        for i, lp in enumerate(_layers(self._tp_layers(params["dec"], tp))):
             x = layer_norm(h, lp["ln1"], lp["b1"], eps)
-            h = h + self._decode_attn(lp, x, cache["k"][i], cache["v"][i], cur, window=None,
-                                      **rope)
+            h = h + summed(self._decode_attn(lp, x, cache["k"][i], cache["v"][i], cur,
+                                             window=None, tp=tp, **rope))
             q = _proj(layer_norm(h, lp["ln2"], lp["b2"], eps), lp["xwq"])
-            o = gqa_attention(q, cache["xk"][i], cache["xv"][i], q_pos=q_pos, k_pos=k_pos,
-                              causal=False)
-            h = h + self._out_proj(_cross(lp), o)
-            h = h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps))
+            xk, xv = cache["xk"][i], cache["xv"][i]
+            if self._expands(tp):
+                xk, xv = expand_kv_to_local_heads(
+                    *(c if c.shape[-1] == cfg.hd else tp.all_gather(c, dim=-1) for c in (xk, xv)),
+                    q.shape[2], tp)
+            o = gqa_attention(q, xk, xv, q_pos=q_pos, k_pos=k_pos, causal=False)
+            h = h + summed(self._out_proj(_cross(lp), o))
+            h = h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps), tp, decode=True)
         return h
 
 
@@ -954,13 +1039,29 @@ def _layers(stacked: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
     return [{name: ws[i] for name, ws in per_leaf.items()} for i in range(n)]
 
 
-def _no_rope(h: torch.Tensor, train: bool) -> dict:
-    """The encoder-decoder's attention arguments (no RoPE, no window) for
-    the sequence of h (B, S, D): the flash kernel's, or for ``train``
-    ``gqa_attention``'s with the query positions 0..S-1."""
+def _no_rope(S: int, device: torch.device, train: bool) -> dict:
+    """The encoder-decoder's attention arguments (no RoPE, no window) for a
+    sequence of S (the whole one, which attention sees): the flash
+    kernel's, or for ``train`` ``gqa_attention``'s with the query positions
+    0..S-1."""
     if not train:
         return {"window": 0, "train_pos": None}
-    return {"window": None, "train_pos": torch.arange(h.shape[1], device=h.device)}
+    return {"window": None, "train_pos": torch.arange(S, device=device)}
+
+
+def _rank_block(x: torch.Tensor, tp: MeshCtx, dim: int = 1) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (by default the sequence),
+    split over "model" in rank order: no communication, x is whole on every
+    rank."""
+    n = x.shape[dim] // tp.n_model
+    return x.narrow(dim, tp.model_rank * n, n)
+
+
+def _sp(fn, x: torch.Tensor, tp: MeshCtx | None) -> torch.Tensor:
+    """``fn(x)``; with ``tp`` (Megatron-SP), ``fn`` over the sequence of x
+    gathered over "model" and its partial sums reduce-scattered back to the
+    rank's block."""
+    return fn(x) if tp is None else tp.scatter_seq(fn(tp.gather_seq(x)))
 
 
 def _checkpointed(fn, *args, train: bool, **kw):

@@ -20,18 +20,18 @@ Every step runs on this rank's blocks, so the model's code sees local
 tensors and makes its layout changes itself, as named collectives of
 ``MeshCtx`` (counted by kind in ``MeshCtx.counts``): over "model" the
 sequence's gather (``gather_seq``) and reduce-scatter (``scatter_seq``),
-``psum_model`` and ``all_to_all``; the optimizer's reduce-scatter and
-all-gather over the batch axes. Each of the model's collectives is
-differentiable, with the reference's Megatron-SP layout in mind: between
-blocks the hidden state is sharded over the sequence on "model"; what a
-rank computes from a gathered (replicated) tensor gets a partial gradient,
-which the collective's backward sums. Data parallelism runs over the batch
+``psum_model``, ``reduce_model`` and ``all_to_all``; the optimizer's
+reduce-scatter and all-gather over the batch axes. Each of the model's
+collectives is differentiable, with the reference's Megatron-SP layout in
+mind: between blocks the hidden state is sharded over the sequence on
+"model"; what a rank computes from a gathered (replicated) tensor gets a
+partial gradient, which the collective's backward sums. Data parallelism runs over the batch
 axes with ZeRO-1 moments; tensor and expert parallelism over "model" for
-the dense, MoE and SSM families where heads, KV heads, FFN, experts, SSM
-heads and vocab divide it. The fallback layouts (head_dim or only the
-sequence sharded), the other families on "model", and the sequence sharding
-of ``token_spec`` are later items (ROADMAP A); their specs are computed all
-the same.
+every family where heads, FFN, experts, ``d_inner`` and SSM heads divide
+it, with the embedding and head on d_model where the vocab does not. The
+fallback layouts (head_dim or only the sequence sharded where those do not
+divide "model") and the sequence sharding of ``token_spec`` are later items
+(ROADMAP A); their specs are computed all the same.
 """
 from __future__ import annotations
 
@@ -44,11 +44,9 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
-TENSOR_PARALLEL = ("tensor parallelism over the \"model\" axis for the hybrid, VLM and "
-                   "encoder-decoder families (ROADMAP A, \"Other families on model\")")
 FALLBACK_LAYOUTS = ("a fallback layout over the \"model\" axis, with head_dim or only the "
-                    "sequence sharded, where the heads and KV heads (or the vocab, FFN, experts "
-                    "or SSM heads) do not divide it (ROADMAP A, \"Fallback layouts\")")
+                    "sequence sharded, where the heads (or the FFN, experts, d_inner or SSM "
+                    "heads) do not divide it (ROADMAP A, \"Fallback layouts\")")
 SEQUENCE_SHARDING = ("the sequence sharding of MeshCtx.token_spec, for a batch that does not "
                      "fill the batch axes (ROADMAP A, \"Sequence sharding\")")
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -281,8 +279,8 @@ class MeshCtx:
 
     # the model's layout changes over "model", differentiable (module docstring)
     def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
-        """The sequence's blocks gathered over "model" (backward: their
-        gradients summed and scattered back)."""
+        """The sequence's blocks (or those of another ``dim``) gathered over
+        "model" (backward: their gradients summed and scattered back)."""
         return _GatherSeq.apply(x, self, dim)
 
     def scatter_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
@@ -295,6 +293,13 @@ class MeshCtx:
         rank; each rank's use of the sum gives a partial gradient, so the
         backward sums them too."""
         return _PsumModel.apply(x, self)
+
+    def reduce_model(self, x: torch.Tensor) -> torch.Tensor:
+        """Partial sums over "model" added in f32, in ``x``'s dtype, where
+        every rank uses the sum alike (the head's logits, whose loss is the
+        same on every rank): the backward hands each rank the gradient as it
+        is, the whole gradient of its own partial sum."""
+        return _ReduceModel.apply(x, self)
 
     def all_to_all_model(self, x: torch.Tensor) -> torch.Tensor:
         """``all_to_all`` over "model" (backward: the gradient sent back)."""
@@ -344,6 +349,16 @@ class _PsumModel(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return _f32_sum(fctx.ctx.all_reduce, g), None
+
+
+class _ReduceModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx: MeshCtx):
+        return _f32_sum(ctx.all_reduce, x)
+
+    @staticmethod
+    def backward(fctx, g):
+        return g, None
 
 
 class _AllToAll(torch.autograd.Function):

@@ -13,10 +13,12 @@ over every axis where it divides them. Any other model on a mesh whose
 decode, of ``cache_specs``), the model makes its collectives over "model"
 itself, and the gradient of every leaf that ``param_specs`` does not shard
 over "model", which saw only this rank's tokens or heads, is summed over
-"model" in f32 before the optimizer. What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item: the hybrid, VLM and
-encoder-decoder families on "model", the fallback layouts, and the
-sequence sharding of a batch that does not fill the batch axes.
+"model" in f32 before the optimizer. A pure data-parallel model
+(whisper-base) decodes on such a mesh as the reference's serve step does:
+on its blocks of ``param_specs(ctx, serve=True)``, tensor-parallel. What
+the port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP item: the fallback layouts, and the sequence sharding of a batch
+that does not fill the batch axes.
 """
 from __future__ import annotations
 
@@ -27,7 +29,6 @@ from repro_torch.models.lm import LM, Params
 from repro_torch.models.registry import input_specs
 from repro_torch.models.sharding import (
     SEQUENCE_SHARDING,
-    TENSOR_PARALLEL,
     MeshCtx,
     NamedSharding,
     on_model,
@@ -123,8 +124,11 @@ def make_train_step(model: LM, ctx: MeshCtx | None = None, opt_cfg: AdamWConfig 
         bspecs, dp_axes = _batch_layout(model, ctx, batch, "train")
         params = tree_map(place, params, pspecs)
         local = tree_map(lambda p: p.to_local(), params)
-        loss, grads = loss_and_grads(model, local, {k: ctx.local(v, bspecs[k])
-                                                    for k, v in batch.items()}, ctx)
+        block = {k: ctx.local(v, bspecs[k]) for k, v in batch.items()}
+        # the reference masks every row by the global batch's first temporal stream
+        if "positions" in batch:
+            block["mask_pos"] = batch["positions"][0, 0]
+        loss, grads = loss_and_grads(model, local, block, ctx)
         if tp is not None:
             grads = _sum_over_model(grads, pspecs, ctx)
         elif "model" in dp_axes and ctx.n_model > 1:  # the batch is sharded over "model" too
@@ -182,19 +186,18 @@ def make_serve_step(model: LM, ctx: MeshCtx | None = None):
     tree of DTensors laid out as ``LM.cache_specs`` (its local blocks
     updated in place), ``batch`` the global token (or embedding) and
     ``cur_len``; where "model" is larger than 1 the parameters are this
-    rank's blocks of ``param_specs`` and the cache's heads are sharded over
-    it (``LM.decode_step``); the logits are gathered over the batch axes."""
+    rank's blocks of ``param_specs`` (with ``serve=True`` for a pure
+    data-parallel model, whose decode the reference runs tensor-parallel
+    on them) and the cache's heads are sharded over it
+    (``LM.decode_step``); the logits are gathered over the batch axes."""
     @torch.no_grad()
     def serve_step(params: Params, cache: dict, batch: dict):
         return model.decode_step(params, cache, batch)
 
     if ctx is None:
         return serve_step
-    tp = model.tp_ctx(ctx)
-    if ctx.n_model != 1 and tp is None:  # a pure data-parallel model: whisper-base
-        raise NotImplementedError(f"{model.cfg.name}'s decode on a mesh with "
-                                  f"model={ctx.n_model}: {TENSOR_PARALLEL}")
-    pspecs = model.param_specs(ctx) if tp is not None else None
+    tp = model.tp_ctx(ctx, serve=True)
+    pspecs = model.param_specs(ctx, serve=model.pure_dp) if tp is not None else None
 
     @torch.no_grad()
     def sharded_serve_step(params: Params, cache: dict, batch: dict):
@@ -254,7 +257,9 @@ def _batch_layout(model: LM, ctx: MeshCtx, batch: dict,
                   kind: str) -> tuple[dict[str, NamedSharding], tuple[str, ...]]:
     """The global ``batch``'s shardings (``batch_shardings``) and the mesh
     axes its batch dim is sharded over; raises where the batch does not
-    fill the batch axes (the reference shards the sequence there)."""
+    fill the batch axes (the reference shards the sequence there), and
+    where a sequence (the tokens or embeddings, the encoder's audio frames)
+    does not split over a "model" axis that shards it."""
     seq = batch["tokens" if "tokens" in batch else "embeds"]
     B, S = seq.shape[:2]
     bspecs = batch_shardings(model.cfg, ShapeConfig("step", S, B, kind), ctx, model)
@@ -262,8 +267,13 @@ def _batch_layout(model: LM, ctx: MeshCtx, batch: dict,
     if dp_axes is None:
         raise NotImplementedError(f"a batch of {B} on {ctx.n_batch} batch ranks: "
                                   f"{SEQUENCE_SHARDING}")
-    if "model" not in dp_axes and ctx.n_model > 1 and S % ctx.n_model:
-        raise ValueError(f"a sequence of {S} does not split over model={ctx.n_model}")
+    if "model" not in dp_axes and ctx.n_model > 1:
+        lengths = {"a sequence": S}
+        if "audio_embeds" in batch:
+            lengths["audio frames"] = batch["audio_embeds"].shape[1]
+        for what, n in lengths.items():
+            if n % ctx.n_model:
+                raise ValueError(f"{what} of {n} does not split over model={ctx.n_model}")
     return {k: bspecs[k] for k in batch}, tuple(dp_axes)
 
 

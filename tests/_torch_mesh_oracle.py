@@ -31,7 +31,7 @@ LOGIT_ATOL = 4 * 2.0**-6  # tests/test_torch_models.py's serving criterion
 
 _SCRIPT = textwrap.dedent(
     """
-    import os, sys
+    import dataclasses, os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n}"
     import jax
     import jax.numpy as jnp
@@ -57,7 +57,7 @@ _SCRIPT = textwrap.dedent(
     src = np.load(sys.argv[1])
     mesh = jax.make_mesh({shape}, {names}, axis_types=(AxisType.Auto,) * {ndim})
     ctx = MeshCtx(mesh)
-    cfg = get_arch("{arch}").reduced()
+    cfg = dataclasses.replace(get_arch("{arch}").reduced(), **{overrides})
     model = build_model(cfg, max_pos={max_pos})
     if {pure_dp} is not None:
         model.pure_dp = {pure_dp}
@@ -99,14 +99,15 @@ _SCRIPT = textwrap.dedent(
 def reference_run(arch: str, shape: tuple[int, ...], names: tuple[str, ...], params: dict,
                   batch: dict, workdir: Path, *, max_pos: int, lr: float,
                   prefill: dict | None = None, pure_dp: bool | None = None,
-                  timeout: float = 420) -> dict:
+                  overrides: dict | None = None, timeout: float = 420) -> dict:
     """The reference's sharded step (and prefill) on an Auto mesh of
     ``shape``/``names``: ``{"loss", "params": {dotted name: f32 array},
     "logits"}``. ``params`` (dotted name -> numpy, bf16 as f32) and
     ``batch``/``prefill`` (numpy; float inputs as f32 of bf16 values) are
     what both packages are fed. ``pure_dp`` overrides the model's
     ``pure_dp`` (False: the reduced configs run tensor and expert parallel
-    over "model", as the catalog's models do)."""
+    over "model", as the catalog's models do); ``overrides`` are replaced
+    in the reduced config."""
     workdir.mkdir(parents=True, exist_ok=True)
     src, dst = workdir / "in.npz", workdir / "out.npz"
     arrays = {**{f"p:{k}": np.asarray(v, np.float32) for k, v in params.items()},
@@ -114,7 +115,8 @@ def reference_run(arch: str, shape: tuple[int, ...], names: tuple[str, ...], par
               **{f"f:{k}": v for k, v in (prefill or {}).items()}}
     np.savez(src, **arrays)
     script = _SCRIPT.format(n=int(np.prod(shape)), shape=tuple(shape), names=tuple(names),
-                            ndim=len(shape), arch=arch, max_pos=max_pos, lr=lr, pure_dp=pure_dp)
+                            ndim=len(shape), arch=arch, max_pos=max_pos, lr=lr, pure_dp=pure_dp,
+                            overrides=overrides or {})
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", script, str(src), str(dst)], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=timeout)
@@ -132,10 +134,16 @@ class OracleCase:
     batch, seed 1; prefill batch, seed 2): the reference's sharded step and
     prefill (``reference_run``) and the port's on gloo ranks
     (``_torch_mesh_ranks``, case ``step``); ``pure_dp`` overrides both
-    models' ``pure_dp``."""
+    models' ``pure_dp``, and ``overrides`` are replaced in both reduced
+    configs. ``index_positions`` replaces the VLM's M-RoPE positions by the
+    index on all three streams (the reference's training masks by their
+    values, the port's prefill by index: ROADMAP C)."""
 
     def __init__(self, arch: str, shape: tuple[int, ...], names: tuple[str, ...], workdir: Path,
-                 *, B: int, S: int, lr: float, pure_dp: bool | None = None):
+                 *, B: int, S: int, lr: float, pure_dp: bool | None = None,
+                 overrides: dict | None = None, index_positions: bool = False):
+        import dataclasses
+
         import jax
 
         from repro.configs import get_arch
@@ -147,7 +155,8 @@ class OracleCase:
         from _torch_encdec import norm_draw
         from _torch_mesh_ranks import run_ranks
 
-        cfg = get_arch(arch).reduced()
+        overrides = overrides or {}
+        cfg = dataclasses.replace(get_arch(arch).reduced(), **overrides)
         jp = jax.tree.map(np.asarray, LM(cfg, max_pos=S).init_params(jax.random.PRNGKey(0)))
         if cfg.family == "encdec":
             rng = np.random.default_rng(1)
@@ -157,16 +166,20 @@ class OracleCase:
         inputs = [{k: np.asarray(v) for k, v in make_inputs(
             cfg, ShapeConfig("t", S, B, kind), seed=seed).items() if kind == "train" or
                    k != "labels"} for kind, seed in (("train", 1), ("prefill", 2))]
+        if index_positions:
+            for d in inputs:
+                d["positions"] = np.broadcast_to(np.arange(S, dtype=np.int32),
+                                                 d["positions"].shape).copy()
         f32 = lambda d: {k: v.astype(np.float32) if v.dtype.name == "bfloat16" else v  # noqa: E731
                          for k, v in d.items()}
         self.cfg = cfg
         self.ref = reference_run(arch, shape, names, dict(named_leaves(jp)), f32(inputs[0]),
                                  workdir / "reference", max_pos=S, lr=lr, prefill=f32(inputs[1]),
-                                 pure_dp=pure_dp)
+                                 pure_dp=pure_dp, overrides=overrides)
         torch_in = [{k: tensor_from_numpy(v) for k, v in d.items()} for d in inputs]
         self.port = run_ranks("step", int(np.prod(shape)), workdir / "port", dict(
             arch=arch, shape=shape, names=names, max_pos=S, params=params_from_numpy(jp),
-            batch=torch_in[0], prefill=torch_in[1], lr=lr, pure_dp=pure_dp))
+            batch=torch_in[0], prefill=torch_in[1], lr=lr, pure_dp=pure_dp, overrides=overrides))
 
 
 def assert_step_meets_reference_bound(case: OracleCase) -> None:

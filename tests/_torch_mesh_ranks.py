@@ -86,7 +86,10 @@ def case_step(args: dict) -> dict:
     """One sharded train step from ``args["params"]`` (stored in the ZeRO
     layout of ``training_state_specs``, as the reference's test stores
     them), and the sharded prefill of ``args["prefill"]``; ``args["pure_dp"]``,
-    where given, overrides the model's ``pure_dp``."""
+    where given, overrides the model's ``pure_dp``, and ``args["overrides"]``
+    are replaced in the reduced config."""
+    import dataclasses
+
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import build_model
     from repro_torch.train.elastic import reshard_state
@@ -98,7 +101,8 @@ def case_step(args: dict) -> dict:
     )
 
     ctx = _ctx(args["shape"], args["names"])
-    model = build_model(get_arch(args["arch"]).reduced(), max_pos=args["max_pos"], device="cpu")
+    cfg = dataclasses.replace(get_arch(args["arch"]).reduced(), **args.get("overrides") or {})
+    model = build_model(cfg, max_pos=args["max_pos"], device="cpu")
     if args.get("pure_dp") is not None:
         model.pure_dp = args["pure_dp"]
     pstore, ospecs = training_state_specs(model, ctx)
@@ -113,10 +117,12 @@ def case_step(args: dict) -> dict:
 
 
 def case_tp(args: dict) -> dict:
-    """Tensor and expert parallelism over "model", the reduced config run as
-    a model that is not pure data-parallel, once for each entry of
-    ``args["runs"]`` (dtype -> its ``params``, ``batch``, ``prefill``,
-    ``tokens`` and whether to ``train``), on one mesh: with ``train``, one
+    """Tensor and expert parallelism over "model", the reduced config
+    (``args["overrides"]`` replaced in it, where given) run as a model that
+    is not pure data-parallel (or as ``args["pure_dp"]`` says), once for
+    each entry of ``args["runs"]`` (dtype -> its ``params``, ``batch``,
+    ``prefill``, ``tokens`` or decode ``feeds``, the decode's starting
+    ``cache`` where given, and whether to ``train``), on one mesh: with ``train``, one
     sharded train step from the parameters stored in the ZeRO layout and
     the gradients the step hands the optimizer (summed over "model" where
     the spec does not shard the leaf, averaged over the batch axes,
@@ -124,6 +130,16 @@ def case_tp(args: dict) -> dict:
     steps; the collectives each made, by kind. Returns dtype -> results."""
     ctx = _ctx(args["shape"], args["names"])
     return {dtype: _tp_run(ctx, {**args, **run}, dtype) for dtype, run in args["runs"].items()}
+
+
+def case_tp_families(args: dict) -> dict:
+    """``case_tp`` for each entry of ``args["families"]`` (name -> its
+    ``arch``, ``overrides`` and ``runs``) on one mesh, in one launch: name ->
+    dtype -> results."""
+    ctx = _ctx(args["shape"], args["names"])
+    return {name: {dtype: _tp_run(ctx, {**args, **family, **run}, dtype)
+                   for dtype, run in family["runs"].items()}
+            for name, family in args["families"].items()}
 
 
 def _tp_run(ctx, args: dict, dtype: str) -> dict:
@@ -144,9 +160,10 @@ def _tp_run(ctx, args: dict, dtype: str) -> dict:
     )
     from repro_torch.tree import tree_map
 
-    cfg = dataclasses.replace(get_arch(args["arch"]).reduced(), dtype=dtype)
+    cfg = dataclasses.replace(get_arch(args["arch"]).reduced(), dtype=dtype,
+                              **args.get("overrides", {}))
     model = build_model(cfg, max_pos=args["max_pos"], device="cpu")
-    model.pure_dp = False
+    model.pure_dp = args.get("pure_dp", False)
     pspecs = model.param_specs(ctx)
     counts, out = {}, {}
     if args["train"]:
@@ -326,17 +343,20 @@ def case_serve(args: dict) -> dict:
 
 
 def _decode(model, serve_step, args: dict, ctx) -> list:
-    """The logits of ``args["steps"]`` decode steps from a zero cache, the
-    tokens ``args["tokens"][:, i]``."""
+    """The logits of ``args["steps"]`` decode steps from ``args["cache"]``
+    (the global cache, where given) or a zero cache, step i fed
+    ``args["feeds"][i]`` (where given) or the tokens
+    ``args["tokens"][:, i]``."""
     from repro_torch.train.elastic import reshard_state
 
-    tokens = args["tokens"]
-    B = tokens.shape[0]
-    cache = reshard_state(model.init_cache(B, args["cache_len"]),
+    feeds = args.get("feeds") or [{"token": args["tokens"][:, i]} for i in range(args["steps"])]
+    B = next(iter(feeds[0].values())).shape[0]
+    start = args.get("cache") or model.init_cache(B, args["cache_len"])
+    cache = reshard_state({k: v.clone() for k, v in start.items()},
                           model.cache_specs(B, args["cache_len"], ctx))
     out = []
     for i in range(args["steps"]):
-        logits, cache = serve_step(args["params"], cache, {"token": tokens[:, i], "cur_len": i})
+        logits, cache = serve_step(args["params"], cache, {**feeds[i], "cur_len": i})
         out.append(logits)
     return out
 

@@ -238,13 +238,15 @@ def norm_nudged(to: float):
 def tp_rounding(n: int):
     """While active, every product that tensor parallelism splits into
     partial sums over "model" (the attention's out-projection over its
-    heads, SwiGLU's down-projection over d_ff, the Mamba2 mixer's
-    out-projection over d_inner; in the prefill and the decode step) runs
-    as ``n`` partial products over contiguous blocks, each rounded to its
-    dtype, added in f32 and rounded again: how ``n`` ranks round it
-    (``scatter_seq``, ``psum_model``), on one device. It shows how far the
-    unsharded model carries that rounding."""
-    from repro_torch.models import lm, ssd
+    heads, SwiGLU's and the GELU MLP's down-projections over d_ff, the
+    Mamba2 mixer's out-projection over d_inner, and the head's product over
+    d_model where the vocab does not divide ``n``; in the prefill and the
+    decode step) runs as ``n`` partial products over contiguous blocks,
+    each rounded to its dtype, added in f32 and rounded again: how ``n``
+    ranks round it (``scatter_seq``, ``psum_model``, ``reduce_model``), on
+    one device. It shows how far the unsharded model carries that
+    rounding."""
+    from repro_torch.models import layers, lm, ssd
 
     def split(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """y (..., K) @ w (K, D) as n partial products summed in f32."""
@@ -266,7 +268,17 @@ def tp_rounding(n: int):
         d = p["wo"].shape[0]
         return {**p, "wo": torch.eye(d, dtype=p["wo"].dtype, device=p["wo"].device)}
 
-    real = lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step
+    def gelu(x, wi, bi, wo, bo):
+        return split(layers._gelu_tanh(x @ wi + bi).to(x.dtype), wo) + bo
+
+    def head(self, params, h, tp=None):
+        if self.cfg.vocab % n == 0:
+            return real[4](self, params, h, tp)
+        w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
+        return split(self._final_norm(params, h), w)
+
+    real = (lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step,
+            lm.LM._head, lm.gelu_mlp)
 
     def mixer(p, x, cfg, tp=None):
         return split(real[2](identity_wo(p), x, cfg, tp), p["wo"])
@@ -275,9 +287,14 @@ def tp_rounding(n: int):
         y, conv, state = real[3](identity_wo(p), x, conv, state, cfg, tp)
         return split(y, p["wo"]), conv, state
 
-    lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step = (
-        out_proj, mlp, mixer, step)
+    patched = (out_proj, mlp, mixer, step, head, gelu)
+
+    def install(fns: tuple) -> None:
+        (lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step, lm.LM._head,
+         lm.gelu_mlp) = fns
+
+    install(patched)
     try:
         yield
     finally:
-        lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step = real
+        install(real)

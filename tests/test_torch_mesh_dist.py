@@ -289,18 +289,19 @@ def test_abstract_mesh_computes_specs_only():
 
 
 @pytest.mark.parametrize("arch,n_model,item", [
-    ("zamba2_7b", 2, "Other families on model"),
+    ("qwen2_vl_7b", 16, "Fallback layouts"),
     ("qwen2_0_5b", 4, "Fallback layouts"),
-    ("qwen2_vl_7b", 2, "Other families on model"),
-    ("qwen2_vl_7b", 4, "Other families on model"),
-], ids=["zamba2_7b", "qwen2_0_5b-model4", "qwen2_vl_7b-model2", "qwen2_vl_7b-model4"])
+    ("gemma3_1b", 16, "Fallback layouts"),
+    ("qwen2_0_5b", 16, "Fallback layouts"),
+], ids=["qwen2_vl_7b-model16", "qwen2_0_5b-model4", "gemma3_1b-model16", "qwen2_0_5b-model16"])
 def test_model_axis_refused_where_the_model_is_not_pure_dp(arch, n_model, item):
     """What tensor parallelism over "model" does not run yet raises from
-    every step builder, naming its ROADMAP item: the hybrid and VLM
-    families, and the fallback layouts (qwen2-0.5b's 14 heads and 2 KV
-    heads on model=4: the reference shards head_dim). A pure data-parallel
-    model (whisper-base) builds its train and prefill steps; ``constrain``
-    checks the spec and returns its input."""
+    every step builder, naming its ROADMAP item: the fallback layouts,
+    where the heads do not divide the axis (qwen2-0.5b's 14 heads on
+    model=4 and 16, qwen2-vl-7b's 28 and gemma3-1b's 4 on model=16: the
+    reference shards head_dim). A pure data-parallel model (whisper-base)
+    builds its train and prefill steps; ``constrain`` checks the spec and
+    returns its input."""
     ctx = MeshCtx(AbstractMesh((2, n_model), ("data", "model")))
     model = LM(get_arch(arch), device="cpu")
     assert not model.pure_dp

@@ -533,7 +533,8 @@ def test_loss_and_grads_refuses_a_leaf_cut_off_from_the_loss(monkeypatch):
     batch = {k: torch.from_numpy(v) for k, v in data.next_batch().items()}
     real = model._head
     monkeypatch.setattr(model, "_head",
-                        lambda p, h: real({**p, "final_ln": p["final_ln"].detach()}, h))
+                        lambda p, h, tp=None: real({**p, "final_ln": p["final_ln"].detach()}, h,
+                                                   tp))
     with pytest.raises(RuntimeError, match="final_ln"):
         loss_and_grads(model, params, batch)
 
