@@ -8,7 +8,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    (one ``nvcc`` per source, all at once) and print the build time;
 3. kernels: hold each kernel against its plain PyTorch version on the card,
    at the shapes the main paths give it and at ragged, seam, windowed,
-   top-left-causal and extreme-logit shapes (bf16 and f32 for attention;
+   top-left-causal and extreme-logit shapes, and a block of S/4 queries at
+   the offsets 0, S/4 and 3S/4 (``FLASH_OFFSET_CASES``: gemma3-1b's windowed
+   and global layers, and f32; phase 10 holds qwen2-0.5b's) (bf16 and f32 for attention;
    every row offset mod 16 for the GF(256) product; both forms of the gear
    hash), and time both (and, where one PyTorch call computes the same
    function, that call; each kernel's share of its bound, the GF(256)
@@ -186,9 +188,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    processes of this script (``--tp-rank``), sharing the
    card over gloo on ``make_shared_card_mesh((1, 2))`` (NCCL refuses two
    ranks on one GPU: their times are two ranks time-sharing one card). For
-   qwen2-0.5b, olmoe-1b-7b and mamba2-2.7b at full width and the depth
-   ``TP_SERVE_DEPTHS`` (4, 2, 8: ``reduced:`` lines), zamba2-7b and
-   qwen2-vl-7b at full width and depth, and whisper-base at its published
+   qwen2-0.5b, olmoe-1b-7b, mamba2-2.7b, zamba2-7b and qwen2-vl-7b at full
+   width and the depth ``TP_SERVE_DEPTHS`` (4, 2, 8, 13, 8: ``reduced:``
+   lines), and whisper-base at its published
    context (1500 frames, 448 tokens) twice, as it is (pure data-parallel:
    its prefill data-parallel over both axes, its decode tensor-parallel on
    the serve specs, as the reference's serve step runs it) and with tensor
@@ -207,7 +209,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    expert-parallel prefill against the unsharded prefill with that branch
    emulated (``ep_emulated``), its decode compared where the routes agree;
    training at full width, the depth ``TP_TRAIN_DEPTHS`` (``reduced:``
-   lines, each with its reason): a warm-up and 3 timed steps (tokens/s,
+   lines, each with its reason): a warm-up and 2 timed steps (tokens/s,
    peak memory on each rank, collectives a step); qwen2-0.5b's one
    full-width f32 layer, sharded against unsharded, held (``mesh_hold``);
    and for each arch at full width, 2 layers (whisper's encoder too), the
@@ -218,6 +220,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    column blocks, and of the plain unsharded run wherever that twin is
    within it too; the SSM families' decode again with the conv window in
    f32: the sharded math's witness). A rank that fails fails the run.
+10. the fallback layouts of tensor parallelism: the flash kernel held and
+   timed at the four ranks' query offsets of qwen2-0.5b on model=4
+   (``FB_FLASH_CASES``: 512 queries at 0, 512, 1024 and 1536 against 2048
+   keys; SDPA with an explicit mask; the causal imbalance between them by
+   device time alone, ``device_ms``), then four processes sharing the card
+   on ``make_shared_card_mesh((1, 4))``, phase 9's steps for qwen2-0.5b at
+   full width and depth, whose 14 heads do not divide model=4 (head_dim
+   sharded; ``TP_PHASES[10]``): the prefill (24 flash launches a rank, each
+   at its offset), 32 decode steps on the head_dim-sharded cache, both
+   equal bit for bit to the unsharded run under ``tp_rounding(4)``, a train
+   step at 4 layers, the f32 1-layer held step on 512 tokens a row, and the
+   2-layer bf16 and f32 checks.
 
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
@@ -266,6 +280,33 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` back-to-back calls, after one
+    warm-up: the calls are queued behind a spin of the card
+    (``torch.cuda._sleep``), so that the events bracket the card's work
+    alone, where ``cuda_ms`` also counts the host's launch cost between
+    calls shorter than it. The spin doubles until the host has queued every
+    call before the card reaches the first."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cycles = 1 << 25  # ~17 ms at the H100's 1.98 GHz
+    for _ in range(6):
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued = not start.query()
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(end) / iters
+        cycles *= 2
+    raise AssertionError(f"the card reached the queued calls before the host had queued them, "
+                         f"after a spin of {cycles // 2} cycles")
 
 
 def card_line() -> str:
@@ -502,6 +543,16 @@ FLASH_CASES = (
     ("qwen2-vl path", PREFILL_B, 28, 4, PREFILL_S, PREFILL_S, 128, True, 0, torch.bfloat16, 1.0),
 )
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# a rank's block of S/4 queries at ``q_offset`` 0, S/4 and 3S/4 against all S
+# keys (the fallback layout's attention): gemma3-1b's local layers (window
+# 512, the form its model=8 and 16 ranks take) and global ones, and the f32
+# form; qwen2-0.5b's at model=4 is phase 10's (``FB_FLASH_CASES``)
+# (label, B, H, Hkv, S, hd, causal, window, dtype)
+FLASH_OFFSET_CASES = (
+    ("gemma3 local block", PREFILL_B, 4, 1, PREFILL_S, 256, True, 512, torch.bfloat16),
+    ("gemma3 global block", PREFILL_B, 4, 1, PREFILL_S, 256, True, 0, torch.bfloat16),
+    ("f32 block", 2, 4, 2, 1024, 128, True, 0, torch.float32),
+)
 PATH_LABELS = ("path", "encoder", "decoder", "cross")  # the cases a model phase runs: timed
 # timed only: gemma3-1b's prefill at 4 x 2048 (hd 256, 4 query heads on one
 # KV head), its local layers' 512-key window and its global layers' none.
@@ -514,14 +565,17 @@ FLASH_TIMED = (
 )
 
 
-def _causal_pairs(Sq: int, Sk: int, window: int = 0, causal: bool = True) -> int:
+def _causal_pairs(Sq: int, Sk: int, window: int = 0, causal: bool = True,
+                  q_offset: int = 0) -> int:
     """Unmasked (q, k) pairs of one head under the top-left causal mask and
-    a window (0 <= q - k < window; 0 for none): what the kernel computes.
+    a window (0 <= q - k < window; 0 for none), the queries at positions
+    ``q_offset`` .. ``q_offset + Sq - 1``: what the kernel computes.
     Non-causal with no window: every pair."""
     if not causal and not window:
         return Sq * Sk
-    return sum(max(0, min(q, Sk - 1) - (max(0, q - window + 1) if window else 0) + 1)
-               for q in range(Sq))
+    last = (lambda q: min(q, Sk - 1)) if causal else (lambda q: Sk - 1)
+    return sum(max(0, last(q) - (max(0, q - window + 1) if window else 0) + 1)
+               for q in range(q_offset, q_offset + Sq))
 
 
 def check_flash(rng: np.random.Generator, card: str) -> dict:
@@ -555,6 +609,24 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
         worst = max(worst, err) if label.endswith(PATH_LABELS) else worst
         del q, k, v, got, want
 
+    for label, B, H, Hkv, S, hd, causal, window, dtype in FLASH_OFFSET_CASES:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
+                   for shape in ((B, H, S // 4, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))
+        for part in (0, 1, 3):  # the block of S/4 queries at 0, S/4 and 3S/4
+            off = part * S // 4
+            got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+            torch.cuda.synchronize()
+            want = flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=off)
+            err = float((got.float() - want.float()).abs().max())
+            tol = FLASH_TOL[dtype]
+            if not err <= tol or not torch.isfinite(got).all():
+                raise AssertionError(f"flash_attention {label} q_offset={off}: max |err| {err} "
+                                     f"> {tol}")
+            log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} "
+                f"{str(dtype).removeprefix('torch.')} causal={causal} window={window} "
+                f"q_offset={off}: max |err| {err:.3e} (tolerance {tol})")
+        del q, k, v, got, want
+
     for case in FLASH_CASES:
         if case[0].endswith(PATH_LABELS) and case[0] != "zamba2 path":
             time_flash(case, rng, card)
@@ -568,39 +640,65 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
 
 
 def time_flash(case: tuple, rng: np.random.Generator, card: str) -> dict:
-    """The kernel timed at a bf16 shape of ``FLASH_CASES`` or ``FLASH_TIMED``,
-    beside its plain version, ``scaled_dot_product_attention`` (with a
-    boolean mask where there is a window) and its bound."""
+    """The kernel timed at a bf16 shape of ``FLASH_CASES``, ``FLASH_TIMED`` or
+    a phase's rank shapes (``TP_PHASES``; a 12th entry, where there is one,
+    is the queries' offset), beside its plain version,
+    ``scaled_dot_product_attention`` (with a boolean mask where there is a
+    window or an offset: its ``is_causal`` masks from position 0) and its
+    bound. Where there is an offset, the kernel and SDPA are also timed by
+    their device time alone (``device_ms``: ``"device_ms"``,
+    ``"library_device_ms"``), since at a rank's block the host's launch
+    cost can exceed the kernel's."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     dev = torch.device("cuda")
-    label, B, H, Hkv, Sq, Sk, hd, causal, window, dtype, _ = case
+    label, B, H, Hkv, Sq, Sk, hd, causal, window, dtype, _, *offset = case
+    off = offset[0] if offset else 0
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
                for shape in ((B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
     ke, ve = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
-    flops = 4 * hd * _causal_pairs(Sq, Sk, window, causal) * B * H
+    flops = 4 * hd * _causal_pairs(Sq, Sk, window, causal, off) * B * H
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()  # q, k, v in; o out
     flop_ms, byte_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
-    qp, kp = torch.arange(Sq, device=dev)[:, None], torch.arange(Sk, device=dev)[None]
-    mask = (kp <= qp) & (qp - kp < window) if window else None
+    qp, kp = off + torch.arange(Sq, device=dev)[:, None], torch.arange(Sk, device=dev)[None]
+    mask = None
+    if window or (off and causal):
+        mask = (kp <= qp) if causal else torch.ones_like(kp <= qp)
+        if window:
+            mask = mask & (qp - kp < window)
     library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
         q, ke, ve, attn_mask=mask, is_causal=causal and mask is None), 20)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window), 20)
-    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal, window=window), 2)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off),
+                 20)
+    plain_ms = cuda_ms(lambda: flash_attention_ref(q, k, v, causal=causal, window=window,
+                                                   q_offset=off), 2)
+    timed = {}
+    if offset:
+        timed["device_ms"] = device_ms(lambda: fa.flash_attention(
+            q, k, v, causal=causal, window=window, q_offset=off), 20)
+        timed["library_device_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+            q, ke, ve, attn_mask=mask, is_causal=causal and mask is None), 20)
     log(f"kernels: flash_attention {label} q{tuple(q.shape)} k/v{tuple(k.shape)} bf16 "
-        f"{'causal' if causal else 'non-causal'} window={window}: {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
+        f"{'causal' if causal else 'non-causal'} window={window}"
+        + (f" q_offset={off}" if off else "")
+        + f": {ms:.4f} ms, plain {plain_ms:.4f} ms, scaled_dot_product_attention "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {flops} flops at 989 TFLOP/s "
         f"= {flop_ms:.4f} ms, {nbytes} bytes at 3.35 TB/s = {byte_ms:.4f} ms); "
         f"{flops / ms / 1e9:.1f} TFLOP/s, {100 * bound_ms / ms:.2f} % of its bound, "
         f"{ms / library_ms:.3f}x the time of scaled_dot_product_attention ({card})")
+    if timed:
+        dms, lms = timed["device_ms"], timed["library_device_ms"]
+        log(f"kernels: flash_attention {label} device time alone (20 calls queued behind a spin): "
+            f"{dms:.4f} ms, {100 * bound_ms / dms:.2f} % of its bound; "
+            f"scaled_dot_product_attention {lms:.4f} ms, {dms / lms:.3f}x its time ({card})")
     del q, k, v, ke, ve
     torch.cuda.empty_cache()
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **timed}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -3447,7 +3545,9 @@ def mesh_whisper(ctx, seed: int, card: str, out_dir: Path, totals: dict, worst: 
 TP_MESH = (1, 2)
 TP_ARCHS = ("qwen2_0_5b", "olmoe_1b_7b", "mamba2_2_7b", "zamba2_7b", "qwen2_vl_7b",
             "whisper_base")
-TP_DECODE_STEPS, TP_TRAIN_STEPS, TP_CACHE = 32, 3, 2048
+# two timed train steps after the warm-up: with three, the steps took ~100 s
+# of phase 9
+TP_DECODE_STEPS, TP_TRAIN_STEPS, TP_CACHE = 32, 2, 2048
 # the serving warm-up's prefill: PREFILL_B x this many tokens (whisper's
 # whole batch), which loads every kernel and collective the counted
 # prefill runs; the whole prefill took zamba2 23.5 s over gloo
@@ -3455,9 +3555,18 @@ TP_WARMUP_S = 256
 # serving depth on the two ranks where it is cut (a reduced: line each): PR
 # 22's three archs, served there at full depth, so that the script with this
 # phase's other families meets its time (the depth's cost is linear)
-TP_SERVE_DEPTHS = {"qwen2_0_5b": 4, "olmoe_1b_7b": 2, "mamba2_2_7b": 8}
-TP_SERVE_CUT = ("the script's 1200 s: the phase's three later families are served at full depth; "
-                "these three were at full depth in the slice that ported them")
+TP_SERVE_DEPTHS = {"qwen2_0_5b": 4, "olmoe_1b_7b": 2, "mamba2_2_7b": 8, "zamba2_7b": 13,
+                   "qwen2_vl_7b": 8}
+_SHALLOW_CUT = ("the script's 1200 s: these three were at full depth in the slice that ported them")
+TP_SERVE_CUTS = {
+    "qwen2_0_5b": _SHALLOW_CUT, "olmoe_1b_7b": _SHALLOW_CUT, "mamba2_2_7b": _SHALLOW_CUT,
+    # two groups of six Mamba2 layers, each with the shared block, and a
+    # trailing layer: at 81 layers its serving took ~60 s of phase 9
+    "zamba2_7b": "the script's 900 s with phase 10: at full depth (81 layers) its sharded "
+                 "prefill took 30.0 s and 32 decode steps ~22 s; at these 13, 3.6 and 4.5 s",
+    "qwen2_vl_7b": "the script's 900 s with phase 10: at full depth (28 layers) its sharded "
+                   "prefill took 14.8 s and 32 decode steps 12.8 s",
+}
 # training depth on the two ranks, and why it is cut (a reduced: line each).
 # Memory would allow olmoe 5 layers (34.0 GB a rank, 38.6 reserved) and
 # mamba2 44 (30.6 GB a rank, 36.2 reserved) on an H100, but with them the
@@ -3533,43 +3642,92 @@ TP_FLASH_CASES = (
 # tensor parallelism forced (``pure_dp = False``) under its own name
 WHISPER_SERVE_STEP = "whisper_base serve step"
 
+# ---------------------------------------------------------------- phase 10
+# the fallback layouts of tensor parallelism over "model": qwen2-0.5b's 14
+# heads (2 KV heads) do not divide model=4, so the reference shards their
+# head_dim (64 = 4 x 16); its d_ff (4864) and vocab (151936) divide. Four
+# processes share the card over gloo, as in phase 9. A rank attends with its
+# block of 512 of the 2048 queries at its offset (flash's ``q_offset``)
+# against the whole sequence's keys: rank r's causal rows reach r + 1 times
+# the keys of rank 0's, timed here beside SDPA (an explicit mask: its
+# ``is_causal`` cannot offset)
+FB_MESH = (1, 4)
+FB_ARCHS = ("qwen2_0_5b",)
+FB_FLASH_CASES = tuple(
+    (f"qwen2 model=4 rank {r} (q_offset {r * PREFILL_S // 4})", PREFILL_B, 14, 2, PREFILL_S // 4,
+     PREFILL_S, 64, True, 0, torch.bfloat16, 1.0, r * PREFILL_S // 4) for r in range(4))
+FB_TRAIN_DEPTHS = {"qwen2_0_5b": 4}
+FB_TRAIN_CUTS = {"qwen2_0_5b": "phase 10's 120 s: phase 9 trains qwen2 at 4 layers too"}
+# what the sharded bf16 serving equals bit for bit: the unsharded run under
+# ``tp_rounding(4)``, which models the fallback's roundings (none of its own
+# in the prefill; the decode's head_dim partial scores and out-projection)
+FB_EXACT = {"qwen2_0_5b": ("prefill", "decode")}
+# the f32 held train step's tokens a row on model=4: every rank runs the
+# unsharded step and its two nudged twins too (``mesh_hold``), and four f32
+# (4, 2048, 151936) logits ran the card out of memory
+FB_HOLD_TOKENS = 512
+# each phase's mesh, archs, depths, flash shapes and exactness
+TP_PHASES = {
+    9: dict(mesh=TP_MESH, archs=TP_ARCHS, serve_depths=TP_SERVE_DEPTHS, serve_cuts=TP_SERVE_CUTS,
+            train_depths=TP_TRAIN_DEPTHS, train_cuts=TP_TRAIN_CUTS, train_steps=TP_TRAIN_STEPS,
+            flash=TP_FLASH_CASES, exact=TP_EXACT, hold_tokens=TRAIN_S),
+    10: dict(mesh=FB_MESH, archs=FB_ARCHS, serve_depths={}, serve_cuts={},
+             train_depths=FB_TRAIN_DEPTHS, train_cuts=FB_TRAIN_CUTS, train_steps=1,
+             flash=FB_FLASH_CASES, exact=FB_EXACT, hold_tokens=FB_HOLD_TOKENS),
+}
 
-def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> dict:
-    """Phase 9: the flash kernel against its plain version at one rank's
-    shapes, and timed there; then the two ranks (this script with
-    ``--tp-rank``), which meet through a ``file://`` rendezvous in a fresh
-    directory. A rank that fails, or outlasts TP_RANK_TIMEOUT, ends the
-    other and fails the run; rank 1's output is printed where it fails.
-    Adds each rank's counted flash launches to ``totals``."""
+
+def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict,
+             phase: int = 9) -> dict:
+    """Phase 9 (or 10, ``TP_PHASES``): the flash kernel against its plain
+    version at one rank's shapes (at its query offset where it has one),
+    and timed there; then the ranks (this script with ``--tp-rank``), which
+    meet through a ``file://`` rendezvous in a fresh directory. A rank that
+    fails, or outlasts TP_RANK_TIMEOUT, ends the others and fails the run;
+    the other ranks' output is printed where it fails. Adds each rank's
+    counted flash launches to ``totals``."""
     import shutil
 
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-    rng = np.random.default_rng(seed + 9)
-    for case in TP_FLASH_CASES:
-        label, B, H, Hkv, Sq, Sk, hd, causal, window, dtype, _ = case
+    ph = TP_PHASES[phase]
+    rng = np.random.default_rng(seed + phase)
+    offset_ms = []
+    for case in ph["flash"]:
+        label, B, H, Hkv, Sq, Sk, hd, causal, window, dtype, _, *offset = case
+        off = offset[0] if offset else 0
         q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
                    for s in ((B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
-        got = fa.flash_attention(q, k, v, causal=causal, window=window)
-        err = float((got.float() - flash_attention_ref(q, k, v, causal=causal).float()).abs().max())
+        got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=off)
+        err = float((got.float() - want.float()).abs().max())
         if not err <= FLASH_TOL[dtype] or not torch.isfinite(got).all():
             raise AssertionError(f"flash_attention {label}: max |err| {err} > {FLASH_TOL[dtype]}")
         log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} bf16 "
-            f"{'causal' if causal else 'non-causal'}: max |err| {err:.3e} (tolerance "
-            f"{FLASH_TOL[dtype]})")
+            f"{'causal' if causal else 'non-causal'} q_offset={off}: max |err| {err:.3e} "
+            f"(tolerance {FLASH_TOL[dtype]})")
         worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
-        del q, k, v, got
-        time_flash(case, rng, card)
+        del q, k, v, got, want
+        timed = time_flash(case, rng, card)
+        if offset:
+            offset_ms.append(timed["device_ms"])
+    if offset_ms:
+        log(f"kernels: flash_attention at the {len(offset_ms)} ranks' offsets on "
+            f"model={ph['mesh'][-1]}, device time alone: "
+            f"{', '.join(f'{ms:.4f}' for ms in offset_ms)} ms; the last rank's "
+            f"{offset_ms[-1] / offset_ms[0]:.3f}x the first's (the causal load imbalance: "
+            f"its rows reach {len(offset_ms)}x the keys) ({card})")
     torch.cuda.empty_cache()
 
-    work = (out_dir / "tp_ranks").resolve()  # the ranks' file:// rendezvous needs a whole path
+    work = (out_dir / f"tp_ranks_{phase}").resolve()  # a file:// rendezvous needs a whole path
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    world = int(np.prod(TP_MESH))
+    world = int(np.prod(ph["mesh"]))
     logs = [None] + [open(work / f"rank{r}.log", "w") for r in range(1, world)]
     procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--seed", str(seed),
-                               "--tp-rank", str(r), "--tp-dir", str(work)],
+                               "--tp-rank", str(r), "--tp-dir", str(work),
+                               "--tp-phase", str(phase)],
                               stdout=logs[r], stderr=subprocess.STDOUT if logs[r] else None)
              for r in range(world)]
     deadline = time.monotonic() + TP_RANK_TIMEOUT
@@ -3590,7 +3748,7 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> 
         for r in range(1, world):
             log(f"tp rank {r} output (last 6000 bytes):\n"
                 + (work / f"rank{r}.log").read_text()[-6000:])
-        raise AssertionError(f"phase 9: ranks {bad} failed (rank, exit code)")
+        raise AssertionError(f"phase {phase}: ranks {bad} failed (rank, exit code)")
     ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(world)]
     for arch, r0 in ranks[0].items():
         launches = [r[arch]["flash_launches"] for r in ranks]
@@ -3605,7 +3763,7 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> 
             + f", none staged through host buffers; prefill {r0['prefill_tokens_per_s']:.1f}, "
             f"decode {r0['decode_tokens_per_s']:.1f}"
             + (f", train {r0['train_tokens_per_s']:.1f}" if "train_tokens_per_s" in r0 else "")
-            + f" tokens/s on two ranks sharing the card ({card})")
+            + f" tokens/s on {world} ranks sharing the card ({card})")
         if "drops" in r0:
             for layer in r0["drops"]:
                 dropped = sum(r[arch]["drops"][layer][0] for r in ranks)
@@ -3616,14 +3774,14 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict) -> 
     return ranks[0]
 
 
-def tp_rank_main(rank: int, work: Path, seed: int) -> int:
-    """One rank of phase 9: the gloo group, ``make_shared_card_mesh``, then
-    each arch's serving (``tp_serve``; for whisper-base first its own serve
-    step, the pure data-parallel model, then the model with tensor
+def tp_rank_main(rank: int, work: Path, seed: int, phase: int = 9) -> int:
+    """One rank of phase 9 (or 10): the gloo group, ``make_shared_card_mesh``,
+    then each arch's serving (``tp_serve``; for whisper-base first its own
+    serve step, the pure data-parallel model, then the model with tensor
     parallelism forced) and training (``tp_train``) and the shallow checks
     (``tp_shallow``); the results to ``work/rank<r>.json``. Rank 0 also runs
-    the unsharded counterparts on the card (rank 1 waits in its next
-    collective)."""
+    the unsharded counterparts on the card (the other ranks wait in their
+    next collective)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_shared_card_mesh
@@ -3632,22 +3790,23 @@ def tp_rank_main(rank: int, work: Path, seed: int) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.cuda.set_device(0)
-    world = int(np.prod(TP_MESH))
+    ph = TP_PHASES[phase]
+    world = int(np.prod(ph["mesh"]))
     dist.init_process_group("gloo", init_method=f"file://{work / 'rendezvous'}", rank=rank,
                             world_size=world)
     try:
         card = card_line()
         t0 = time.perf_counter()
-        ctx = MeshCtx(make_shared_card_mesh(TP_MESH))
+        ctx = MeshCtx(make_shared_card_mesh(ph["mesh"]))
         log(f"tp: {ctx.shape} over a {dist.get_backend()} group of {world} processes on one card "
             f"(CUDA tensors straight through gloo, nothing staged), rank {rank} ({card})")
         out = {}
-        for arch in TP_ARCHS:
+        for arch in ph["archs"]:
             if arch == "whisper_base":
-                out[WHISPER_SERVE_STEP] = tp_serve(ctx, arch, seed, card, rank, pure_dp=True)
-            out[arch] = {**tp_serve(ctx, arch, seed, card, rank),
-                         **tp_train(ctx, arch, seed, card, rank)}
-            tp_shallow(ctx, arch, seed, card, rank)
+                out[WHISPER_SERVE_STEP] = tp_serve(ctx, arch, seed, card, rank, ph, pure_dp=True)
+            out[arch] = {**tp_serve(ctx, arch, seed, card, rank, ph),
+                         **tp_train(ctx, arch, seed, card, rank, ph)}
+            tp_shallow(ctx, arch, seed, card, rank, ph)
             log(f"tp {arch}: {time.perf_counter() - t0:.3f} s into the ranks' work ({card})")
         (work / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
@@ -3827,9 +3986,10 @@ def f32_scores():
         lm.gqa_attention = gqa
 
 
-def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, pure_dp: bool = False) -> dict:
-    """``arch`` at full width, at its depth (TP_SERVE_DEPTHS, a ``reduced:``
-    line where cut; weights drawn on the card from ``seed``, the same on
+def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, ph: dict,
+             pure_dp: bool = False) -> dict:
+    """``arch`` at full width, at its depth (the phase's ``serve_depths``
+    (``TP_PHASES``), a ``reduced:`` line where cut; weights drawn on the card from ``seed``, the same on
     both ranks, each keeping its blocks; whisper's final norms drawn), as a
     model that is not pure data-parallel, or with ``pure_dp`` as whisper-base
     is: a warm-up and a counted sharded prefill of PREFILL_B rows
@@ -3842,7 +4002,7 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, pure_dp: bool = Fa
     tokens) on the card: the logits within CHECK_LOGIT_ULPS bf16 ulps of the
     largest |logit|, the decode's greedy tokens at SMALL_ARGMAX_SHARE of all
     positions, each held by ``tp_judge`` (and equal to the unsharded run
-    under ``tp_rounding`` where TP_EXACT says). The MoE family's
+    under ``tp_rounding`` where the phase's ``exact`` says). The MoE family's
     expert-parallel prefill routes each rank's tokens with a capacity from
     them, through the reference's exchange (ROADMAP C): its unsharded
     counterpart runs that branch emulated (``ep_emulated``); its decode
@@ -3862,10 +4022,11 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, pure_dp: bool = Fa
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
     cfg = get_arch(arch)
-    if arch in TP_SERVE_DEPTHS:
-        log(f"reduced: tp {arch} serving n_layers {cfg.n_layers} -> {TP_SERVE_DEPTHS[arch]} "
-            f"({TP_SERVE_CUT})")
-        cfg = dataclasses.replace(cfg, n_layers=TP_SERVE_DEPTHS[arch])
+    mesh, exact = (ctx.n_batch, ctx.n_model), ph["exact"].get(arch, ())
+    if arch in ph["serve_depths"]:
+        log(f"reduced: tp {arch} serving n_layers {cfg.n_layers} -> {ph['serve_depths'][arch]} "
+            f"({ph['serve_cuts'][arch]})")
+        cfg = dataclasses.replace(cfg, n_layers=ph["serve_depths"][arch])
     encdec = cfg.family == "encdec"
     cache_len = WHISPER_TOKENS if encdec else TP_CACHE
     model = build_model(cfg, max_pos=cache_len, device="cuda")
@@ -3910,14 +4071,14 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, pure_dp: bool = Fa
         + (f" and {cfg.encoder_layers} encoder layers on {WHISPER_FRAMES} frames" if encdec
            else "")
         + f"; {'data-parallel' if pure_dp else 'sharded'} prefill {n_tokens} tokens: "
-        f"{pre_wall:.4f} s, {out['prefill_tokens_per_s']:.1f} tokens/s on two ranks sharing the "
-        f"card, flash launches on this rank {out['flash_launches']}, collectives "
+        f"{pre_wall:.4f} s, {out['prefill_tokens_per_s']:.1f} tokens/s on {ctx.size(ctx.axis_names)} "
+        f"ranks sharing the card, flash launches on this rank {out['flash_launches']}, collectives "
         f"{out['counts']['prefill']} ({card})")
     if rank == 0:
         moe = cfg.family == "moe"
-        with mc.ep_emulated(*TP_MESH) if moe else contextlib.nullcontext():
+        with mc.ep_emulated(*mesh) if moe else contextlib.nullcontext():
             plain = make_prefill_step(model)(params, batch)
-            with crit.tp_rounding(TP_MESH[-1]):
+            with crit.tp_rounding(ctx.n_model):
                 jit = make_prefill_step(model)(params, batch)
         _, err, tol = _logits_close(logits, plain)
         what = "data-parallel" if pure_dp else "sharded"
@@ -3927,8 +4088,7 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, pure_dp: bool = Fa
             + f" on the card (max |logit| {float(plain.abs().max()):.3e}, greedy tokens agree "
             f"{int((logits.argmax(-1) == plain.argmax(-1)).sum())}/{PREFILL_B}), max |diff|",
             err, _logits_close(plain if pure_dp else jit, plain)[1], tol,
-            None if pure_dp else float((logits - jit).abs().max()),
-            "prefill" in TP_EXACT.get(arch, ()))
+            None if pure_dp else float((logits - jit).abs().max()), "prefill" in exact)
         del plain, jit
 
     B = PREFILL_B
@@ -3960,8 +4120,9 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, pure_dp: bool = Fa
         + f" of batch {B} against a {cache_len}-long cache"
         + (f" (its cross K/V of {WHISPER_FRAMES} frames filled from the encoder)" if encdec
            else "")
-        + f": {dec_wall:.4f} s, {out['decode_tokens_per_s']:.1f} tokens/s on two ranks sharing "
-        f"the card, collectives a step {out['counts']['decode']} ({card})")
+        + f": {dec_wall:.4f} s, {out['decode_tokens_per_s']:.1f} tokens/s on "
+        f"{ctx.size(ctx.axis_names)} ranks sharing the card, collectives a step "
+        f"{out['counts']['decode']} ({card})")
     del cache
     moe_routes = None
     if cfg.family == "moe":  # the same steps again, rank 0 recording its routes
@@ -3981,13 +4142,13 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, pure_dp: bool = Fa
             return got, calls.calls
 
         want, want_routes = unsharded()
-        with crit.tp_rounding(TP_MESH[-1]):
+        with crit.tp_rounding(ctx.n_model):
             jit, jit_routes = unsharded()
         routes = (moe_routes, want_routes, jit_routes) if moe_routes is not None else None
         out["decode_held"] = tp_decode_judge(
             f"{tag}: sharded decode against the unsharded decode ({TP_DECODE_STEPS} steps "
             f"teacher-forced on the sharded run's inputs", seen, want, jit, routes,
-            "decode" in TP_EXACT.get(arch, ()))
+            "decode" in exact)
         del want, jit
     out["peak"] = torch.cuda.max_memory_allocated()
     del placed, model, weights, cross, batch
@@ -3997,7 +4158,7 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, pure_dp: bool = Fa
     return out
 
 
-def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
+def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> None:
     """``arch`` at full width and TP_SHALLOW_LAYERS layers (whisper's encoder
     too), not pure data-parallel, in bf16 and
     in f32 (weights drawn on the card): the sharded prefill of
@@ -4029,7 +4190,7 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
     from repro_torch.models.sharding import whole
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
-    depth = TP_SHALLOW_LAYERS
+    depth, mesh = TP_SHALLOW_LAYERS, (ctx.n_batch, ctx.n_model)
     for dtype in ("bfloat16", "float32"):
         full = get_arch(arch)
         encdec = full.family == "encdec"
@@ -4065,7 +4226,7 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
             first conv window); in f32, the decode's K/V cache and score chain
             in f32 too."""
             step_ctx, weights = (ctx, placed) if sharded else (None, params)
-            with mc.ep_emulated(*TP_MESH) if moe and not sharded else contextlib.nullcontext():
+            with mc.ep_emulated(*mesh) if moe and not sharded else contextlib.nullcontext():
                 pre = make_prefill_step(model, step_ctx)(weights, batch)
             f32 = dtype == "float32"
             cache = _tp_cache(model, cache_len, cross, step_ctx,
@@ -4081,8 +4242,8 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
             def twin(f32_window: bool = False) -> tuple:
                 """The unsharded run rounded as the ranks round and, in f32, its
                 column-parallel products on the ranks' blocks (``tp_columns``)."""
-                with crit.tp_rounding(TP_MESH[-1]), (
-                        tp_columns(TP_MESH[-1]) if f32 else contextlib.nullcontext()):
+                with crit.tp_rounding(ctx.n_model), (
+                        tp_columns(ctx.n_model) if f32 else contextlib.nullcontext()):
                     return run(False, f32_window)
 
             want, jit = run(False), twin()
@@ -4132,9 +4293,9 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
                         f"{int((jit[3] != want[3]).sum())}")
                     witness("the conv window kept in f32", got32, run(False, True), twin(True),
                             set())
-                column_bits(params, seed, tag, card)
+                column_bits(params, seed, tag, card, ctx.n_model)
             else:
-                exact = TP_EXACT.get(arch, ())
+                exact = ph["exact"].get(arch, ())
                 _, err, tol = _logits_close(got[0][0], want[0][0])
                 tp_judge(f"{tag}: sharded prefill against the unsharded prefill"
                          + (" (its expert-parallel branch emulated)" if moe else "")
@@ -4150,7 +4311,7 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int) -> None:
         torch.cuda.empty_cache()
 
 
-def column_bits(params: dict, seed: int, tag: str, card: str) -> None:
+def column_bits(params: dict, seed: int, tag: str, card: str, n: int) -> None:
     """What ``tp_columns`` models: for the first layer's column-parallel
     weights (the attention's and the MLP's, of the hybrid's shared block,
     of whisper's decoder), how many elements of an f32 product on
@@ -4160,7 +4321,7 @@ def column_bits(params: dict, seed: int, tag: str, card: str) -> None:
                  None)
     if stack is None:  # mamba2: no attention, no MLP
         return
-    lead, n = stack["wq"].ndim - 3, TP_MESH[-1]
+    lead = stack["wq"].ndim - 3
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(PREFILL_B * PREFILL_S, stack["wq"].shape[-3], device="cuda", generator=g)
     seen = []
@@ -4179,13 +4340,13 @@ def column_bits(params: dict, seed: int, tag: str, card: str) -> None:
         f"({card})")
 
 
-def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
-    """``arch`` trained on the mesh at full width, the depth TP_TRAIN_DEPTHS
+def tp_train(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> dict:
+    """``arch`` trained on the mesh at full width, the phase's ``train_depths``
     (a ``reduced:`` line where cut), not pure data-parallel: weights drawn
     on the card (whisper's final norms drawn), each rank keeping its blocks,
     AdamW's moments made as blocks, B=TRAIN_B x TRAIN_S (``_train_batches``;
     whisper: MESH_WHISPER_TOKENS tokens on WHISPER_TRAIN_FRAMES frames, as
-    phase 8 trains it), lr TRAIN_LR: a warm-up and TP_TRAIN_STEPS timed
+    phase 8 trains it), lr TRAIN_LR: a warm-up and ``train_steps`` timed
     steps (finite losses, train tokens/s, peak device memory, collectives a
     step). For qwen2-0.5b also one full-width layer in f32, sharded against
     unsharded (``mesh_hold``), held."""
@@ -4198,10 +4359,10 @@ def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
     from repro_torch.train.steps import make_train_step
 
     cfg = get_arch(arch)
-    depth = TP_TRAIN_DEPTHS[arch]
+    depth = ph["train_depths"][arch]
     if depth < cfg.n_layers:
         log(f"reduced: tp {arch} training n_layers {cfg.n_layers} -> {depth} "
-            f"({TP_TRAIN_CUTS[arch]})")
+            f"({ph['train_cuts'][arch]})")
         cfg = dataclasses.replace(cfg, n_layers=depth)
     encdec = cfg.family == "encdec"
     model = build_model(cfg, max_pos=WHISPER_TOKENS if encdec else TRAIN_S, device="cuda")
@@ -4234,7 +4395,7 @@ def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls, losses, counts = [], [], {}
-    for i in range(TP_TRAIN_STEPS + 1):
+    for i in range(ph["train_steps"] + 1):
         batch = next_batch()
         ctx.counts.clear()
         t = time.perf_counter()
@@ -4249,8 +4410,8 @@ def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     median = sorted(walls[1:])[len(walls[1:]) // 2]
     log(f"tp {arch}: trained at full width, {cfg.n_layers} layers, B={TRAIN_B} x "
-        f"{n_tokens // TRAIN_B} tokens: {n_tokens / median:.1f} train tokens/s on two ranks "
-        f"sharing the card (median step {median:.4f} s of {', '.join(f'{w:.4f}' for w in walls)}, "
+        f"{n_tokens // TRAIN_B} tokens: {n_tokens / median:.1f} train tokens/s on "
+        f"{ctx.size(ctx.axis_names)} ranks sharing the card (median step {median:.4f} s of {', '.join(f'{w:.4f}' for w in walls)}, "
         f"the first a warm-up); losses {', '.join(f'{x:.6f}' for x in losses)}; peak device "
         f"memory on rank {rank} {peak} bytes ({peak / 1e9:.3f} GB; "
         f"{torch.cuda.max_memory_reserved() / 1e9:.3f} GB reserved); collectives a step {counts} "
@@ -4262,7 +4423,13 @@ def tp_train(ctx, arch: str, seed: int, card: str, rank: int) -> dict:
         f32 = dataclasses.replace(get_arch(arch), n_layers=1, dtype="float32")
         log("reduced: tp qwen2 held check n_layers 24 -> 1, bfloat16 -> float32 (one full-width "
             "layer in f32 is well-conditioned)")
-        held, verdict, _ = mesh_hold(ctx, f32, next_batch(), seed, "tp qwen2 f32 1 layer",
+        hold = ph["hold_tokens"]
+        if hold < TRAIN_S:
+            log(f"reduced: tp qwen2 held check tokens a row {TRAIN_S} -> {hold} (every rank also "
+                f"runs the unsharded f32 steps: at {TRAIN_S} the {ctx.n_model} ranks ran the card "
+                f"out of memory)")
+        held, verdict, _ = mesh_hold(ctx, f32, {k: v[:, :hold] for k, v in next_batch().items()},
+                                     seed, f"tp qwen2 f32 1 layer on model={ctx.n_model}",
                                      pure_dp=False)
         if not held:
             raise AssertionError(f"tp qwen2 f32 1 layer: {verdict}")
@@ -4275,15 +4442,16 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--size-mib", type=int, default=512)
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "chip_smoke")
-    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # phase 9's ranks
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # phase 9's and 10's ranks
     ap.add_argument("--tp-dir", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-phase", type=int, default=9, help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
     if args.tp_rank is not None:
-        return tp_rank_main(args.tp_rank, args.tp_dir, args.seed)
+        return tp_rank_main(args.tp_rank, args.tp_dir, args.seed, args.tp_phase)
     # the plain versions run their f32 products in full f32, not TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4473,6 +4641,17 @@ def main() -> int:
                        if "train_depth" in r else "") + " tokens/s" for a, r in tp.items())
         + f" ({card})")
     elapsed("phase 9")
+    # phase 10: the fallback layouts over "model" (qwen2-0.5b on model=4), four ranks sharing
+    # the card, the flash launches counted from zero on each rank inside
+    t10 = time.perf_counter()
+    fb = drive_tp(args.seed, card, args.out, counts, worst, phase=10)
+    log(f"phase 10: {time.perf_counter() - t10:.3f} s; on (data=1, model=4), four processes "
+        f"sharing the card over gloo: "
+        + "; ".join(f"{a} prefill {r['prefill_tokens_per_s']:.1f}, decode "
+                    f"{r['decode_tokens_per_s']:.1f}, train at {r['train_depth']} layers "
+                    f"{r['train_tokens_per_s']:.1f} tokens/s" for a, r in fb.items())
+        + f" ({card})")
+    elapsed("phase 10")
 
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]

@@ -9,8 +9,10 @@
 //     m' = max(m, rowmax S);  l' = l e^(m - m') + sum e^(S - m')
 //     acc' = acc e^(m - m') + e^(S - m') V
 // runs over key tiles with an f32 accumulator; the output is acc / l in q's
-// dtype. Query and key positions both start at 0 (top-left causal when
-// Sq < Sk). Key/value heads may be fewer than query heads: query head h
+// dtype. Key positions start at 0, query positions at q_off (0: top-left
+// causal when Sq < Sk; a rank's block of a longer sequence's queries
+// against all of its keys otherwise), for the causal mask, the window and
+// the skip of masked key tiles alike. Key/value heads may be fewer than query heads: query head h
 // reads KV head h / (H / Hkv), which equals repeating the KV heads.
 //
 // What bounds it on this card: the work is 4 hd flops per unmasked (q, k)
@@ -78,17 +80,18 @@ namespace {
 
 constexpr float NEG = -1e30f;  // the reference's masked score
 
-// The key tiles [j_begin, j_end) of width bk that the query rows q0 .. q_last
-// need: those not wholly past the causal edge nor wholly outside the
-// window. A row with no key at all (window > 0, q_pos >= Sk - 1 + window)
-// takes the mean of every value in the reference, so then all tiles.
-__device__ __forceinline__ void key_tiles(int q0, int q_last, int Sk, int bk, int causal,
-                                          int window, int& j_begin, int& j_end) {
+// The key tiles [j_begin, j_end) of width bk that the queries at positions
+// q0 .. q_last need: those not wholly past the causal edge nor wholly
+// outside the window. A row with no key at all (window > 0, q_pos >= Sk - 1
+// + window) takes the mean of every value in the reference, so then all
+// tiles. Positions are long long: q_off + Sq may pass INT_MAX.
+__device__ __forceinline__ void key_tiles(long long q0, long long q_last, int Sk, int bk,
+                                          int causal, int window, int& j_begin, int& j_end) {
   j_begin = 0;
   j_end = (Sk + bk - 1) / bk;
-  if (window > 0 && (long long)q_last >= (long long)Sk - 1 + window) return;
-  if (causal) j_end = min(j_end, q_last / bk + 1);
-  if (window > 0 && q0 - window + 1 > 0) j_begin = (q0 - window + 1) / bk;
+  if (window > 0 && q_last >= (long long)Sk - 1 + window) return;
+  if (causal) j_end = (int)min((long long)j_end, q_last / bk + 1);
+  if (window > 0 && q0 - window + 1 > 0) j_begin = (int)((q0 - window + 1) / bk);
 }
 
 // ---------------------------------------------------------------- f32, CUDA cores
@@ -112,7 +115,7 @@ template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ o, int H, int Hkv, int Sq, int Sk,
-              int causal, int window, float scale) {
+              int q_off, int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* qT = smem;          // [HD][QS]
   float* kT = qT + HD * QS;  // [HD][KS]
@@ -137,7 +140,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   int j_begin, j_end;
-  key_tiles(q0, q0 + rows - 1, Sk, BK, causal, window, j_begin, j_end);
+  key_tiles((long long)q_off + q0, (long long)q_off + q0 + rows - 1, Sk, BK, causal, window,
+            j_begin, j_end);
 
   float m[RT], l[RT], acc[RT][HD / 8];
 #pragma unroll
@@ -183,7 +187,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
     float mt[RT];
 #pragma unroll
     for (int i = 0; i < RT; ++i) {
-      const int qp = q0 + ty + 16 * i;
+      const long long qp = (long long)q_off + q0 + ty + 16 * i;
       mt[i] = -INFINITY;
 #pragma unroll
       for (int c = 0; c < CT; ++c) {
@@ -249,7 +253,7 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-                   int Sq, int Sk, int causal, int window, cudaStream_t stream) {
+                   int Sq, int Sk, int q_off, int causal, int window, cudaStream_t stream) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_f32<HD>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -257,7 +261,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
   flash_fwd_f32<HD><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), H, Hkv, Sq, Sk, causal, window, (float)(1.0 / sqrt((double)HD)));
+      static_cast<float*>(o), H, Hkv, Sq, Sk, q_off, causal, window,
+      (float)(1.0 / sqrt((double)HD)));
   return cudaGetLastError();
 }
 
@@ -335,8 +340,9 @@ constexpr float MASKED = -0x1p100f;
 // Maxima and sums run in 4 independent chains per row, for the latency.
 template <int BK, bool MASK>
 __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
-                                               float (&alpha)[2], float c, int k0, int qp0,
-                                               int c0, int Sk, int causal, int window) {
+                                               float (&alpha)[2], float c, int k0,
+                                               long long qp0, int c0, int Sk, int causal,
+                                               int window) {
   // in key offsets e = kp - (k0 + c0) of this thread's columns: keys past Sk
   // are e >= past, and row r masks e > late[r] (causal) and e <= early[r]
   // (outside the window)
@@ -344,9 +350,10 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2
   int late[2], early[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int d = qp0 + 8 * r - k0 - c0;  // q_pos - kp at e = 0
-    late[r] = causal ? d : INT_MAX;
-    early[r] = window > 0 ? (int)max((long long)d - window, -1LL) : -1;  // -1: none, e >= 0
+    const long long d = qp0 + 8 * r - k0 - c0;  // q_pos - kp at e = 0
+    late[r] = causal ? (int)min(d, (long long)INT_MAX) : INT_MAX;
+    early[r] = window > 0 ? (int)min(max(d - window, -1LL), (long long)INT_MAX)
+                          : -1;  // -1: none, e >= 0
   }
   float mx[2][4];
 #pragma unroll
@@ -388,7 +395,8 @@ __device__ __forceinline__ void online_softmax(float (&sc)[BK / 2], float (&m)[2
 template <int BK>
 __device__ __forceinline__ void tile_softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
                                              float (&alpha)[2], float c, bool masked, int k0,
-                                             int qp0, int c0, int Sk, int causal, int window) {
+                                             long long qp0, int c0, int Sk, int causal,
+                                             int window) {
   if (masked)
     online_softmax<BK, true>(sc, m, l, alpha, c, k0, qp0, c0, Sk, causal, window);
   else
@@ -425,7 +433,7 @@ template <int HD, int BK>
 __global__ void __launch_bounds__(Shape<HD>::THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ o, int H,
-                int Hkv, int Sq, int Sk, int causal, int window, float c) {
+                int Hkv, int Sq, int Sk, int q_off, int causal, int window, float c) {
   using S = Shape<HD>;
   constexpr int NCH = S::NCH, NWG = S::NWG, BQ = S::BQ, STAGES = S::STAGES;
   constexpr int KV_BYTES = BK * S::HDP * 2;  // one stage of K (or of V)
@@ -447,7 +455,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int rows = min(BQ, Sq - q0);
 
   int j_begin, j_end;
-  key_tiles(q0, q0 + rows - 1, Sk, BK, causal, window, j_begin, j_end);
+  key_tiles((long long)q_off + q0, (long long)q_off + q0 + rows - 1, Sk, BK, causal, window,
+            j_begin, j_end);
   const int n_tiles = j_end - j_begin;
 
   const int tid = threadIdx.x;
@@ -495,6 +504,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   const int c0 = 2 * (lane % 4);
   const int qlo = q0 + 64 * wg;           // the warpgroup's first query row
   const int qhi = min(qlo + 63, Sq - 1);  // its last real one (< qlo: it has none)
+  const long long plo = (long long)q_off + qlo, phi = (long long)q_off + qhi;  // their positions
   const uint8_t* q_wg = sq + 64 * wg * ROW;
 
   // Of the CTA's tiles, [ta, tb) hold an unmasked key for some row of this
@@ -503,13 +513,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
   int ta = 0, tb = n_tiles;
   if (qhi < qlo) {
     tb = 0;
-  } else if (!(window > 0 && (long long)qhi >= (long long)Sk - 1 + window)) {
-    while (ta < tb && window > 0 && (long long)qlo - ((j_begin + ta + 1) * BK - 1) >= window) ++ta;
-    while (tb > ta && causal && (j_begin + tb - 1) * BK > qhi) --tb;
+  } else if (!(window > 0 && phi >= (long long)Sk - 1 + window)) {
+    while (ta < tb && window > 0 && plo - ((j_begin + ta + 1) * BK - 1) >= window) ++ta;
+    while (tb > ta && causal && (long long)(j_begin + tb - 1) * BK > phi) --tb;
   }
   auto tile_is_masked = [&](int k0) {
-    return k0 + BK > Sk || (causal && k0 + BK - 1 > qlo) ||
-           (window > 0 && (long long)qlo + 63 - k0 >= window);
+    return k0 + BK > Sk || (causal && k0 + BK - 1 > plo) ||
+           (window > 0 && plo + 63 - k0 >= window);
   };
 
   float acc[NCH][32], sc[BK / 2];
@@ -537,7 +547,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
     sm90::wgmma_wait<0>();
     sm90::fence_regs(sc);
     int k0 = (j_begin + ta) * BK;
-    tile_softmax<BK>(sc, m, l, alpha, c, tile_is_masked(k0), k0, qlo + r0, c0, Sk, causal,
+    tile_softmax<BK>(sc, m, l, alpha, c, tile_is_masked(k0), k0, plo + r0, c0, Sk, causal,
                      window);
     pack_p<BK>(sc, pa);
     // each further tile: issue S = Q K^T of this tile and O += P V of the
@@ -556,7 +566,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tq, const __grid_constant__ 
       sm90::wgmma_wait<1>();
       sm90::fence_regs(sc);
       k0 = (j_begin + it) * BK;
-      tile_softmax<BK>(sc, m, l, alpha, c, tile_is_masked(k0), k0, qlo + r0, c0, Sk, causal,
+      tile_softmax<BK>(sc, m, l, alpha, c, tile_is_masked(k0), k0, plo + r0, c0, Sk, causal,
                        window);
       sm90::wgmma_wait<0>();
       fence_acc<NCH>(acc);
@@ -640,7 +650,7 @@ bool tensor_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int hd, i
 
 template <int HD, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H, int Hkv,
-                   int Sq, int Sk, int causal, int window, cudaStream_t stream) {
+                   int Sq, int Sk, int q_off, int causal, int window, cudaStream_t stream) {
   using S = Shape<HD>;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
@@ -656,7 +666,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid(H, B, (Sq + S::BQ - 1) / S::BQ);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   flash_fwd_wgmma<HD, BK><<<grid, S::THREADS, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Hkv, Sq, Sk, causal, window,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, Hkv, Sq, Sk, q_off, causal, window,
       (float)(1.4426950408889634 / sqrt((double)HD)));
   return cudaGetLastError();
 }
@@ -666,28 +676,29 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // Key tiles of 128 at hd <= 128, of 64 at hd 256 (registers); PERF.md has
 // the measurement behind 128 at hd 64.
 cudaError_t dispatch_bf16(const void* q, const void* k, const void* v, void* o, int B, int H,
-                          int Hkv, int Sq, int Sk, int hd, int causal, int window,
-                          cudaStream_t s) {
+                          int Hkv, int Sq, int Sk, int hd, int q_off, int causal,
+                          int window, cudaStream_t s) {
   switch (hd) {
-    case 16: return tc::launch<16, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 32: return tc::launch<32, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 64: return tc::launch<64, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 112: return tc::launch<112, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 128: return tc::launch<128, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 256: return tc::launch<256, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
+    case 16: return tc::launch<16, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 32: return tc::launch<32, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 64: return tc::launch<64, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 112: return tc::launch<112, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 128: return tc::launch<128, 128>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 256: return tc::launch<256, 64>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, int B, int H,
-                         int Hkv, int Sq, int Sk, int hd, int causal, int window, cudaStream_t s) {
+                         int Hkv, int Sq, int Sk, int hd, int q_off, int causal, int window,
+                         cudaStream_t s) {
   switch (hd) {
-    case 16: return f32::launch<16>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 32: return f32::launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 64: return f32::launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 112: return f32::launch<112>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 128: return f32::launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
-    case 256: return f32::launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, causal, window, s);
+    case 16: return f32::launch<16>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 32: return f32::launch<32>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 64: return f32::launch<64>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 112: return f32::launch<112>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 128: return f32::launch<128>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
+    case 256: return f32::launch<256>(q, k, v, o, B, H, Hkv, Sq, Sk, q_off, causal, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -697,14 +708,15 @@ cudaError_t dispatch_f32(const void* q, const void* k, const void* v, void* o, i
 // q (B, H, Sq, hd), k/v (B, Hkv, Sk, hd), o (B, H, Sq, hd), all contiguous and
 // of one dtype (bf16 when is_bf16, else f32); bf16 pointers 16-byte aligned.
 // hd in {16, 32, 64, 112, 128, 256}, H % Hkv == 0, Sq >= 1, Sk >= 1, window >= 0
-// (0: no window). Launches on `stream`, does not synchronise, returns the
-// launch's cudaError_t.
+// (0: no window), q_off >= 0 (query row i at position q_off + i). Launches on
+// `stream`, does not synchronise, returns the launch's cudaError_t.
 extern "C" int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                      int H, int Hkv, int Sq, int Sk, int hd, int is_bf16,
-                                      int causal, int window, void* stream) {
-  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 || window < 0)
+                                      int H, int Hkv, int Sq, int Sk, int hd, int q_off,
+                                      int is_bf16, int causal, int window, void* stream) {
+  if (B < 1 || H < 1 || Hkv < 1 || H % Hkv != 0 || Sq < 1 || Sk < 1 || window < 0 || q_off < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)dispatch_bf16(q, k, v, o, B, H, Hkv, Sq, Sk, hd, causal, window, s);
-  return (int)dispatch_f32(q, k, v, o, B, H, Hkv, Sq, Sk, hd, causal, window, s);
+  if (is_bf16)
+    return (int)dispatch_bf16(q, k, v, o, B, H, Hkv, Sq, Sk, hd, q_off, causal, window, s);
+  return (int)dispatch_f32(q, k, v, o, B, H, Hkv, Sq, Sk, hd, q_off, causal, window, s);
 }

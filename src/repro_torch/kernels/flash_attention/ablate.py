@@ -24,7 +24,7 @@ from repro_torch.kernels import _build
 
 LOOP_QK = "      issue_qk<HD, BK, BQ>(sc, q_wg, sk + s * KV_BYTES);\n"
 LOOP_PV = "      issue_pv<NCH, BK>(acc, pa, sv + sp * KV_BYTES);\n"
-SOFTMAX = "tile_softmax<BK>(sc, m, l, alpha, c, tile_is_masked(k0), k0, qlo + r0, c0, Sk, causal,"
+SOFTMAX = "tile_softmax<BK>(sc, m, l, alpha, c, tile_is_masked(k0), k0, plo + r0, c0, Sk, causal,"
 EXP2 = ("sc[i] = sm90::exp2_approx(fmaf(sc[i], c, -m[r]));", "sc[i] = fmaf(sc[i], c, -m[r]);")
 NWG = ("static constexpr int NWG = HD <= 64 ? 3 : HD <= 128 ? 2 : 1;",
        "static constexpr int NWG = HD <= 128 ? 2 : 1;")
@@ -53,11 +53,11 @@ def variants(src: str) -> dict[str, str]:
 
 def launcher(lib: ctypes.CDLL, q, k, v, causal: bool):
     fn = lib.flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     out = torch.empty_like(q)
     B, H, Sq, hd = q.shape
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, k.shape[1], Sq,
-            k.shape[2], hd, 1, int(causal), 0)
+            k.shape[2], hd, 0, 1, int(causal), 0)
 
     def run():
         _build.check(fn(*args, torch.cuda.current_stream().cuda_stream), "ablate")

@@ -1,7 +1,7 @@
 """Checked wrapper for the flash-attention kernel (``csrc/flash_attention.cu``).
 
-``flash_attention(q, k, v, causal=..., window=...)`` computes fused
-attention where the tensors lie: the CUDA kernel for CUDA tensors (one
+``flash_attention(q, k, v, causal=..., window=..., q_offset=...)`` computes
+fused attention where the tensors lie: the CUDA kernel for CUDA tensors (one
 launch, counted in ``launches``; bf16 runs on the tensor cores, f32 on the
 CUDA cores), the plain PyTorch version (``ref.flash_attention_ref``) for
 CPU tensors. There is no fallback from one to the other, and anything the
@@ -24,7 +24,8 @@ DTYPES = (torch.bfloat16, torch.float32)
 _INT_MAX = 2**31 - 1
 
 
-def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) -> None:
+def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
+              q_offset: int) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"q, k, v must be 4-D (B, H, S, hd); got {q.shape}, {k.shape}, {v.shape}")
     if k.shape != v.shape:
@@ -46,10 +47,12 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int) ->
         raise ValueError("no keys: Sk must be at least 1")
     if not 0 <= window <= _INT_MAX or max(q.numel(), k.numel()) // hd > _INT_MAX:
         raise ValueError(f"window {window} or sizes out of the kernel's int range")
+    if not 0 <= q_offset <= _INT_MAX:
+        raise ValueError(f"q_offset {q_offset} outside [0, {_INT_MAX}]")
 
 
-def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            window: int) -> torch.Tensor:
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+            q_offset: int) -> torch.Tensor:
     global launches
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -57,31 +60,34 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if bf16:  # the tensor maps of the TMA loads need 16-byte aligned bases
         q, k, v = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (q, k, v))
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv, Sq, Sk,
-                 hd, int(bf16), int(causal), window, stream)
+                 hd, q_offset, int(bf16), int(causal), window, stream)
     _build.check(err, "flash_attention")
     launches += 1
     return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0) -> torch.Tensor:
+                    causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Fused attention. q (B, H, Sq, hd); k/v (B, Hkv, Sk, hd) with
     H % Hkv == 0 (query head h reads KV head h // (H / Hkv)); bf16 or f32,
     contiguous, hd in ``HEAD_DIMS``. ``window`` > 0 keeps keys with
-    q_pos - k_pos < window; positions start at 0 for queries and keys.
-    Returns (B, H, Sq, hd) in q's dtype."""
-    window = int(window)
-    _validate(q, k, v, window)
+    q_pos - k_pos < window. Key positions start at 0, query positions at
+    ``q_offset`` (>= 0): query row i sits at ``q_offset + i`` for the
+    causal mask and the window, as a rank's block of a sequence's queries
+    does against the whole sequence's keys. Returns (B, H, Sq, hd) in q's
+    dtype."""
+    window, q_offset = int(window), int(q_offset)
+    _validate(q, k, v, window, q_offset)
     if q.shape[2] == 0:
         return torch.empty_like(q)
     if q.device.type == "cuda":
-        return _launch(q, k, v, causal, window)
+        return _launch(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":
-        return flash_attention_ref(q, k, v, causal=causal, window=window)
+        return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
     raise ValueError(f"unsupported device {q.device}")

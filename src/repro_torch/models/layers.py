@@ -5,9 +5,10 @@ Plain PyTorch copies of the reference's ``repro.models.layers``, with its
 conventions: activations bf16, reductions, softmax and norms in f32. Weight
 trees are nested dicts of tensors; stacked-layer weights carry a leading L
 axis. With a ``MeshCtx`` whose "model" axis is larger than 1 (``ctx``),
-``moe_layer`` runs the reference's expert-parallel branch and
+``moe_layer`` runs the reference's expert-parallel branch,
 ``expand_kv_to_local_heads`` is its attention's KV-to-heads expansion, each
-on this rank's blocks.
+on this rank's blocks, and ``gqa_attention(hd_split=)`` attends on the
+rank's block of head_dim.
 """
 from __future__ import annotations
 
@@ -105,7 +106,8 @@ def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int | None,
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool = True,
                   window: int | None = None, q_chunk: int = 1024,
-                  score_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+                  score_dtype: torch.dtype = torch.bfloat16,
+                  hd_split: "MeshCtx | None" = None) -> torch.Tensor:
     """Grouped-query attention, q (B, Sq, H, hd); k/v (B, Sk, KV, hd).
 
     The reference's jnp attention, with its score chain in ``score_dtype``
@@ -118,17 +120,29 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     by chunk, each chunk under ``torch.utils.checkpoint``: the score buffers
     are bounded to (B, KV, G, q_chunk, Sk) and recomputed in the backward,
     as the reference's ``jax.checkpoint(nothing_saveable)`` over ``lax.map``
-    does."""
+    does.
+
+    With ``hd_split`` (a ``MeshCtx``) q, k and v hold this rank's block of
+    head_dim (the decode over a head_dim-sharded cache, the reference's
+    fallback layout where neither the heads nor the KV heads divide
+    "model"): each rank's f32 partial scores are summed over "model" and
+    rounded to ``score_dtype`` once, as the reference's single product
+    rounds them, the scale is that of the whole head_dim, and the output is
+    the rank's block of head_dim."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
     # the scale rounded to score_dtype, kept as a Python float: no host-to-
     # device copy (and no stream sync) per call
-    scale = _rounded(1.0 / math.sqrt(hd), score_dtype)
+    whole_hd = hd * (hd_split.n_model if hd_split is not None else 1)
+    scale = _rounded(1.0 / math.sqrt(whole_hd), score_dtype)
 
     def attend(q_blk: torch.Tensor, qp_blk: torch.Tensor) -> torch.Tensor:
         # q_blk (B, Sc, KV, G, hd)
-        s = torch.einsum("bqkgd,bskd->bkgqs", q_blk.float(), k.float()).to(score_dtype)
+        s = torch.einsum("bqkgd,bskd->bkgqs", q_blk.float(), k.float())
+        if hd_split is not None:
+            s = hd_split.psum_model(s)
+        s = s.to(score_dtype)
         bias = _mask_bias(qp_blk, k_pos, window, causal).to(score_dtype)
         s = s * scale + bias
         m = s.amax(dim=-1, keepdim=True)

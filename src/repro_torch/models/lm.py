@@ -64,6 +64,23 @@ the embedding's rows are gathered over "model" and the logits are the sum
 over "model" of each rank's block product (``reduce_model``), on which the
 loss runs whole. The MoE block runs ``moe_layer``'s expert-parallel branch
 on the rank's tokens.
+
+Where a dim does not divide "model", the reference's fallback layout
+(``param_specs``: head_dim for the attention, else the leaf replicated)
+runs without Megatron-SP's gather and scatter around the part it holds
+whole. The attention, where the heads do not divide, gathers its
+head_dim-sharded weights once a step (their gradients summed back), its
+K/V from the sequence gathered at the block's entry and its queries from
+the rank's block alone, attends at the block's offset (the flash kernel's
+``q_offset``) and projects with the whole ``wo``, which lands on the block
+itself; its decode step runs on the rank's block of head_dim of a
+head_dim-sharded cache (``gqa_attention(hd_split=)``, partial scores
+summed over "model"; q and k gathered whole for qk-norm and RoPE). A
+replicated FFN, embedding or head runs on the rank's own rows (the loss on
+whole logits of them, summed over "model"); the MoE layer and the Mamba2
+mixer run the reference's whole-array forms over the gathered tokens (the
+MoE's over the global batch: its capacity and dispatch order are global)
+and keep the rank's block.
 """
 from __future__ import annotations
 
@@ -93,7 +110,6 @@ from repro_torch.models.layers import (
     swiglu_mlp,
 )
 from repro_torch.models.sharding import (
-    FALLBACK_LAYOUTS,
     MeshCtx,
     NamedSharding,
     spec_with_model_on,
@@ -104,6 +120,10 @@ from repro_torch.tree import named_leaves, tree_map
 Params = dict[str, Any]  # name -> tensor, or name -> dict of stacked-layer tensors
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "encdec", "vlm")
+# the leaves a rank gathers whole where its layout is a fallback (``_tp_layers``)
+ATTN_LEAVES = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+MIXER_LEAVES = ("wz", "wx", "wdt", "norm", "wo")
 PURE_DP_MAX_PARAMS = 2.5e8  # below this, TP wastes the mesh: replicate
 CE_CHUNK = 128  # tokens per chunk of the cross-entropy on a mesh
 
@@ -340,34 +360,37 @@ class LM(nn.Module):
         "model" (a model that is not pure data-parallel, or with ``serve``
         any model, as the reference's serve step runs on ``param_specs(ctx,
         serve=True)``; on a mesh whose "model" axis is larger than 1), else
-        None. Raises ``NotImplementedError``, naming the ROADMAP item, for
-        the fallback layouts the port does not run yet: heads, FFN, experts,
-        ``d_inner`` or SSM heads (those the family has) that do not divide
-        the axis, or a vocab and d_model neither of which does. KV heads
-        that do not divide it take the reference's expansion to the rank's
-        heads; a vocab that does not, the embedding and head on d_model."""
+        None. Every layout of ``param_specs`` runs: KV heads that do not
+        divide the axis take the reference's expansion to the rank's heads,
+        a vocab that does not the embedding and head on d_model, and heads,
+        FFN, experts, SSM heads, or a vocab with d_model, that do not the
+        fallback layouts (module docstring)."""
         if ctx is None or ctx.n_model == 1 or (self.pure_dp and not serve):
             return None
-        cfg, n = self.cfg, ctx.n_model
-        dims = {} if cfg.family == "ssm" else {"heads": cfg.n_heads}
-        if cfg.is_ssm:
-            dims.update(d_inner=cfg.d_inner, ssm_heads=cfg.ssm_heads)
-        if cfg.family == "moe":
-            dims["experts"] = cfg.moe_experts
-        elif cfg.family != "ssm":
-            dims["d_ff"] = cfg.d_ff
-        bad = {k: v for k, v in dims.items() if v % n}
-        if cfg.vocab % n and cfg.d_model % n:
-            bad.update(vocab=cfg.vocab, d_model=cfg.d_model)
-        if bad:
-            raise NotImplementedError(f"{cfg.name} on a mesh with model={n} ({bad} do not "
-                                      f"divide it): {FALLBACK_LAYOUTS}")
         return ctx
+
+    @staticmethod
+    def _splits(tp: MeshCtx | None, dim: int) -> bool:
+        """Whether tensor parallelism splits a dim of size ``dim`` over
+        "model" (it divides the axis); False without ``tp``."""
+        return tp is not None and dim % tp.n_model == 0
+
+    def _hd_fallback(self, tp: MeshCtx | None) -> bool:
+        """Whether the attention runs the fallback layout: ``tp``, and the
+        heads do not divide "model" (nor, then, the KV heads). Its weights
+        are head_dim-sharded where head_dim divides, else replicated."""
+        return tp is not None and not self._splits(tp, self.cfg.n_heads)
 
     def _vocab_parallel(self, tp: MeshCtx | None) -> bool:
         """Whether ``param_specs`` puts "model" on the embedding's and the
         head's vocab dim (it divides the axis), not on d_model."""
-        return tp is not None and self.cfg.vocab % tp.n_model == 0
+        return self._splits(tp, self.cfg.vocab)
+
+    def _head_whole(self, tp: MeshCtx | None) -> bool:
+        """Whether the embedding and head are replicated on a ``tp`` mesh:
+        neither the vocab nor d_model divides "model"."""
+        return tp is not None and not self._vocab_parallel(tp) and \
+            not self._splits(tp, self.cfg.d_model)
 
     # ------------------------------------------------------------- forward
     def _rope(self, positions: torch.Tensor) -> tuple[torch.Tensor | None, torch.Tensor | None]:
@@ -391,34 +414,86 @@ class LM(nn.Module):
                 for i in range(cfg.n_layers)]
 
     def _qkv(self, lp: dict, x: torch.Tensor, cos: torch.Tensor | None,
-             sin: torch.Tensor | None, kv: torch.Tensor | None = None):
+             sin: torch.Tensor | None, kv: torch.Tensor | None = None, q_off: int = 0,
+             hd_split: MeshCtx | None = None):
         """Projections, bias, qk-norm and RoPE (none where ``cos`` is None):
-        q (B,S,H,hd) from x, k/v (B,Sk,KV,hd) from ``kv`` (cross-attention)
-        or x. Tensor-parallel, q holds this rank's heads and k/v its KV
-        heads, or all of them where the rank expands them (``_tp_kv``)."""
+        q (B,Sq,H,hd) from x, k/v (B,Sk,KV,hd) from ``kv`` (cross-attention,
+        or the fallback's gathered sequence) or x; cos/sin hold the keys'
+        positions, the queries' from ``q_off``. Tensor-parallel, q holds
+        this rank's heads and k/v its KV heads, or all of them where the
+        rank expands them (``_tp_kv``). With ``hd_split`` the weights are
+        this rank's blocks of head_dim: q and k are gathered whole over
+        "model" for qk-norm and RoPE (a block holds neither the whole norm
+        nor the rotation partners), then cut back to the block."""
         cfg = self.cfg
         src = x if kv is None else kv
         q, k, v = _proj(x, lp["wq"]), _proj(src, lp["wk"]), _proj(src, lp["wv"])
         if cfg.qkv_bias:
             q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        mixed = cfg.qk_norm or cos is not None
+        if hd_split is not None and mixed:  # one gather for both
+            q, k = hd_split.all_gather(torch.cat([q, k], dim=2), dim=-1).split(
+                [q.shape[2], k.shape[2]], dim=2)
         if cfg.qk_norm:
             q = rms_norm(q, lp["qn"], cfg.norm_eps)
             k = rms_norm(k, lp["kn"], cfg.norm_eps)
         if cos is not None:
-            q = apply_rope(q, cos, sin, cfg.rope_fraction)
+            rows = slice(q_off, q_off + q.shape[1])
+            q = apply_rope(q, cos[:, rows], sin[:, rows], cfg.rope_fraction)
             k = apply_rope(k, cos, sin, cfg.rope_fraction)
+        if hd_split is not None and mixed:
+            q, k = (_rank_block(t, hd_split, dim=-1) for t in (q, k))
         return q, k, v
 
     def _expands(self, tp: MeshCtx | None) -> bool:
         """Whether a rank expands the KV heads to its query heads: the
-        reference's rule, where the KV heads do not divide "model" (and the
-        heads do: ``tp_ctx``)."""
-        return tp is not None and self.cfg.n_kv_heads % tp.n_model != 0
+        reference's rule, where the KV heads do not divide "model" and the
+        heads do."""
+        cfg = self.cfg
+        return self._splits(tp, cfg.n_heads) and not self._splits(tp, cfg.n_kv_heads)
 
-    def _tp_layers(self, layers: dict, tp: MeshCtx | None) -> dict:
-        """The stacked layers' weights as this rank's heads read them
-        (``_tp_kv``, once for every layer); ``layers`` itself without ``tp``."""
-        return layers if tp is None else {**layers, **self._tp_kv(layers, tp)}
+    def _tp_layers(self, layers: dict, tp: MeshCtx | None, path: str = "layers",
+                   decode: bool = False) -> dict:
+        """The weights of ``params[path]`` (stacked layers, or the hybrid's
+        shared block) as this rank reads them, made once for every layer:
+        where the heads divide "model", the K/V as its heads read them
+        (``_tp_kv``); in a fallback layout, the leaves it runs whole
+        gathered whole (``_whole``): the attention's to prefill and train
+        (a decode step runs on its head_dim blocks), the experts, the
+        Mamba2 mixer's. ``layers`` itself without ``tp``."""
+        if tp is None:
+            return layers
+        cfg, names = self.cfg, []
+        if "wq" in layers:
+            if not self._hd_fallback(tp):
+                layers = {**layers, **self._tp_kv(layers, tp)}
+            elif not decode:
+                names += [p + n for p in ("", "x") for n in ATTN_LEAVES]
+        if "w_gate" in layers and not self._splits(tp, cfg.moe_experts):
+            names += EXPERT_LEAVES
+        if "wz" in layers and not self._splits(tp, cfg.ssm_heads):
+            names += MIXER_LEAVES
+        return self._whole(layers, tp, path, names, serve=decode and self.pure_dp)
+
+    def _whole(self, tree: dict, tp: MeshCtx, path: str, names: list,
+               serve: bool = False) -> dict:
+        """``tree`` (``params[path]``, laid out as ``param_specs(tp,
+        serve)``) with its leaves ``names`` whole: each dim their spec
+        shards gathered over its axes (``gather_seq``: the gradients summed
+        back to the blocks)."""
+        if not names:
+            return tree
+        specs, out = self.param_specs(tp, serve)[path], dict(tree)
+        for name in names:
+            if name not in tree:
+                continue
+            w = tree[name]
+            for dim, entry in enumerate(specs[name].spec):
+                if entry is not None:
+                    w = tp.gather_seq(w, dim=dim, axes=(entry,) if isinstance(entry, str)
+                                      else tuple(entry))
+            out[name] = w
+        return out
 
     def _tp_kv(self, lp: dict, tp: MeshCtx) -> dict:
         """The K/V weights and biases (stacked or one layer's, the
@@ -454,18 +529,36 @@ class LM(nn.Module):
         (``window`` None for none). ``kv`` (B, Sk, D) is the source of the
         keys and values of a cross-attention (the reference's
         ``kv_override``; keys at 0..Sk-1). With ``tp``, on this rank's heads
-        of the whole sequence: the out-projection's partial sums."""
-        q, k, v = self._qkv(lp, x, cos, sin, kv)
+        of the whole sequence: the out-projection's partial sums; in the
+        fallback (``_hd_fallback``, the weights whole: ``_tp_layers``), on
+        every head of the queries of x, this rank's block of the sequence,
+        at its offset, against the keys of the sequence gathered (or of
+        ``kv``): the block's own output."""
+        q_off, src = 0, kv
+        if self._hd_fallback(tp):
+            q_off = tp.model_rank * x.shape[1]
+            if kv is None:
+                src = tp.gather_seq(x)
+        q, k, v = self._qkv(lp, x, cos, sin, src, q_off)
         if self._expands(tp):
             k, v = expand_kv_to_local_heads(k, v, q.shape[2], tp)
         if train_pos is not None:
             k_pos = train_pos if kv is None else torch.arange(k.shape[1], device=k.device)
-            o = gqa_attention(q, k, v, q_pos=train_pos, k_pos=k_pos, causal=causal,
-                              window=window, score_dtype=dt(self.cfg))
+            o = gqa_attention(q, k, v, q_pos=train_pos[q_off:q_off + q.shape[1]], k_pos=k_pos,
+                              causal=causal, window=window, score_dtype=dt(self.cfg))
             return self._out_proj(lp, o)
         o = flash_attention(q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-                            v.transpose(1, 2).contiguous(), causal=causal, window=window)
+                            v.transpose(1, 2).contiguous(), causal=causal, window=window,
+                            q_offset=q_off)
         return self._out_proj(lp, o.transpose(1, 2))
+
+    def _attn_sp(self, lp: dict, x: torch.Tensor, tp: MeshCtx | None, **attn) -> torch.Tensor:
+        """The attention sublayer of h's block x: Megatron-SP around the
+        rank's heads (``_sp``), or in the fallback the block's own output
+        (``_attn``)."""
+        if self._hd_fallback(tp):
+            return self._attn(lp, x, tp=tp, **attn)
+        return _sp(lambda v: self._attn(lp, v, tp=tp, **attn), x, tp)
 
     def _dense_block(self, lp: dict, h: torch.Tensor, *, cos, sin, window: int | None,
                      train_pos: torch.Tensor | None = None, tp: MeshCtx | None = None
@@ -474,8 +567,7 @@ class LM(nn.Module):
         rank's block of the sequence, gathered for the attention."""
         cfg = self.cfg
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        attn = dict(cos=cos, sin=sin, window=window, train_pos=train_pos)
-        h = h + _sp(lambda v: self._attn(lp, v, tp=tp, **attn), x, tp)
+        h = h + self._attn_sp(lp, x, tp, cos=cos, sin=sin, window=window, train_pos=train_pos)
         y, aux = self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), tp)
         return h + y, aux
 
@@ -485,18 +577,49 @@ class LM(nn.Module):
         ``moe_layer`` (aux = E * sum(me * ce), f32). With ``tp``: x is this
         rank's block of the sequence (gathered for SwiGLU's columns, the
         partial sums scattered back) or, with ``decode``, the whole token;
-        the MoE layer runs its expert-parallel branch."""
+        the MoE layer runs its expert-parallel branch. Where d_ff (or the
+        experts) do not divide "model", the replicated MLP runs on x as it
+        is (the MoE layer: ``_moe_whole``)."""
         cfg = self.cfg
         if cfg.family == "moe":
+            if tp is not None and not self._splits(tp, cfg.moe_experts):
+                return self._moe_whole(lp, x, tp, decode)
             return moe_layer(x, lp["wr"], lp["w_gate"], lp["w_up"], lp["w_down"],
                              top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor, ctx=tp)
+
         def mlp(v: torch.Tensor) -> torch.Tensor:
             return swiglu_mlp(v, lp["wg"], lp["wu"], lp["wd"])
 
+        if tp is not None and not self._splits(tp, cfg.d_ff):
+            return mlp(x), None
         return (tp.psum_model(mlp(x)) if decode and tp is not None else _sp(mlp, x, tp)), None
 
+    def _moe_whole(self, lp: dict, x: torch.Tensor, tp: MeshCtx,
+                   decode: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+        """The reference's whole-array ``moe_layer`` where the experts do not
+        divide "model" (the weights whole: ``_tp_layers``): over the global
+        batch's tokens, x (this rank's block of the sequence, or with
+        ``decode`` the whole token) gathered over "model" and the batch
+        axes, so that the capacity and the dispatch order are the
+        reference's; (this rank's block of y, the auxiliary loss, every
+        rank's the same: ``shared_model``)."""
+        cfg, B = self.cfg, x.shape[0]
+        xg = x if decode else tp.gather_seq(x)
+        if tp.n_batch > 1:
+            xg = tp.gather_seq(xg, dim=0, axes=tp.batch_axes)
+        y, aux = moe_layer(xg, lp["wr"], lp["w_gate"], lp["w_up"], lp["w_down"],
+                           top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
+        y = y.narrow(0, tp.index(tp.batch_axes) * B, B)
+        return (y if decode else _rank_block(y, tp)), tp.shared_model(aux)
+
     def _mamba_layer(self, lp: dict, h: torch.Tensor, tp: MeshCtx | None = None) -> torch.Tensor:
+        """h + the Mamba2 mixer of its norm: on the rank's SSM heads
+        (Megatron-SP), or where they do not divide "model" the whole mixer
+        (its leaves whole: ``_tp_layers``) over the sequence gathered, of
+        which the rank keeps its block."""
         x = rms_norm(h, lp["ln"], self.cfg.norm_eps)
+        if tp is not None and not self._splits(tp, self.cfg.ssm_heads):
+            return h + _rank_block(ssd.mamba2_mixer(lp, tp.gather_seq(x), self.cfg), tp)
         return h + _sp(lambda v: ssd.mamba2_mixer(lp, v, self.cfg, tp), x, tp)
 
     def _forward(self, params: Params, batch: dict, *, train: bool = False,
@@ -520,12 +643,14 @@ class LM(nn.Module):
         Where the vocab is split over "model", each rank looks up the rows
         its block holds (zeros for the others) and the sum over "model" is
         the embedding; where d_model is, each rank's block of every row is
-        gathered over "model"."""
+        gathered over "model"; where neither is, the rows are whole."""
         emb, cast = params["embed"], dt(self.cfg)
         if tp is None:
             return emb[tokens].to(cast)
         if not self._vocab_parallel(tp):
-            rows = tp.gather_seq(emb[tokens].to(cast), dim=-1)
+            rows = emb[tokens].to(cast)
+            if not self._head_whole(tp):
+                rows = tp.gather_seq(rows, dim=-1)
             return rows if decode else _rank_block(rows, tp)
         V = emb.shape[0]
         local = tokens.long() - tp.model_rank * V
@@ -614,7 +739,7 @@ class LM(nn.Module):
                        tp: MeshCtx | None = None) -> torch.Tensor:
         """The SSM stack: h + mamba2_mixer(rms_norm(h)) for each layer; with
         ``train``, each layer under ``torch.utils.checkpoint``."""
-        for lp in _layers(params["layers"]):
+        for lp in _layers(self._tp_layers(params["layers"], tp)):
             h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp)
         return h
 
@@ -636,8 +761,8 @@ class LM(nn.Module):
         # which 0 would mask every key)
         attn = dict(cos=cos, sin=sin, window=None, train_pos=positions[0]) if train else \
             dict(cos=cos, sin=sin, window=0)
-        shared = self._tp_layers(params["shared"], tp)
-        for i, lp in enumerate(_layers(params["layers"])):
+        shared = self._tp_layers(params["shared"], tp, "shared")
+        for i, lp in enumerate(_layers(self._tp_layers(params["layers"], tp))):
             h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp)
             if (i + 1) % E == 0:
                 h, _ = _checkpointed(self._dense_block, shared, h, train=train, tp=tp, **attn)
@@ -664,7 +789,7 @@ class LM(nn.Module):
             h = self._embed(params, tokens, tp) + _rank_block(self._dec_pos(params, tp)[:St],
                                                              tp, dim=0)
         attn = _no_rope(St, h.device, train)
-        for lp in _layers(self._tp_layers(params["dec"], tp)):
+        for lp in _layers(self._tp_layers(params["dec"], tp, "dec")):
             h = _checkpointed(self._dec_layer, lp, h, enc_out, train=train, tp=tp, **attn)
         return h
 
@@ -677,7 +802,7 @@ class LM(nn.Module):
         attn = _no_rope(h.shape[1], h.device, train)
         if tp is not None:
             h = _rank_block(h, tp)
-        for lp in _layers(self._tp_layers(params["enc"], tp)):
+        for lp in _layers(self._tp_layers(params["enc"], tp, "enc")):
             h = _checkpointed(self._enc_layer, lp, h, train=train, tp=tp, **attn)
         return layer_norm(h, params["enc_final_ln"], params["enc_final_b"], self.cfg.norm_eps)
 
@@ -687,7 +812,7 @@ class LM(nn.Module):
         each after a layer norm (``attn``: ``_no_rope``)."""
         eps = self.cfg.norm_eps
         x = layer_norm(h, lp["ln1"], lp["b1"], eps)
-        h = h + _sp(lambda v: self._attn(lp, v, causal=False, tp=tp, **attn), x, tp)
+        h = h + self._attn_sp(lp, x, tp, causal=False, **attn)
         return h + self._gelu(lp, layer_norm(h, lp["ln2"], lp["b2"], eps), tp)
 
     def _dec_layer(self, lp: dict, h: torch.Tensor, enc_out: torch.Tensor,
@@ -697,26 +822,25 @@ class LM(nn.Module):
         then the GELU MLP, each after a layer norm."""
         eps = self.cfg.norm_eps
         x = layer_norm(h, lp["ln1"], lp["b1"], eps)
-        h = h + _sp(lambda v: self._attn(lp, v, tp=tp, **attn), x, tp)
+        h = h + self._attn_sp(lp, x, tp, **attn)
         x = layer_norm(h, lp["ln2"], lp["b2"], eps)
-        h = h + _sp(lambda v: self._attn(_cross(lp), v, causal=False, kv=enc_out, tp=tp, **attn),
-                    x, tp)
+        h = h + self._attn_sp(_cross(lp), x, tp, causal=False, kv=enc_out, **attn)
         return h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps), tp)
 
-    @staticmethod
-    def _gelu(lp: dict, x: torch.Tensor, tp: MeshCtx | None = None,
+    def _gelu(self, lp: dict, x: torch.Tensor, tp: MeshCtx | None = None,
               decode: bool = False) -> torch.Tensor:
         """The encoder-decoder's MLP: ``gelu_mlp`` over ``wg`` and ``wd`` with
         zero biases, as the reference calls it. With ``tp`` column-parallel
         on ``wg`` and row-parallel on ``wd`` (x this rank's block of the
         sequence, or with ``decode`` the whole token): each rank adds the
-        zero bias to its partial sums, which leaves them as they are."""
+        zero bias to its partial sums, which leaves them as they are; where
+        d_ff does not divide "model", replicated, on x as it is."""
         zero = x.new_zeros(())
 
         def mlp(v: torch.Tensor) -> torch.Tensor:
             return gelu_mlp(v, lp["wg"], zero, lp["wd"], zero)
 
-        if tp is None:
+        if tp is None or not self._splits(tp, self.cfg.d_ff):
             return mlp(x)
         return tp.psum_model(mlp(x)) if decode else _sp(mlp, x, tp)
 
@@ -730,10 +854,10 @@ class LM(nn.Module):
         embedding's) product; on a rank of a split vocab, its block of the
         logits; where ``tp`` splits d_model (the vocab does not divide
         "model"), the sum over "model" of each rank's block product: the
-        whole logits."""
+        whole logits; where it splits neither, the whole product."""
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         x = self._final_norm(params, h)
-        if tp is None or self._vocab_parallel(tp):
+        if tp is None or self._vocab_parallel(tp) or self._head_whole(tp):
             return x @ w
         return tp.reduce_model(_rank_block(x, tp, dim=-1) @ w)
 
@@ -782,21 +906,33 @@ class LM(nn.Module):
         parallelism (``tp_ctx``) the sequence is gathered first and each
         chunk's logits hold this rank's block of the vocab
         (``vocab_parallel_ce``), as the reference lays them out, or where
-        d_model is split, the whole vocab (``_head``)."""
+        d_model is split, the whole vocab (``_head``). Where neither is (a
+        replicated head: ``_head_whole``), each rank takes the loss of its
+        own block of the sequence on whole logits, and the sum over
+        "model" (``reduce_model``) is the whole sequence's."""
         tp = self.tp_ctx(ctx)
-        if tp is not None:
+        rows = self._head_whole(tp)
+        if rows:
+            labels = _rank_block(labels, tp)
+        elif tp is not None:
             h = tp.gather_seq(h)
         B, S, _ = h.shape
-        if ctx is None or S <= chunk:
-            return self._chunk_loss(params, h, labels, tp).mean()
-        if S % chunk:
-            raise ValueError(f"the chunked cross-entropy needs S ({S}) divisible by {chunk}")
+        whole = S * tp.n_model if rows else S
+
+        def summed(loss: torch.Tensor) -> torch.Tensor:
+            return (tp.reduce_model(loss) if rows else loss) / (B * whole)
+
+        if ctx is None or whole <= chunk:
+            loss = self._chunk_loss(params, h, labels, tp)
+            return summed(loss.sum()) if rows else loss.mean()
+        if whole % chunk:
+            raise ValueError(f"the chunked cross-entropy needs S ({whole}) divisible by {chunk}")
         tot = h.new_zeros((), dtype=torch.float32)
         for i in range(0, S, chunk):
             hc, lc = h[:, i:i + chunk], labels[:, i:i + chunk]
             tot = tot + checkpoint(lambda x, y: self._chunk_loss(params, x, y, tp).sum(), hc, lc,
                                    use_reentrant=False)
-        return tot / (B * S)
+        return summed(tot)
 
     def _chunk_loss(self, params: Params, h: torch.Tensor, labels: torch.Tensor,
                     tp: MeshCtx | None = None) -> torch.Tensor:
@@ -883,7 +1019,10 @@ class LM(nn.Module):
         this rank's block of the batch, the same on every rank of a model
         group: the out-projections' partial sums are all-reduced over
         "model" and the logits gathered (or, on a split d_model, summed)
-        over it."""
+        over it. In the fallback layouts the attention runs on the rank's
+        block of head_dim (its partial scores and out-projection summed
+        over "model"), and a replicated MLP, MoE layer, mixer or head whole
+        on every rank."""
         cfg = self.cfg
         tp = self.tp_ctx(ctx, serve=True)
         cur = int(batch["cur_len"])
@@ -912,11 +1051,16 @@ class LM(nn.Module):
                      pos1: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                      tp: MeshCtx | None = None) -> torch.Tensor:
         """The attention of one token against its layer's cache (B, S, KV,
-        hd), the new K/V written at ``cur``. With ``tp``, on this rank's
-        heads (the out-projection's partial sums); where the rank expands
-        the KV heads its cache holds a block of head_dim, gathered to read."""
+        hd), the new K/V written at ``cur``: its output, whole. With
+        ``tp``, on this rank's heads (the out-projection's partial sums,
+        all-reduced over "model"); where the rank expands the KV heads its
+        cache holds a block of head_dim, gathered to read. In the fallback
+        layout the weights and the cache hold this rank's block of head_dim
+        (``_qkv`` with ``hd_split``; ``gqa_attention`` sums the partial
+        scores), or all of it where head_dim does not divide "model"."""
         S = k_cache.shape[1]  # the per-layer cache is (B, S, KV, hd)
-        q, k_new, v_new = self._qkv(lp, h, cos, sin)
+        hd_split = tp if self._hd_fallback(tp) and k_cache.shape[-1] != self.cfg.hd else None
+        q, k_new, v_new = self._qkv(lp, h, cos, sin, hd_split=hd_split)
         k_pos = torch.arange(S, dtype=torch.int32, device=h.device)
         if not self._expands(tp):
             k_cache[:, cur] = k_new[:, 0]
@@ -932,8 +1076,18 @@ class LM(nn.Module):
 
             k, v = expand_kv_to_local_heads(written(k_cache, k_new), written(v_cache, v_new),
                                             q.shape[2], tp)
-        o = gqa_attention(q, k, v, q_pos=pos1, k_pos=k_pos, causal=True, window=window)
-        return self._out_proj(lp, o)
+        o = gqa_attention(q, k, v, q_pos=pos1, k_pos=k_pos, causal=True, window=window,
+                          hd_split=hd_split)
+        return self._summed(self._out_proj(lp, o), tp, hd_split)
+
+    def _summed(self, y: torch.Tensor, tp: MeshCtx | None,
+                hd_split: MeshCtx | None) -> torch.Tensor:
+        """A decode attention's out-projection ``y``, whole: all-reduced
+        over "model" where it holds the partial sums of the rank's heads or
+        block of head_dim (not where the fallback runs it whole)."""
+        if tp is None or (self._hd_fallback(tp) and hd_split is None):
+            return y
+        return tp.psum_model(y)
 
     def _decode_block(self, lp: dict, h: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, cur: int, tp: MeshCtx | None = None,
@@ -941,8 +1095,7 @@ class LM(nn.Module):
         """A pre-norm attention block's decode step: attention against its
         cache, then its MLP."""
         x = rms_norm(h, lp["ln1"], self.cfg.norm_eps)
-        a = self._decode_attn(lp, x, k_cache, v_cache, cur, tp=tp, **attn)
-        h = h + (a if tp is None else tp.psum_model(a))
+        h = h + self._decode_attn(lp, x, k_cache, v_cache, cur, tp=tp, **attn)
         return h + self._mlp(lp, rms_norm(h, lp["ln2"], self.cfg.norm_eps), tp, decode=True)[0]
 
     def _decode_rope(self, h: torch.Tensor, cur: int) -> dict:
@@ -959,7 +1112,7 @@ class LM(nn.Module):
                       h: torch.Tensor, cur: int, tp: MeshCtx | None = None) -> torch.Tensor:
         rope = self._decode_rope(h, cur)
         windows = self._windows(cache["k"].shape[2])
-        for i, lp in enumerate(_layers(self._tp_layers(params["layers"], tp))):
+        for i, lp in enumerate(_layers(self._tp_layers(params["layers"], tp, decode=True))):
             h = self._decode_block(lp, h, cache["k"][i], cache["v"][i], cur, tp,
                                    window=windows[i], **rope)
         return h
@@ -967,17 +1120,28 @@ class LM(nn.Module):
     def _decode_mamba(self, lp: dict, h: torch.Tensor, cache: dict[str, torch.Tensor],
                       i: int, tp: MeshCtx | None = None) -> torch.Tensor:
         """Mamba2 layer i's decode step; its conv window and state are
-        written into the cache."""
+        written into the cache. Where the SSM heads do not divide "model",
+        the whole mixer (its leaves whole: ``_tp_layers``) on every rank,
+        the state replicated, the conv window gathered where ``cache_specs``
+        splits its channels and the rank's block written back."""
         x = rms_norm(h, lp["ln"], self.cfg.norm_eps)
-        y, conv, state = ssd.mamba2_decode_step(lp, x[:, 0], cache["conv"][i], cache["ssm"][i],
-                                                self.cfg, tp)
-        cache["conv"][i].copy_(conv)
+        conv = cache["conv"][i]
+        if tp is not None and not self._splits(tp, self.cfg.ssm_heads):
+            split = conv.shape[-1] != lp["conv_w"].shape[-1]
+            y, new, state = ssd.mamba2_decode_step(
+                lp, x[:, 0], tp.all_gather(conv, dim=-1) if split else conv, cache["ssm"][i],
+                self.cfg)
+            conv.copy_(_rank_block(new, tp, dim=-1) if split else new)
+            cache["ssm"][i].copy_(state)
+            return h + y[:, None]
+        y, new, state = ssd.mamba2_decode_step(lp, x[:, 0], conv, cache["ssm"][i], self.cfg, tp)
+        conv.copy_(new)
         cache["ssm"][i].copy_(state)
         return h + (y if tp is None else tp.psum_model(y))[:, None]
 
     def _decode_ssm(self, params: Params, cache: dict[str, torch.Tensor],
                     h: torch.Tensor, tp: MeshCtx | None = None) -> torch.Tensor:
-        for i, lp in enumerate(_layers(params["layers"])):
+        for i, lp in enumerate(_layers(self._tp_layers(params["layers"], tp, decode=True))):
             h = self._decode_mamba(lp, h, cache, i, tp)
         return h
 
@@ -987,8 +1151,8 @@ class LM(nn.Module):
         Mamba2 layers attends against its group's K/V, with no window."""
         rope = self._decode_rope(h, cur)
         E = self.cfg.shared_attn_every
-        shared = self._tp_layers(params["shared"], tp)
-        for i, lp in enumerate(_layers(params["layers"])):
+        shared = self._tp_layers(params["shared"], tp, "shared", decode=True)
+        for i, lp in enumerate(_layers(self._tp_layers(params["layers"], tp, decode=True))):
             h = self._decode_mamba(lp, h, cache, i, tp)
             if (i + 1) % E == 0:
                 g = i // E
@@ -1003,28 +1167,27 @@ class LM(nn.Module):
         against the cache's ``xk``/``xv``, then the GELU MLP. With ``tp``
         on this rank's heads, whose cross K/V the cache holds (where the
         rank expands the KV heads, a block of head_dim, gathered to read),
-        each sublayer's partial sums all-reduced over "model"."""
+        or in the fallback on its block of head_dim; each sublayer's
+        partial sums all-reduced over "model"."""
         cfg, eps = self.cfg, self.cfg.norm_eps
         rope = self._decode_rope(h, cur)
         Sa = cache["xk"].shape[2]
         q_pos = torch.zeros((1,), dtype=torch.int32, device=h.device)
         k_pos = torch.arange(Sa, dtype=torch.int32, device=h.device)
-
-        def summed(y: torch.Tensor) -> torch.Tensor:
-            return y if tp is None else tp.psum_model(y)
-
-        for i, lp in enumerate(_layers(self._tp_layers(params["dec"], tp))):
+        for i, lp in enumerate(_layers(self._tp_layers(params["dec"], tp, "dec", decode=True))):
             x = layer_norm(h, lp["ln1"], lp["b1"], eps)
-            h = h + summed(self._decode_attn(lp, x, cache["k"][i], cache["v"][i], cur,
-                                             window=None, tp=tp, **rope))
+            h = h + self._decode_attn(lp, x, cache["k"][i], cache["v"][i], cur, window=None,
+                                      tp=tp, **rope)
             q = _proj(layer_norm(h, lp["ln2"], lp["b2"], eps), lp["xwq"])
             xk, xv = cache["xk"][i], cache["xv"][i]
             if self._expands(tp):
                 xk, xv = expand_kv_to_local_heads(
                     *(c if c.shape[-1] == cfg.hd else tp.all_gather(c, dim=-1) for c in (xk, xv)),
                     q.shape[2], tp)
-            o = gqa_attention(q, xk, xv, q_pos=q_pos, k_pos=k_pos, causal=False)
-            h = h + summed(self._out_proj(_cross(lp), o))
+            hd_split = tp if self._hd_fallback(tp) and xk.shape[-1] != cfg.hd else None
+            o = gqa_attention(q, xk, xv, q_pos=q_pos, k_pos=k_pos, causal=False,
+                              hd_split=hd_split)
+            h = h + self._summed(self._out_proj(_cross(lp), o), tp, hd_split)
             h = h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps), tp, decode=True)
         return h
 
@@ -1052,9 +1215,10 @@ def _no_rope(S: int, device: torch.device, train: bool) -> dict:
 def _rank_block(x: torch.Tensor, tp: MeshCtx, dim: int = 1) -> torch.Tensor:
     """This rank's block of ``x`` along ``dim`` (by default the sequence),
     split over "model" in rank order: no communication, x is whole on every
-    rank."""
+    rank. Contiguous: a reduction over the last dim of a strided block (the
+    norms') may add in another order than over the whole tensor's rows."""
     n = x.shape[dim] // tp.n_model
-    return x.narrow(dim, tp.model_rank * n, n)
+    return x.narrow(dim, tp.model_rank * n, n).contiguous()
 
 
 def _sp(fn, x: torch.Tensor, tp: MeshCtx | None) -> torch.Tensor:

@@ -27,11 +27,13 @@ mind: between blocks the hidden state is sharded over the sequence on
 "model"; what a rank computes from a gathered (replicated) tensor gets a
 partial gradient, which the collective's backward sums. Data parallelism runs over the batch
 axes with ZeRO-1 moments; tensor and expert parallelism over "model" for
-every family where heads, FFN, experts, ``d_inner`` and SSM heads divide
-it, with the embedding and head on d_model where the vocab does not. The
-fallback layouts (head_dim or only the sequence sharded where those do not
-divide "model") and the sequence sharding of ``token_spec`` are later items
-(ROADMAP A); their specs are computed all the same.
+every family: on the heads, FFN, experts, ``d_inner`` and SSM heads where
+they divide it, with the embedding and head on d_model where the vocab
+does not; where they do not, the reference's fallback layouts (head_dim
+sharded, or the leaf replicated), which the model gathers whole and runs
+on the rank's block of the sequence (``LM.tp_ctx``). The sequence sharding
+of ``token_spec`` is a later item (ROADMAP A); its specs are computed all
+the same.
 """
 from __future__ import annotations
 
@@ -44,9 +46,6 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
-FALLBACK_LAYOUTS = ("a fallback layout over the \"model\" axis, with head_dim or only the "
-                    "sequence sharded, where the heads (or the FFN, experts, d_inner or SSM "
-                    "heads) do not divide it (ROADMAP A, \"Fallback layouts\")")
 SEQUENCE_SHARDING = ("the sequence sharding of MeshCtx.token_spec, for a batch that does not "
                      "fill the batch axes (ROADMAP A, \"Sequence sharding\")")
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -200,8 +199,7 @@ class MeshCtx:
         """The reference's sharding constraint: checks that ``spec`` names
         this mesh's axes and returns ``x``. The port's steps hold local
         blocks and make each layout change themselves, as the collectives
-        below; the layouts they do not make (``FALLBACK_LAYOUTS``) are
-        refused when a step is built."""
+        below."""
         self.ns(*spec)
         return x
 
@@ -278,10 +276,12 @@ class MeshCtx:
         return self._comm("all_to_all", tuple(axes), x, run)
 
     # the model's layout changes over "model", differentiable (module docstring)
-    def gather_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    def gather_seq(self, x: torch.Tensor, dim: int = 1,
+                   axes: tuple[str, ...] = ("model",)) -> torch.Tensor:
         """The sequence's blocks (or those of another ``dim``) gathered over
-        "model" (backward: their gradients summed and scattered back)."""
-        return _GatherSeq.apply(x, self, dim)
+        "model" (or over ``axes``; backward: their gradients summed and
+        scattered back)."""
+        return _GatherSeq.apply(x, self, dim, tuple(axes))
 
     def scatter_seq(self, x: torch.Tensor, dim: int = 1) -> torch.Tensor:
         """Partial sums over "model" added in f32 and scattered along the
@@ -305,6 +305,14 @@ class MeshCtx:
         """``all_to_all`` over "model" (backward: the gradient sent back)."""
         return _AllToAll.apply(x, self)
 
+    def shared_model(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as it is, where every rank of the model group computes it
+        whole from the same gathered inputs (the MoE's auxiliary loss over
+        the gathered tokens): the backward hands each rank 1 / n_model of
+        its gradient, so that the collectives' backward sums, and the sum
+        over "model" of the replicated leaves' gradients, count it once."""
+        return _SharedModel.apply(x, self)
+
     def pmean_all(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` averaged over every axis (the reference's ``pmean`` over the
         mesh's axis names) in f32. Every rank of a model group holds the
@@ -313,20 +321,21 @@ class MeshCtx:
         return _PmeanAll.apply(x, self)
 
 
-def _f32_sum(op, x: torch.Tensor, *args) -> torch.Tensor:
-    """``op`` (a sum over "model") of ``x`` taken in f32, in ``x``'s dtype."""
-    return op(x.float(), ("model",), *args).to(x.dtype)
+def _f32_sum(op, x: torch.Tensor, *args, axes: tuple[str, ...] = ("model",)) -> torch.Tensor:
+    """``op`` (a sum over "model", or over ``axes``) of ``x`` taken in f32,
+    in ``x``'s dtype."""
+    return op(x.float(), axes, *args).to(x.dtype)
 
 
 class _GatherSeq(torch.autograd.Function):
     @staticmethod
-    def forward(fctx, x, ctx: MeshCtx, dim: int):
-        fctx.ctx, fctx.dim = ctx, dim
-        return ctx.all_gather(x, ("model",), dim)
+    def forward(fctx, x, ctx: MeshCtx, dim: int, axes: tuple[str, ...]):
+        fctx.ctx, fctx.dim, fctx.axes = ctx, dim, axes
+        return ctx.all_gather(x, axes, dim)
 
     @staticmethod
     def backward(fctx, g):
-        return _f32_sum(fctx.ctx.reduce_scatter, g, fctx.dim), None, None
+        return _f32_sum(fctx.ctx.reduce_scatter, g, fctx.dim, axes=fctx.axes), None, None, None
 
 
 class _ScatterSeq(torch.autograd.Function):
@@ -359,6 +368,17 @@ class _ReduceModel(torch.autograd.Function):
     @staticmethod
     def backward(fctx, g):
         return g, None
+
+
+class _SharedModel(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx: MeshCtx):
+        fctx.n = ctx.n_model
+        return x.clone()
+
+    @staticmethod
+    def backward(fctx, g):
+        return g / fctx.n, None
 
 
 class _AllToAll(torch.autograd.Function):

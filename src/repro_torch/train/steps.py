@@ -15,10 +15,14 @@ itself, and the gradient of every leaf that ``param_specs`` does not shard
 over "model", which saw only this rank's tokens or heads, is summed over
 "model" in f32 before the optimizer. A pure data-parallel model
 (whisper-base) decodes on such a mesh as the reference's serve step does:
-on its blocks of ``param_specs(ctx, serve=True)``, tensor-parallel. What
-the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP item: the fallback layouts, and the sequence sharding of a batch
-that does not fill the batch axes.
+on its blocks of ``param_specs(ctx, serve=True)``, tensor-parallel. Where
+heads, FFN, experts, SSM heads or the vocab with d_model do not divide
+"model", the model runs the reference's fallback layouts (head_dim
+sharded, or the leaf replicated: ``LM``); a gathered head_dim-sharded leaf
+gets its gradient summed back by the gather's backward, a replicated one
+by ``_sum_over_model``, each once. What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item: the sequence sharding of a
+batch that does not fill the batch axes.
 """
 from __future__ import annotations
 

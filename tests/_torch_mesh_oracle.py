@@ -9,9 +9,9 @@ reference's ``MeshCtx.constrain`` raises: ROADMAP C), and runs there what
 jitted with the shardings of ``training_state_specs`` and
 ``batch_shardings``, from the parameters and batch it is given; and, where
 asked, ``make_prefill_step(model, ctx)`` with the model's attention swapped
-for the reference's ``flash_attention_ref`` (the port's prefill attends with
-the flash kernel: ``tests/test_torch_models.py``), compiled with every bf16
-rounding kept.
+for the reference's ``flash_attention_ref`` at the layer's window (the
+port's prefill attends with the flash kernel: ``tests/test_torch_models.py``),
+compiled with every bf16 rounding kept.
 """
 from __future__ import annotations
 
@@ -80,11 +80,17 @@ _SCRIPT = textwrap.dedent(
         out["p:" + name(p)] = np.asarray(leaf, np.float32)
     pre = {{k[2:]: src[k] for k in src.files if k.startswith("f:")}}
     if pre:
+        sw = cfg.sliding_window
         def attention(q, k, v, *, q_pos, k_pos, causal=True, window=None, ctx=None, **_):
             G = q.shape[2] // k.shape[2]
             qh, kh, vh = (x.transpose(0, 2, 1, 3) for x in
                           (q, jnp.repeat(k, G, axis=2), jnp.repeat(v, G, axis=2)))
-            return flash_attention_ref(qh, kh, vh, causal=causal, window=0).transpose(0, 2, 1, 3)
+            ref = lambda w: flash_attention_ref(qh, kh, vh, causal=causal,
+                                                window=w).transpose(0, 2, 1, 3)
+            # the window is traced (the stack is a scan): it is S + 1 (no
+            # limit under the causal mask) or the arch's sliding window
+            return ref(0) if not sw else jax.lax.cond(window == sw, lambda: ref(sw),
+                                                      lambda: ref(0))
         jax_lm.gqa_attention = attention
         pre = {{k: jnp.asarray(v, jnp.bfloat16 if v.dtype == np.float32 else v.dtype)
                 for k, v in pre.items()}}
@@ -94,6 +100,11 @@ _SCRIPT = textwrap.dedent(
     np.savez(sys.argv[2], **out)
     """
 )
+
+
+class ReferenceFailed(AssertionError):
+    """The reference's run exited with an error; the message is the end of
+    its standard error."""
 
 
 def reference_run(arch: str, shape: tuple[int, ...], names: tuple[str, ...], params: dict,
@@ -120,11 +131,53 @@ def reference_run(arch: str, shape: tuple[int, ...], names: tuple[str, ...], par
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     out = subprocess.run([sys.executable, "-c", script, str(src), str(dst)], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=timeout)
-    assert out.returncode == 0, out.stderr[-3000:]
+    if out.returncode != 0:
+        raise ReferenceFailed(out.stderr[-3000:])
     got = np.load(dst)
     return {"loss": float(got["loss"]),
             "params": {k[2:]: got[k] for k in got.files if k.startswith("p:")},
             "logits": got["logits"] if "logits" in got.files else None}
+
+
+def as_f32(arrays: dict) -> dict:
+    """``arrays`` with each bf16 array as f32 (``reference_run``'s inputs)."""
+    return {k: v.astype(np.float32) if v.dtype.name == "bfloat16" else v
+            for k, v in arrays.items()}
+
+
+def reference_inputs(arch: str, overrides: dict, *, B: int, S: int,
+                     index_positions: bool = False) -> tuple:
+    """(the reduced config with ``overrides``, the reference's parameters
+    (``init_params(PRNGKey(0))``; whisper's 1-D leaves drawn, as in
+    ``tests/test_torch_train.py``), [its ``make_inputs`` B x S train batch
+    (seed 1), its prefill batch (seed 2)]), all numpy. ``index_positions``
+    replaces the VLM's M-RoPE positions by the index on all three streams."""
+    import dataclasses
+
+    import jax
+
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeConfig
+    from repro.models.lm import LM
+    from repro.models.registry import make_inputs
+
+    from _torch_encdec import norm_draw
+
+    cfg = dataclasses.replace(get_arch(arch).reduced(), **overrides)
+    jp = jax.tree.map(np.asarray, LM(cfg, max_pos=S).init_params(jax.random.PRNGKey(0)))
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(1)
+        jp = {k: ({n: v for n, v in sub.items()} if isinstance(sub, dict) else
+                  norm_draw(rng, sub.shape, k.endswith("ln")).astype(sub.dtype)
+                  if sub.ndim == 1 else sub) for k, sub in jp.items()}
+    inputs = [{k: np.asarray(v) for k, v in make_inputs(
+        cfg, ShapeConfig("t", S, B, kind), seed=seed).items() if kind == "train" or
+               k != "labels"} for kind, seed in (("train", 1), ("prefill", 2))]
+    if index_positions:
+        for d in inputs:
+            d["positions"] = np.broadcast_to(np.arange(S, dtype=np.int32),
+                                             d["positions"].shape).copy()
+    return cfg, jp, inputs
 
 
 class OracleCase:
@@ -142,39 +195,17 @@ class OracleCase:
     def __init__(self, arch: str, shape: tuple[int, ...], names: tuple[str, ...], workdir: Path,
                  *, B: int, S: int, lr: float, pure_dp: bool | None = None,
                  overrides: dict | None = None, index_positions: bool = False):
-        import dataclasses
-
-        import jax
-
-        from repro.configs import get_arch
-        from repro.configs.base import ShapeConfig
-        from repro.models.lm import LM
-        from repro.models.registry import make_inputs
         from repro_torch.models.convert import params_from_numpy, tensor_from_numpy
 
-        from _torch_encdec import norm_draw
         from _torch_mesh_ranks import run_ranks
 
         overrides = overrides or {}
-        cfg = dataclasses.replace(get_arch(arch).reduced(), **overrides)
-        jp = jax.tree.map(np.asarray, LM(cfg, max_pos=S).init_params(jax.random.PRNGKey(0)))
-        if cfg.family == "encdec":
-            rng = np.random.default_rng(1)
-            jp = {k: ({n: v for n, v in sub.items()} if isinstance(sub, dict) else
-                      norm_draw(rng, sub.shape, k.endswith("ln")).astype(sub.dtype)
-                      if sub.ndim == 1 else sub) for k, sub in jp.items()}
-        inputs = [{k: np.asarray(v) for k, v in make_inputs(
-            cfg, ShapeConfig("t", S, B, kind), seed=seed).items() if kind == "train" or
-                   k != "labels"} for kind, seed in (("train", 1), ("prefill", 2))]
-        if index_positions:
-            for d in inputs:
-                d["positions"] = np.broadcast_to(np.arange(S, dtype=np.int32),
-                                                 d["positions"].shape).copy()
-        f32 = lambda d: {k: v.astype(np.float32) if v.dtype.name == "bfloat16" else v  # noqa: E731
-                         for k, v in d.items()}
+        cfg, jp, inputs = reference_inputs(arch, overrides, B=B, S=S,
+                                           index_positions=index_positions)
         self.cfg = cfg
-        self.ref = reference_run(arch, shape, names, dict(named_leaves(jp)), f32(inputs[0]),
-                                 workdir / "reference", max_pos=S, lr=lr, prefill=f32(inputs[1]),
+        self.ref = reference_run(arch, shape, names, dict(named_leaves(jp)), as_f32(inputs[0]),
+                                 workdir / "reference", max_pos=S, lr=lr,
+                                 prefill=as_f32(inputs[1]),
                                  pure_dp=pure_dp, overrides=overrides)
         torch_in = [{k: tensor_from_numpy(v) for k, v in d.items()} for d in inputs]
         self.port = run_ranks("step", int(np.prod(shape)), workdir / "port", dict(

@@ -245,7 +245,13 @@ def tp_rounding(n: int):
     each rounded to its dtype, added in f32 and rounded again: how ``n``
     ranks round it (``scatter_seq``, ``psum_model``, ``reduce_model``), on
     one device. It shows how far the unsharded model carries that
-    rounding."""
+    rounding. Where a dim does not divide ``n`` the ranks run the reference's
+    fallback layout, and so does this: the replicated FFN, mixer or head
+    whole; the attention, where the heads do not divide ``n`` and head_dim
+    does, whole in the prefill, and in the decode step (one query) on the
+    head_dim blocks: its f32 partial scores added in f32 in rank order and
+    rounded once, its out-projection as ``n`` partial products over the
+    head_dim block of every head."""
     from repro_torch.models import layers, lm, ssd
 
     def split(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -255,10 +261,41 @@ def tp_rounding(n: int):
         return sum(parts[1:], parts[0]).to(y.dtype)
 
     def out_proj(self, lp, o):
-        B, S = o.shape[:2]
-        return split(o.reshape(B, S, -1), lp["wo"].reshape(-1, self.cfg.d_model))
+        B, S, H, hd = o.shape
+        if H % n == 0:
+            return split(o.reshape(B, S, -1), lp["wo"].reshape(-1, self.cfg.d_model))
+        if S > 1 or hd % n:  # the fallback: the prefill's and a replicated head_dim's whole
+            return real[0](self, lp, o)
+        c, wo = hd // n, lp["wo"]
+        parts = [(o[..., i * c:(i + 1) * c].reshape(B, S, -1)
+                  @ wo[:, i * c:(i + 1) * c].reshape(-1, wo.shape[-1])).float() for i in range(n)]
+        return sum(parts[1:], parts[0]).to(o.dtype)
+
+    class _Summed:
+        """``gqa_attention``'s ``hd_split`` for one device: the partial
+        scores of the head_dim blocks, summed beforehand, stand for the sum
+        over "model"; head_dim is whole (its scale)."""
+        n_model = 1
+
+        def __init__(self, s: torch.Tensor):
+            self.s = s
+
+        def psum_model(self, _):
+            return self.s
+
+    def gqa(q, k, v, *, hd_split=None, **kw):
+        B, Sq, H, hd = q.shape
+        if Sq > 1 or hd_split is not None or H % n == 0 or hd % n:
+            return real[6](q, k, v, hd_split=hd_split, **kw)
+        c, KV = hd // n, k.shape[2]
+        qg = q.reshape(B, Sq, KV, H // KV, hd)
+        parts = [torch.einsum("bqkgd,bskd->bkgqs", qg[..., i * c:(i + 1) * c].float(),
+                              k[..., i * c:(i + 1) * c].float()) for i in range(n)]
+        return real[6](q, k, v, hd_split=_Summed(sum(parts[1:], parts[0])), **kw)
 
     def mlp(x, wi_gate, wi_up, wo):
+        if wo.shape[0] % n:
+            return real[1](x, wi_gate, wi_up, wo)
         h = torch.nn.functional.silu((x @ wi_gate).float()).to(x.dtype) * (x @ wi_up)
         return split(h, wo)
 
@@ -269,29 +306,35 @@ def tp_rounding(n: int):
         return {**p, "wo": torch.eye(d, dtype=p["wo"].dtype, device=p["wo"].device)}
 
     def gelu(x, wi, bi, wo, bo):
+        if wo.shape[0] % n:
+            return real[5](x, wi, bi, wo, bo)
         return split(layers._gelu_tanh(x @ wi + bi).to(x.dtype), wo) + bo
 
     def head(self, params, h, tp=None):
-        if self.cfg.vocab % n == 0:
+        if self.cfg.vocab % n == 0 or self.cfg.d_model % n:
             return real[4](self, params, h, tp)
         w = params["embed"].T if self.cfg.tie_embeddings else params["head"]
         return split(self._final_norm(params, h), w)
 
     real = (lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step,
-            lm.LM._head, lm.gelu_mlp)
+            lm.LM._head, lm.gelu_mlp, lm.gqa_attention)
 
     def mixer(p, x, cfg, tp=None):
+        if cfg.ssm_heads % n:
+            return real[2](p, x, cfg, tp)
         return split(real[2](identity_wo(p), x, cfg, tp), p["wo"])
 
     def step(p, x, conv, state, cfg, tp=None):
+        if cfg.ssm_heads % n:
+            return real[3](p, x, conv, state, cfg, tp)
         y, conv, state = real[3](identity_wo(p), x, conv, state, cfg, tp)
         return split(y, p["wo"]), conv, state
 
-    patched = (out_proj, mlp, mixer, step, head, gelu)
+    patched = (out_proj, mlp, mixer, step, head, gelu, gqa)
 
     def install(fns: tuple) -> None:
         (lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step, lm.LM._head,
-         lm.gelu_mlp) = fns
+         lm.gelu_mlp, lm.gqa_attention) = fns
 
     install(patched)
     try:

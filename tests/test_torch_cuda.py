@@ -243,6 +243,44 @@ def test_flash_kernel_matches_plain(cuda, B, H, Hkv, Sq, Sk, hd, causal, window,
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
 
 
+# the query offset (``q_offset``) of a rank's block of the sequence, S/4 rows
+# at 0, S/4 and 3S/4 of S: qwen2-0.5b's GQA 7 at hd 64 and model=4, gemma3's
+# window at hd 256, the f32 form, and a narrow window on a ragged length
+FLASH_OFFSET_CASES = [
+    pytest.param(4, 14, 2, 2048, 64, True, 0, torch.bfloat16, id="qwen2-model4"),
+    pytest.param(2, 4, 1, 2048, 256, True, 512, torch.bfloat16, id="gemma3-window512"),
+    pytest.param(2, 4, 2, 1024, 128, True, 0, torch.float32, id="f32-hd128"),
+    pytest.param(1, 2, 2, 640, 64, True, 48, torch.bfloat16, id="window48-ragged"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("part", [0, 1, 3], ids=["at0", "atS/4", "at3S/4"])
+@pytest.mark.parametrize("B,H,Hkv,S,hd,causal,window,dtype", FLASH_OFFSET_CASES)
+def test_flash_kernel_with_a_query_offset_matches_plain(cuda, part, B, H, Hkv, S, hd, causal,
+                                                        window, dtype):
+    """A block of S/4 queries at ``q_offset`` = part * S/4 against all S
+    keys: the kernel against its plain version, and both against the whole
+    sequence's rows of the plain version."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(S + hd + part)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(cuda, dtype)
+               for shape in ((B, H, S // 4, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))
+    off = part * S // 4
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=off)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    whole_q = torch.zeros((B, H, S, hd), dtype=dtype, device=cuda)
+    whole_q[:, :, off:off + S // 4] = q
+    whole = flash_attention_ref(whole_q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), whole[:, :, off:off + S // 4].float(), rtol=tol,
+                               atol=tol)
+
+
 @pytest.mark.cuda
 def test_flash_kernel_extreme_logits(cuda):
     """Online rescaling must not overflow with large logits (the reference's

@@ -1,9 +1,10 @@
 """The port's sharding specs against the reference's, leaf for leaf (no
 processes, no devices).
 
-For every arch of ``configs/`` at its published size, on the meshes (1, 1)
-and (2, 2) (data, model), (2, 4, 2) (pod, data, model) and the production
-(16, 16): ``param_specs`` (for training and with ``serve=True``),
+For every arch of ``configs/`` at its published size, on the meshes (1, 1),
+(2, 2), (1, 4) and (1, 8) (data, model; the fallback layouts of qwen2-0.5b
+on model=4, of gemma3-1b and qwen2-vl-7b on model=8), (2, 4, 2) (pod, data,
+model) and the production (16, 16): ``param_specs`` (for training and with ``serve=True``),
 ``adamw_specs``, ``training_state_specs``, ``batch_shardings`` at each of
 the arch's shapes (``shapes_for``), ``cache_specs`` at the decode shapes
 and ``_tok_spec``. The reference computes on a ``jax.sharding.
@@ -36,6 +37,7 @@ from torch.distributed.tensor import Replicate, Shard
 
 ARCHS = sorted(all_archs())
 MESHES = [((1, 1), ("data", "model")), ((2, 2), ("data", "model")),
+          ((1, 4), ("data", "model")), ((1, 8), ("data", "model")),
           ((2, 4, 2), ("pod", "data", "model")), ((16, 16), ("data", "model"))]
 
 

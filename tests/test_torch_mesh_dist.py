@@ -27,8 +27,8 @@ whisper-base, whose batch is sharded over "model" too (pure data-parallel).
   the state before the save.
 - The decode step with the cache sharded over the batch, and the host mesh
   (one rank), against the single-device forms.
-- What the slice refuses raises ``NotImplementedError`` naming the ROADMAP
-  item.
+- What the slice refuses (sequence sharding) raises ``NotImplementedError``
+  naming the ROADMAP item; the fallback layouts build.
 """
 from __future__ import annotations
 
@@ -288,26 +288,29 @@ def test_abstract_mesh_computes_specs_only():
     assert ctx.constrain(tokens, ("data",), None) is tokens
 
 
-@pytest.mark.parametrize("arch,n_model,item", [
-    ("qwen2_vl_7b", 16, "Fallback layouts"),
-    ("qwen2_0_5b", 4, "Fallback layouts"),
-    ("gemma3_1b", 16, "Fallback layouts"),
-    ("qwen2_0_5b", 16, "Fallback layouts"),
+@pytest.mark.parametrize("arch,n_model", [
+    ("qwen2_vl_7b", 16),
+    ("qwen2_0_5b", 4),
+    ("gemma3_1b", 16),
+    ("qwen2_0_5b", 16),
 ], ids=["qwen2_vl_7b-model16", "qwen2_0_5b-model4", "gemma3_1b-model16", "qwen2_0_5b-model16"])
-def test_model_axis_refused_where_the_model_is_not_pure_dp(arch, n_model, item):
-    """What tensor parallelism over "model" does not run yet raises from
-    every step builder, naming its ROADMAP item: the fallback layouts,
-    where the heads do not divide the axis (qwen2-0.5b's 14 heads on
-    model=4 and 16, qwen2-vl-7b's 28 and gemma3-1b's 4 on model=16: the
-    reference shards head_dim). A pure data-parallel model (whisper-base)
-    builds its train and prefill steps; ``constrain`` checks the spec and
-    returns its input."""
+def test_model_axis_refused_where_the_model_is_not_pure_dp(arch, n_model):
+    """Where the heads do not divide "model" (qwen2-0.5b's 14 heads on
+    model=4 and 16, qwen2-vl-7b's 28 and gemma3-1b's 4 on model=16) the
+    reference shards head_dim, and so does the port (the fallback layout):
+    nothing is refused any more, every step builder builds, and a step
+    refuses to run only on a mesh without a process group (an
+    ``AbstractMesh``). A pure data-parallel model (whisper-base) builds its
+    train and prefill steps; ``constrain`` checks the spec and returns its
+    input."""
     ctx = MeshCtx(AbstractMesh((2, n_model), ("data", "model")))
     model = LM(get_arch(arch), device="cpu")
-    assert not model.pure_dp
+    assert not model.pure_dp and model.tp_ctx(ctx) is ctx
     for build in (make_train_step, make_prefill_step, make_serve_step):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP A, \"{item}\""):
-            build(model, ctx)
+        assert callable(build(model, ctx))
+    with pytest.raises(RuntimeError, match="AbstractMesh"):
+        make_prefill_step(model, ctx)({}, make_inputs(model.cfg, ShapeConfig("t", 32, 2, "prefill"),
+                                                      device="cpu"))
     whisper = LM(get_arch("whisper_base"), max_pos=448, device="cpu")
     assert whisper.pure_dp and whisper.n_params() == 83440128
     assert make_train_step(whisper, ctx) and make_prefill_step(whisper, ctx)

@@ -458,13 +458,15 @@ def test_prefill_uses_the_flash_wrapper_once_per_layer(pair, monkeypatch):
     none in mamba2, once per group of zamba2 (its shared block, causal with
     no window), and for whisper once per encoder layer (non-causal over the
     S/2 frames) and twice per decoder layer: causal self-attention, then
-    non-causal cross-attention of the S tokens against the S/2 frames."""
+    non-causal cross-attention of the S tokens against the S/2 frames.
+    On one device every query block starts at position 0 (``q_offset``)."""
     calls = []
     real = flash_ops.flash_attention
 
-    def spy(q, k, v, *, causal=True, window=0):
+    def spy(q, k, v, *, causal=True, window=0, q_offset=0):
+        assert q_offset == 0
         calls.append((causal, window, q.shape[2], k.shape[2]))
-        return real(q, k, v, causal=causal, window=window)
+        return real(q, k, v, causal=causal, window=window, q_offset=q_offset)
 
     monkeypatch.setattr("repro_torch.models.lm.flash_attention", spy)
     pair.torch_prefill()
