@@ -189,7 +189,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    card over gloo on ``make_shared_card_mesh((1, 2))`` (NCCL refuses two
    ranks on one GPU: their times are two ranks time-sharing one card). For
    qwen2-0.5b, olmoe-1b-7b, mamba2-2.7b, zamba2-7b and qwen2-vl-7b at full
-   width and the depth ``TP_SERVE_DEPTHS`` (4, 2, 8, 13, 8: ``reduced:``
+   width and the depth ``TP_SERVE_DEPTHS`` (4, 2, 4, 7, 4: ``reduced:``
    lines), and whisper-base at its published
    context (1500 frames, 448 tokens) twice, as it is (pure data-parallel:
    its prefill data-parallel over both axes, its decode tensor-parallel on
@@ -197,7 +197,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    parallelism forced (weights drawn on the card from the seed, each rank
    keeping its blocks): a warm-up (4 x 256 tokens) and a counted prefill
    of 4 x 2048 tokens (flash counted from 0 on each rank; collectives by
-   kind; olmoe's expert-parallel drops in its first and last layer), 32
+   kind; olmoe's expert-parallel drops in its first and last layer), 16
    sharded decode steps (greedy; qwen2-vl's fed the prefill's embeddings;
    whisper's with its cross K/V filled from the encoder) against a
    2048-long cache (whisper's 448); on rank 0 both against the unsharded ones on the card,
@@ -228,10 +228,32 @@ Phases, each of which fails the run (non-zero exit) on any error:
    on ``make_shared_card_mesh((1, 4))``, phase 9's steps for qwen2-0.5b at
    full width and depth, whose 14 heads do not divide model=4 (head_dim
    sharded; ``TP_PHASES[10]``): the prefill (24 flash launches a rank, each
-   at its offset), 32 decode steps on the head_dim-sharded cache, both
+   at its offset), 16 decode steps on the head_dim-sharded cache, both
    equal bit for bit to the unsharded run under ``tp_rounding(4)``, a train
    step at 4 layers, the f32 1-layer held step on 512 tokens a row, and the
    2-layer bf16 and f32 checks.
+11. sequence sharding for serving (the reference's ``long_500k`` layout,
+   B = 1, which does not fill the batch axes): the flash kernel held and
+   timed at gemma3-1b's two sequence ranks' blocks, 16384 queries at
+   offsets 0 and 16384 against 32768 keys, window 512 and none
+   (``SEQ_FLASH_CASES``; device time alone; SDPA with an explicit mask),
+   then two processes sharing the card on ``make_shared_card_mesh((2,
+   1))`` (``--tp-phase 11``; rank 1's output in
+   ``chiprun_out/chip_smoke/tp_ranks_11/``): gemma3-1b (26 layers),
+   mamba2-2.7b (64) and zamba2-7b (13 of 81: a ``reduced:`` line) at full
+   width, a sequence-sharded prefill of 1 x 32768 tokens (each rank's half;
+   flash counted, collectives by kind) equal bit for bit to the unsharded
+   prefill on rank 0, and 8 greedy decode steps against a 524288-long cache
+   drawn for the positions before 524272 (its K/V half on each rank: 6.98
+   GB for gemma3, 7.52 GB for zamba2), equal bit for bit to the unsharded
+   decode summed as the ranks sum (``tp_rounding(1, seq=2)``) and held to
+   the plain one as phase 9 holds it; the same at 2 layers (zamba2 at 7)
+   across the ranks' seam in bf16, and in f32 (its cache and score chain
+   too) as phase 9's f32 witness, the prefill held where one f32 ulp on
+   every RMS norm moves it less than the tolerance (no twin models the f32
+   products on a rank's rows; zamba2's 7 layers are ill-conditioned there:
+   printed). Phases 9-11 run one driver
+   (``tp_serve``, ``tp_shallow``), each with its shapes from ``TP_PHASES``.
 
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
@@ -543,6 +565,15 @@ FLASH_CASES = (
     ("qwen2-vl path", PREFILL_B, 28, 4, PREFILL_S, PREFILL_S, 128, True, 0, torch.bfloat16, 1.0),
 )
 FLASH_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+# a bf16 block of queries at an offset: every row within this many bf16 ulps
+# of the row's largest |output| (``_torch_moe_criteria.row_ulps``). At a
+# rank's block of 16384 rows against 32768 keys the outputs are ~0.011
+# (largest ~0.06), so FLASH_TOL's 2e-2 would pass a kernel wrong by that
+# much on every row; the kernel and its plain version each round the f32
+# output to bf16 once, 1 ulp apart at most, and the kernel's bf16 P moves the
+# sum by far less. ``hold_flash_offset`` also shows that the limit catches
+# a kernel whose offset is one key tile off, or that drops the first tile
+FLASH_ROW_ULPS = 4
 # a rank's block of S/4 queries at ``q_offset`` 0, S/4 and 3S/4 against all S
 # keys (the fallback layout's attention): gemma3-1b's local layers (window
 # 512, the form its model=8 and 16 ranks take) and global ones, and the f32
@@ -581,7 +612,8 @@ def _causal_pairs(Sq: int, Sk: int, window: int = 0, causal: bool = True,
 def check_flash(rng: np.random.Generator, card: str) -> dict:
     """The flash-attention kernel against its plain version on the cases
     above (tolerance 2e-2 in bf16: one bf16 rounding of outputs near 1;
-    1e-4 in f32: sums in another order), then timed at the path shapes
+    1e-4 in f32: sums in another order; the offset cases as
+    ``hold_flash_offset`` holds them), then timed at the path shapes
     (qwen2-0.5b's hd 64, olmoe-1b-7b's hd 128, whisper-base's encoder,
     decoder and cross-attention, qwen2-vl-7b's GQA 7 at hd 128, zamba2-7b's
     hd 112) and
@@ -613,19 +645,8 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
                    for shape in ((B, H, S // 4, hd), (B, Hkv, S, hd), (B, Hkv, S, hd)))
         for part in (0, 1, 3):  # the block of S/4 queries at 0, S/4 and 3S/4
-            off = part * S // 4
-            got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
-            torch.cuda.synchronize()
-            want = flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=off)
-            err = float((got.float() - want.float()).abs().max())
-            tol = FLASH_TOL[dtype]
-            if not err <= tol or not torch.isfinite(got).all():
-                raise AssertionError(f"flash_attention {label} q_offset={off}: max |err| {err} "
-                                     f"> {tol}")
-            log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} "
-                f"{str(dtype).removeprefix('torch.')} causal={causal} window={window} "
-                f"q_offset={off}: max |err| {err:.3e} (tolerance {tol})")
-        del q, k, v, got, want
+            hold_flash_offset(label, q, k, v, causal, window, part * S // 4)
+        del q, k, v
 
     for case in FLASH_CASES:
         if case[0].endswith(PATH_LABELS) and case[0] != "zamba2 path":
@@ -637,6 +658,57 @@ def check_flash(rng: np.random.Generator, card: str) -> dict:
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:67",
             "max_abs_err": worst, **entry}
+
+
+def hold_flash_offset(label: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool, window: int, off: int) -> float:
+    """The kernel at ``q_offset`` ``off`` against its plain version: in bf16
+    every row within FLASH_ROW_ULPS bf16 ulps of its largest |output|, in
+    f32 within FLASH_TOL. In bf16 the same limit must then fail the kernel
+    run one key tile (64 keys at hd 256, else 128) off: at an offset one
+    tile lower (higher at 0), and, where the offset is past the first tile
+    and there is no window, with the first tile's keys dropped. Returns the
+    max |err|."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from _torch_moe_criteria import row_ulps
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    def kernel(q_off: int, skip: int = 0) -> torch.Tensor:
+        out = fa.flash_attention(q, k[:, :, skip:].contiguous(), v[:, :, skip:].contiguous(),
+                                 causal=causal, window=window, q_offset=q_off)
+        torch.cuda.synchronize()
+        return out
+
+    got = kernel(off)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=off)
+    err = float((got.float() - want.float()).abs().max())
+    what = (f"flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"{str(q.dtype).removeprefix('torch.')} causal={causal} window={window} q_offset={off}")
+    if q.dtype == torch.float32:
+        if not err <= FLASH_TOL[q.dtype] or not torch.isfinite(got).all():
+            raise AssertionError(f"{what}: max |err| {err} > {FLASH_TOL[q.dtype]}")
+        log(f"kernels: {what}: max |err| {err:.3e} (tolerance {FLASH_TOL[q.dtype]})")
+        return err
+    ulps = row_ulps(got, want)
+    if not ulps <= FLASH_ROW_ULPS:
+        raise AssertionError(f"{what}: a row {ulps} bf16 ulps of its largest |output| off "
+                             f"(max |err| {err}), more than {FLASH_ROW_ULPS}")
+    tile = 64 if q.shape[-1] > 128 else 128
+    wrong = {f"offset {tile} keys off": kernel(off - tile if off >= tile else off + tile)}
+    if off >= tile and not window:
+        wrong[f"its first {tile} keys dropped"] = kernel(off - tile, tile)
+    reach = {name: row_ulps(out, want) for name, out in wrong.items()}
+    missed = [name for name, r in reach.items() if not r > FLASH_ROW_ULPS]
+    if missed:
+        raise AssertionError(f"{what}: the limit of {FLASH_ROW_ULPS} ulps a row passes the kernel "
+                             f"run with {missed} ({reach})")
+    log(f"kernels: {what}: max |err| {err:.3e} (largest |output| "
+        f"{float(want.float().abs().max()):.3e}), the worst row {ulps:.3f} bf16 ulps of its "
+        f"largest |output| (limit {FLASH_ROW_ULPS}); the kernel run with "
+        + ", ".join(f"{name}: {r:.1f} ulps" for name, r in reach.items()) + " (missed the limit)")
+    return err
 
 
 def time_flash(case: tuple, rng: np.random.Generator, card: str) -> dict:
@@ -2082,11 +2154,14 @@ def held_against_jitter(tag: str, card: tuple, cpu: tuple, jit: tuple,
 # whisper-base (encoder-decoder: audio frames in, cross-attention) and
 # qwen2-vl-7b (VLM: patch embeddings in, M-RoPE) at full width and depth
 EMBED_MODELS = ("whisper_base", "qwen2_vl_7b")
-# card vs CPU at full width, SMALL_B x SMALL_S: 2 layers (2 + 2 for whisper).
-# Logits within CHECK_LOGIT_ULPS bf16 ulps of the CPU's largest |logit| and
-# greedy tokens at SMALL_ARGMAX_SHARE of all positions, each held where the
-# CPU meets it against itself with every attention output moved one ulp
-# (``attention_jitter``); else printed, and the same check held in f32
+# card vs CPU at full width, SMALL_B x SMALL_S, in f32: 2 layers (2 + 2 for
+# whisper). Logits within CHECK_LOGIT_ULPS bf16 ulps of the CPU's largest
+# |logit| and greedy tokens at SMALL_ARGMAX_SHARE of all positions, each held
+# where the CPU meets it against itself with every attention output moved
+# one ulp (``attention_jitter``). Their bf16 checks were printed, never held,
+# from random weights (a whole run on an H100: whisper's greedy tokens agreed
+# at 0.7324, the CPU with itself jittered at 0.5762; qwen2-vl's at 0.9238 and
+# 0.8613), and took ~25 s of the script's 900 s: cut (a reduced: line)
 EMBED_CHECK_LAYERS = 2
 
 
@@ -2331,9 +2406,9 @@ def _embed_run(cfg, weights, batch: dict, where: str) -> tuple:
     return last.cpu(), greedy.cpu(), torch.stack(steps)
 
 
-def embed_card_vs_cpu(seed: int, arch: str, dtype: str = "bfloat16") -> bool:
+def embed_card_vs_cpu(seed: int, arch: str) -> bool:
     """``arch`` at full width and EMBED_CHECK_LAYERS layers (whisper: as many
-    encoder layers) in ``dtype`` on the card and on the CPU from the same
+    encoder layers) in f32 on the card and on the CPU from the same
     weights (one draw of one seeded CPU generator) and ``make_inputs`` of a
     SMALL_B x SMALL_S prefill, and on the CPU once more under
     ``attention_jitter``: the criteria above, each held where the jittered
@@ -2345,7 +2420,7 @@ def embed_card_vs_cpu(seed: int, arch: str, dtype: str = "bfloat16") -> bool:
     from repro_torch.models.registry import build_model
 
     full = get_arch(arch)
-    cfg = dataclasses.replace(full, n_layers=EMBED_CHECK_LAYERS, dtype=dtype,
+    cfg = dataclasses.replace(full, n_layers=EMBED_CHECK_LAYERS, dtype="float32",
                               encoder_layers=min(full.encoder_layers, EMBED_CHECK_LAYERS))
     batch = _embed_inputs(cfg, SMALL_B, SMALL_S, seed + 4, "cpu")
     weights = build_model(cfg, max_pos=SMALL_S, device="cpu").init_params(
@@ -2360,7 +2435,7 @@ def embed_card_vs_cpu(seed: int, arch: str, dtype: str = "bfloat16") -> bool:
     tag = (f"{'whisper' if cfg.family == 'encdec' else 'qwen2-vl'} card vs CPU: {cfg.name} full "
            f"width, {cfg.n_layers} layers"
            + (f" + {cfg.encoder_layers} encoder layers" if cfg.family == "encdec" else "")
-           + f", {dtype}")
+           + ", float32")
     return held_against_jitter(tag, card, cpu, jit)
 
 
@@ -3547,7 +3622,9 @@ TP_ARCHS = ("qwen2_0_5b", "olmoe_1b_7b", "mamba2_2_7b", "zamba2_7b", "qwen2_vl_7
             "whisper_base")
 # two timed train steps after the warm-up: with three, the steps took ~100 s
 # of phase 9
-TP_DECODE_STEPS, TP_TRAIN_STEPS, TP_CACHE = 32, 2, 2048
+# 16 decode steps (32 before phase 11 came, cut for the script's 900 s:
+# a reduced: line)
+TP_DECODE_STEPS, TP_TRAIN_STEPS, TP_CACHE = 16, 2, 2048
 # the serving warm-up's prefill: PREFILL_B x this many tokens (whisper's
 # whole batch), which loads every kernel and collective the counted
 # prefill runs; the whole prefill took zamba2 23.5 s over gloo
@@ -3555,17 +3632,17 @@ TP_WARMUP_S = 256
 # serving depth on the two ranks where it is cut (a reduced: line each): PR
 # 22's three archs, served there at full depth, so that the script with this
 # phase's other families meets its time (the depth's cost is linear)
-TP_SERVE_DEPTHS = {"qwen2_0_5b": 4, "olmoe_1b_7b": 2, "mamba2_2_7b": 8, "zamba2_7b": 13,
-                   "qwen2_vl_7b": 8}
+TP_SERVE_DEPTHS = {"qwen2_0_5b": 4, "olmoe_1b_7b": 2, "mamba2_2_7b": 4, "zamba2_7b": 7,
+                   "qwen2_vl_7b": 4}
 _SHALLOW_CUT = ("the script's 1200 s: these three were at full depth in the slice that ported them")
 TP_SERVE_CUTS = {
     "qwen2_0_5b": _SHALLOW_CUT, "olmoe_1b_7b": _SHALLOW_CUT, "mamba2_2_7b": _SHALLOW_CUT,
-    # two groups of six Mamba2 layers, each with the shared block, and a
-    # trailing layer: at 81 layers its serving took ~60 s of phase 9
-    "zamba2_7b": "the script's 900 s with phase 10: at full depth (81 layers) its sharded "
-                 "prefill took 30.0 s and 32 decode steps ~22 s; at these 13, 3.6 and 4.5 s",
-    "qwen2_vl_7b": "the script's 900 s with phase 10: at full depth (28 layers) its sharded "
-                   "prefill took 14.8 s and 32 decode steps 12.8 s",
+    # one group of six Mamba2 layers with the shared block, and a trailing
+    # layer: at 81 layers its serving took ~60 s of phase 9
+    "zamba2_7b": "the script's 900 s with phases 10 and 11: at full depth (81 layers) its "
+                 "sharded prefill took 30.0 s and 32 decode steps ~22 s; at 13, 3.6 and 4.5 s",
+    "qwen2_vl_7b": "the script's 900 s with phases 10 and 11: at full depth (28 layers) its "
+                   "sharded prefill took 14.8 s and 32 decode steps 12.8 s",
 }
 # training depth on the two ranks, and why it is cut (a reduced: line each).
 # Memory would allow olmoe 5 layers (34.0 GB a rank, 38.6 reserved) and
@@ -3666,22 +3743,126 @@ FB_EXACT = {"qwen2_0_5b": ("prefill", "decode")}
 # unsharded step and its two nudged twins too (``mesh_hold``), and four f32
 # (4, 2048, 151936) logits ran the card out of memory
 FB_HOLD_TOKENS = 512
-# each phase's mesh, archs, depths, flash shapes and exactness
+
+
+# ---------------------------------------------------------------- phase 11
+# sequence sharding for serving: the reference's ``long_500k`` layout (B = 1,
+# which does not fill the batch axes, so the sequence is sharded over them:
+# ``token_spec``, ``cache_specs``), run by the sub-quadratic archs that its
+# ``launch/dryrun.py`` runs that shape for. Two processes share the card over
+# gloo on (data=2, model=1): each holds one half of the sequence, gathers the
+# keys of the other for every attention layer, and relays the SSM state
+# from rank 0 to rank 1 for every Mamba2 layer. A rank's prefill attends its
+# 16384 queries at its offset (flash's ``q_offset``) against all 32768 keys:
+# gemma3-1b's hd 256 with GQA 4:1, its local layers' 512-key window and its
+# global layers' none, held and timed here at both offsets
+SEQ_MESH = (2, 1)
+SEQ_ARCHS = ("gemma3_1b", "mamba2_2_7b", "zamba2_7b")
+SEQ_S, SEQ_CACHE, SEQ_STEPS = 32768, 524288, 8  # the prefill; long_500k's cache
+SEQ_WARMUP_S = 2048  # the warm-up prefill's tokens (16 Mamba2 chunks a rank)
+# serving depth where cut (a reduced: line each)
+SEQ_DEPTHS = {"zamba2_7b": 13}
+SEQ_CUTS = {"zamba2_7b": "one card's 80 GB: its 524288-long cache is 97.7 GB at 81 layers (27 "
+                         "shared-block groups) and 15.03 GB at 13 (two groups of six Mamba2 layers, "
+                         "each with the shared block, and a trailing layer), as in phase 9"}
+# the 2-layer checks (zamba2 at 7: one group and the shared block, and a
+# trailing layer): prefill 1 x SEQ_SHALLOW_S, SEQ_SHALLOW_STEPS decode steps
+# against a SEQ_SHALLOW_CACHE-long cache from two positions before the
+# ranks' seam, bf16 and f32 (its K/V cache and score chain in f32 too)
+SEQ_SHALLOW_LAYERS = {"gemma3_1b": 2, "mamba2_2_7b": 2, "zamba2_7b": 7}
+SEQ_SHALLOW_S, SEQ_SHALLOW_CACHE, SEQ_SHALLOW_STEPS = 4096, 8192, 4
+SEQ_FLASH_CASES = tuple(
+    (f"gemma3 sequence rank {r} {'window 512' if w else 'global'} (q_offset {r * SEQ_S // 2})",
+     1, 4, 1, SEQ_S // 2, SEQ_S, 256, True, w, torch.bfloat16, 1.0, r * SEQ_S // 2)
+    for w in (512, 0) for r in range(SEQ_MESH[0]))
+
+# each phase of ranks sharing the card: its mesh, archs, depths (where cut,
+# with the reason), flash shapes, what its serving equals bit for bit, and
+# its serving's shapes (``tp_serve``, ``tp_shallow``): B rows of S tokens, a
+# warm-up prefill of warmup_s tokens, ``steps`` decode steps from position
+# ``first`` against a cache_len-long cache (whisper's WHISPER_TOKENS), drawn
+# before ``first`` where ``drawn`` (``_seq_cache``), else from zero, the
+# serve step warmed up on one warm[0] long at warm[1]. ``offsets`` names
+# the two flash cases whose device times its summary line compares, and why;
+# ``staged`` what crosses gloo through host memory
+TP_SERVE = dict(B=PREFILL_B, S=PREFILL_S, warmup_s=TP_WARMUP_S, steps=TP_DECODE_STEPS,
+                cache_len=TP_CACHE, first=0, warm=(TP_CACHE, 0), drawn=False)
+TP_SHALLOW = dict(TP_SERVE, steps=TP_SHALLOW_STEPS)
+_TP_DECODE_CUT = "32 -> 16 (the script's 900 s with phase 11)"
 TP_PHASES = {
     9: dict(mesh=TP_MESH, archs=TP_ARCHS, serve_depths=TP_SERVE_DEPTHS, serve_cuts=TP_SERVE_CUTS,
             train_depths=TP_TRAIN_DEPTHS, train_cuts=TP_TRAIN_CUTS, train_steps=TP_TRAIN_STEPS,
-            flash=TP_FLASH_CASES, exact=TP_EXACT, hold_tokens=TRAIN_S),
+            flash=TP_FLASH_CASES, exact=TP_EXACT, hold_tokens=TRAIN_S, serve=TP_SERVE,
+            decode_cut=_TP_DECODE_CUT, shallow=TP_SHALLOW, shallow_depths={}, offsets=None,
+            staged="nothing"),
     10: dict(mesh=FB_MESH, archs=FB_ARCHS, serve_depths={}, serve_cuts={},
              train_depths=FB_TRAIN_DEPTHS, train_cuts=FB_TRAIN_CUTS, train_steps=1,
-             flash=FB_FLASH_CASES, exact=FB_EXACT, hold_tokens=FB_HOLD_TOKENS),
+             flash=FB_FLASH_CASES, exact=FB_EXACT, hold_tokens=FB_HOLD_TOKENS, serve=TP_SERVE,
+             decode_cut=_TP_DECODE_CUT, shallow=TP_SHALLOW, shallow_depths={},
+             offsets=(0, 3, "the causal load imbalance: its rows reach 4x the keys"),
+             staged="nothing"),
+    11: dict(mesh=SEQ_MESH, archs=SEQ_ARCHS, serve_depths=SEQ_DEPTHS, serve_cuts=SEQ_CUTS,
+             train_depths={}, flash=SEQ_FLASH_CASES,
+             exact={a: ("prefill", "decode") for a in SEQ_ARCHS},
+             serve=dict(B=1, S=SEQ_S, warmup_s=SEQ_WARMUP_S, steps=SEQ_STEPS, cache_len=SEQ_CACHE,
+                        first=SEQ_CACHE - 2 * SEQ_STEPS, warm=(2 * SEQ_WARMUP_S, SEQ_WARMUP_S - 1),
+                        drawn=True),
+             decode_cut=None,
+             shallow=dict(B=1, S=SEQ_SHALLOW_S, steps=SEQ_SHALLOW_STEPS,
+                          cache_len=SEQ_SHALLOW_CACHE, first=SEQ_SHALLOW_CACHE // 2 - 2,
+                          drawn=True),
+             shallow_depths=SEQ_SHALLOW_LAYERS,
+             offsets=(2, 3, "the global layers: rank 1's rows reach 3x the causal pairs"),
+             staged="the relays' states (gloo's send and receive)"),
 }
+
+
+def _seq_cache(model, B: int, length: int, first: int, seed: int, cross: dict | None,
+               ctx=None, f32: tuple = ()) -> dict:
+    """A one-row (``B`` = 1, no ``cross``) decode cache ``length`` long: K/V
+    drawn from ``seed`` at the positions before ``first`` (zeros from it),
+    each of the SEQ_MESH[0] sequence blocks from a generator of its own,
+    layer by layer, so that the whole cache is its blocks' concatenation;
+    the conv and SSM caches (replicated over the batch axes) drawn, times
+    0.1. With ``ctx``, this rank's blocks as DTensors laid out as
+    ``cache_specs``; else the whole cache. The entries named in ``f32`` in
+    f32 (the same values)."""
+    from torch.distributed.tensor import DTensor
+
+    assert B == 1 and cross is None
+    n = SEQ_MESH[0]
+    out = {}
+    for j, (name, (shape, dtype)) in enumerate(sorted(model.cache_template(1, length).items())):
+        dtype = torch.float32 if name in f32 else dtype
+        if name in ("k", "v"):
+            block = length // n
+            ranks = [ctx.seq_rank] if ctx is not None else range(n)
+            val = torch.zeros((shape[0], 1, block * len(ranks), *shape[3:]), device="cuda",
+                              dtype=dtype)
+            for i, r in enumerate(ranks):
+                g = torch.Generator(device="cuda").manual_seed(seed * 7919 + 16 * r + j)
+                for layer in range(shape[0]):
+                    val[layer, :, i * block:(i + 1) * block] = torch.randn(
+                        (1, block, *shape[3:]), generator=g, device="cuda", dtype=torch.bfloat16)
+                start = r * block
+                if first < start + block:
+                    val[:, :, i * block + max(first - start, 0):(i + 1) * block] = 0
+        else:
+            g = torch.Generator(device="cuda").manual_seed(seed * 7919 + 1000 + j)
+            val = (torch.randn(shape, generator=g, device="cuda") * 0.1).to(dtype)
+        out[name] = val
+    if ctx is None:
+        return out
+    specs = model.cache_specs(1, length, ctx)
+    return {k: DTensor.from_local(v, ctx.device_mesh(), specs[k].placements, run_check=False)
+            for k, v in out.items()}
 
 
 def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict,
              phase: int = 9) -> dict:
-    """Phase 9 (or 10, ``TP_PHASES``): the flash kernel against its plain
-    version at one rank's shapes (at its query offset where it has one),
-    and timed there; then the ranks (this script with ``--tp-rank``), which
+    """Phase 9, 10 or 11 (``TP_PHASES``): the flash kernel against its plain
+    version at one rank's shapes (at its query offset where it has one,
+    ``hold_flash_offset``), and timed there; then the ranks (this script with ``--tp-rank``), which
     meet through a ``file://`` rendezvous in a fresh directory. A rank that
     fails, or outlasts TP_RANK_TIMEOUT, ends the others and fails the run;
     the other ranks' output is printed where it fails. Adds each rank's
@@ -3699,25 +3880,30 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict,
         off = offset[0] if offset else 0
         q, k, v = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to("cuda", dtype)
                    for s in ((B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
-        got = fa.flash_attention(q, k, v, causal=causal, window=window, q_offset=off)
-        want = flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=off)
-        err = float((got.float() - want.float()).abs().max())
-        if not err <= FLASH_TOL[dtype] or not torch.isfinite(got).all():
-            raise AssertionError(f"flash_attention {label}: max |err| {err} > {FLASH_TOL[dtype]}")
-        log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} bf16 "
-            f"{'causal' if causal else 'non-causal'} q_offset={off}: max |err| {err:.3e} "
-            f"(tolerance {FLASH_TOL[dtype]})")
+        if offset:
+            err = hold_flash_offset(label, q, k, v, causal, window, off)
+        else:
+            got = fa.flash_attention(q, k, v, causal=causal, window=window)
+            want = flash_attention_ref(q, k, v, causal=causal, window=window)
+            err = float((got.float() - want.float()).abs().max())
+            if not err <= FLASH_TOL[dtype] or not torch.isfinite(got).all():
+                raise AssertionError(f"flash_attention {label}: max |err| {err} > "
+                                     f"{FLASH_TOL[dtype]}")
+            log(f"kernels: flash_attention {label} q{tuple(q.shape)} k{tuple(k.shape)} bf16 "
+                f"{'causal' if causal else 'non-causal'}: max |err| {err:.3e} "
+                f"(tolerance {FLASH_TOL[dtype]})")
+            del got, want
         worst["flash_attention"] = max(worst.get("flash_attention", 0.0), err)
-        del q, k, v, got, want
+        del q, k, v
         timed = time_flash(case, rng, card)
         if offset:
             offset_ms.append(timed["device_ms"])
-    if offset_ms:
-        log(f"kernels: flash_attention at the {len(offset_ms)} ranks' offsets on "
-            f"model={ph['mesh'][-1]}, device time alone: "
-            f"{', '.join(f'{ms:.4f}' for ms in offset_ms)} ms; the last rank's "
-            f"{offset_ms[-1] / offset_ms[0]:.3f}x the first's (the causal load imbalance: "
-            f"its rows reach {len(offset_ms)}x the keys) ({card})")
+    if ph["offsets"]:
+        a, b, why = ph["offsets"]
+        log(f"kernels: flash_attention at the ranks' query offsets, device time alone: "
+            + "; ".join(f"{case[0]} {ms:.4f} ms" for case, ms in zip(ph["flash"], offset_ms))
+            + f"; {ph['flash'][b][0]}'s {offset_ms[b] / offset_ms[a]:.3f}x "
+            f"{ph['flash'][a][0]}'s ({why}) ({card})")
     torch.cuda.empty_cache()
 
     work = (out_dir / f"tp_ranks_{phase}").resolve()  # a file:// rendezvous needs a whole path
@@ -3760,7 +3946,8 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict,
             + f" bytes; rank 0's collectives by kind: the prefill {r0['counts']['prefill']}, a "
             f"decode step {r0['counts']['decode']}"
             + (f", a train step {r0['train_counts']}" if "train_counts" in r0 else "")
-            + f", none staged through host buffers; prefill {r0['prefill_tokens_per_s']:.1f}, "
+            + f", staged through host memory: {ph['staged']}"
+            + f"; prefill {r0['prefill_tokens_per_s']:.1f}, "
             f"decode {r0['decode_tokens_per_s']:.1f}"
             + (f", train {r0['train_tokens_per_s']:.1f}" if "train_tokens_per_s" in r0 else "")
             + f" tokens/s on {world} ranks sharing the card ({card})")
@@ -3775,11 +3962,12 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict,
 
 
 def tp_rank_main(rank: int, work: Path, seed: int, phase: int = 9) -> int:
-    """One rank of phase 9 (or 10): the gloo group, ``make_shared_card_mesh``,
+    """One rank of phase 9, 10 or 11: the gloo group, ``make_shared_card_mesh``,
     then each arch's serving (``tp_serve``; for whisper-base first its own
     serve step, the pure data-parallel model, then the model with tensor
-    parallelism forced) and training (``tp_train``) and the shallow checks
-    (``tp_shallow``); the results to ``work/rank<r>.json``. Rank 0 also runs
+    parallelism forced), training where the phase trains it (``tp_train``)
+    and the shallow checks (``tp_shallow``); the results to
+    ``work/rank<r>.json``. Rank 0 also runs
     the unsharded counterparts on the card (the other ranks wait in their
     next collective)."""
     import torch.distributed as dist
@@ -3799,15 +3987,22 @@ def tp_rank_main(rank: int, work: Path, seed: int, phase: int = 9) -> int:
         t0 = time.perf_counter()
         ctx = MeshCtx(make_shared_card_mesh(ph["mesh"]))
         log(f"tp: {ctx.shape} over a {dist.get_backend()} group of {world} processes on one card "
-            f"(CUDA tensors straight through gloo, nothing staged), rank {rank} ({card})")
+            f"(CUDA tensors straight through gloo's collectives; staged through host memory: "
+            f"{ph['staged']}), rank {rank} ({card})")
         out = {}
         for arch in ph["archs"]:
             if arch == "whisper_base":
                 out[WHISPER_SERVE_STEP] = tp_serve(ctx, arch, seed, card, rank, ph, pure_dp=True)
-            out[arch] = {**tp_serve(ctx, arch, seed, card, rank, ph),
-                         **tp_train(ctx, arch, seed, card, rank, ph)}
+            t1 = time.perf_counter()
+            served = tp_serve(ctx, arch, seed, card, rank, ph)
+            t2 = time.perf_counter()
+            out[arch] = {**served, **(tp_train(ctx, arch, seed, card, rank, ph)
+                                      if arch in ph["train_depths"] else {})}
+            t3 = time.perf_counter()
             tp_shallow(ctx, arch, seed, card, rank, ph)
-            log(f"tp {arch}: {time.perf_counter() - t0:.3f} s into the ranks' work ({card})")
+            log(f"tp {arch}: {time.perf_counter() - t0:.3f} s into the ranks' work (serving "
+                f"{t2 - t1:.3f} s, training {t3 - t2:.3f} s, the shallow checks "
+                f"{time.perf_counter() - t3:.3f} s) ({card})")
         (work / f"rank{rank}.json").write_text(json.dumps(out))
     finally:
         dist.destroy_process_group()
@@ -3930,23 +4125,22 @@ def tp_decode_judge(tag: str, seen: list, want: list, jit: list, routes: tuple |
                     differ(jit, jkept), 1 - SMALL_ARGMAX_SHARE) and held
 
 
-def _tp_inputs(model, params: dict, seed: int) -> tuple[dict, dict | None]:
-    """The PREFILL_B-row prefill batch of ``model``'s family: PREFILL_S
-    tokens uniform over the vocab from ``default_rng(seed)``; the VLM's
-    PREFILL_S embeddings and M-RoPE positions (``_embed_inputs``); whisper's
-    WHISPER_FRAMES audio frames and WHISPER_TOKENS tokens
-    (``whisper_inputs``). For whisper also its decode cache's cross K/V of
-    those frames, from the encoder over the whole ``params`` (``cross_kv``),
-    else None."""
+def _tp_inputs(model, params: dict, seed: int, B: int, S: int) -> tuple[dict, dict | None]:
+    """The B-row prefill batch of ``model``'s family: S tokens uniform over
+    the vocab from ``default_rng(seed)``; the VLM's S embeddings and M-RoPE
+    positions (``_embed_inputs``); whisper's WHISPER_FRAMES audio frames and
+    WHISPER_TOKENS tokens (``whisper_inputs``). For whisper also its decode
+    cache's cross K/V of those frames, from the encoder over the whole
+    ``params`` (``cross_kv``), else None."""
     cfg = model.cfg
     if cfg.family == "encdec":
-        batch = whisper_inputs(PREFILL_B, seed, "cuda")
+        batch = whisper_inputs(B, seed, "cuda")
         xk, xv = _encdec().cross_kv(model, params, batch["audio_embeds"])
         return batch, {"xk": xk, "xv": xv}
     if cfg.embeddings_input:
-        return _embed_inputs(cfg, PREFILL_B, PREFILL_S, seed, "cuda"), None
+        return _embed_inputs(cfg, B, S, seed, "cuda"), None
     return {"tokens": torch.from_numpy(np.random.default_rng(seed).integers(
-        0, cfg.vocab, (PREFILL_B, PREFILL_S), dtype=np.int32)).to("cuda")}, None
+        0, cfg.vocab, (B, S), dtype=np.int32)).to("cuda")}, None
 
 
 def _tp_prefix(batch: dict, n: int) -> dict:
@@ -3955,17 +4149,20 @@ def _tp_prefix(batch: dict, n: int) -> dict:
     return {k: v[..., :n] if k != "embeds" else v[:, :n] for k, v in batch.items()}
 
 
-def _tp_cache(model, cache_len: int, cross: dict | None, ctx=None, f32: tuple = ()):
-    """A decode cache of PREFILL_B rows from zero, whisper's cross K/V
-    ``cross`` copied in, the entries named in ``f32`` kept in f32 (the
-    reference's cache is bf16 whatever the model's dtype), laid out as
-    ``cache_specs`` on ``ctx``'s mesh where given."""
+def _tp_cache(model, B: int, cache_len: int, first: int, seed: int, cross: dict | None,
+              ctx=None, f32: tuple = ()):
+    """A decode cache of B rows from zero (``first`` is 0; ``seed`` unused:
+    ``_seq_cache``'s signature), whisper's cross K/V ``cross`` copied in,
+    the entries named in ``f32`` kept in f32 (the reference's cache is bf16
+    whatever the model's dtype), laid out as ``cache_specs`` on ``ctx``'s
+    mesh where given."""
     from repro_torch.train.elastic import reshard_state
 
-    c = model.init_cache(PREFILL_B, cache_len)
+    assert first == 0
+    c = model.init_cache(B, cache_len)
     c.update({k: v.clone() for k, v in (cross or {}).items()})
     c.update({k: c[k].float() for k in f32 if k in c})
-    return c if ctx is None else reshard_state(c, model.cache_specs(PREFILL_B, cache_len, ctx))
+    return c if ctx is None else reshard_state(c, model.cache_specs(B, cache_len, ctx))
 
 
 @contextlib.contextmanager
@@ -3989,28 +4186,35 @@ def f32_scores():
 def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, ph: dict,
              pure_dp: bool = False) -> dict:
     """``arch`` at full width, at its depth (the phase's ``serve_depths``
-    (``TP_PHASES``), a ``reduced:`` line where cut; weights drawn on the card from ``seed``, the same on
-    both ranks, each keeping its blocks; whisper's final norms drawn), as a
-    model that is not pure data-parallel, or with ``pure_dp`` as whisper-base
-    is: a warm-up and a counted sharded prefill of PREFILL_B rows
-    (``_tp_inputs``: flash counted from 0; collectives by kind; for the MoE
-    family each rank's drops in its first and last layer), then
-    TP_DECODE_STEPS sharded decode steps against a cache from zero
-    (TP_CACHE long, whisper's WHISPER_TOKENS with its cross K/V filled):
-    greedy, but the VLM's, fed the prefill's embeddings. Rank 0 holds them
+    (``TP_PHASES``), a ``reduced:`` line where cut; weights drawn on the
+    card from ``seed``, the same on every rank, each keeping its blocks;
+    whisper's final norms drawn), as a model that is not pure
+    data-parallel, or with ``pure_dp`` as whisper-base is. With the phase's
+    ``serve`` shapes: a warm-up and a counted sharded prefill of B rows
+    (``_tp_inputs``; sequence-sharded where B does not fill the batch axes;
+    flash counted from 0; collectives by kind; for the MoE family each
+    rank's drops in its first and last layer), then ``steps`` sharded
+    decode steps from position ``first`` against a cache (``_seq_cache``
+    where ``drawn``, else ``_tp_cache``; whisper's WHISPER_TOKENS long with
+    its cross K/V filled): greedy, but the VLM's, fed the prefill's
+    embeddings; each rank's peak memory of that run. Rank 0 holds them
     against the unsharded prefill and decode (teacher-forced on the sharded
-    tokens) on the card: the logits within CHECK_LOGIT_ULPS bf16 ulps of the
-    largest |logit|, the decode's greedy tokens at SMALL_ARGMAX_SHARE of all
-    positions, each held by ``tp_judge`` (and equal to the unsharded run
-    under ``tp_rounding`` where the phase's ``exact`` says). The MoE family's
-    expert-parallel prefill routes each rank's tokens with a capacity from
-    them, through the reference's exchange (ROADMAP C): its unsharded
-    counterpart runs that branch emulated (``ep_emulated``); its decode
-    routes whole. With ``pure_dp`` the prefill is data-parallel over both
-    axes and the serve step decodes on the serve specs' blocks."""
+    inputs) on the card: the logits within CHECK_LOGIT_ULPS bf16 ulps of
+    the largest |logit|, the decode's greedy tokens at SMALL_ARGMAX_SHARE
+    of all positions, each held by ``tp_judge`` (and equal to the unsharded
+    run computed as the ranks compute it, ``tp_rounding(model, seq=)``,
+    where the phase's ``exact`` says). The MoE family's expert-parallel
+    prefill routes each rank's tokens with a capacity from them, through
+    the reference's exchange (ROADMAP C): its unsharded counterpart runs
+    that branch emulated (``ep_emulated``); its decode routes whole. With
+    ``pure_dp`` the prefill is data-parallel over both axes and the serve
+    step decodes on the serve specs' blocks. Every rank then waits for rank
+    0 (a barrier), so that no rank allocates the next model meanwhile."""
     import contextlib
     import dataclasses
     import gc
+
+    import torch.distributed as dist
 
     sys.path.insert(0, str(ROOT / "tests"))
     import _torch_moe_criteria as mc
@@ -4022,20 +4226,25 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, ph: dict,
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
     cfg = get_arch(arch)
-    mesh, exact = (ctx.n_batch, ctx.n_model), ph["exact"].get(arch, ())
+    sv = ph["serve"]
+    B, first, mesh, exact = sv["B"], sv["first"], (ctx.n_batch, ctx.n_model), ph["exact"].get(arch, ())
+    seq = ctx.n_batch if ctx.seq_sharded(B) else 1
     if arch in ph["serve_depths"]:
         log(f"reduced: tp {arch} serving n_layers {cfg.n_layers} -> {ph['serve_depths'][arch]} "
             f"({ph['serve_cuts'][arch]})")
         cfg = dataclasses.replace(cfg, n_layers=ph["serve_depths"][arch])
     encdec = cfg.family == "encdec"
-    cache_len = WHISPER_TOKENS if encdec else TP_CACHE
+    cache_len = WHISPER_TOKENS if encdec else sv["cache_len"]
+    new_cache = _seq_cache if sv["drawn"] else _tp_cache
     model = build_model(cfg, max_pos=cache_len, device="cuda")
     model.pure_dp = pure_dp
     tag = f"tp {WHISPER_SERVE_STEP if pure_dp else arch}"
+    if ph["decode_cut"]:
+        log(f"reduced: {tag} decode steps {ph['decode_cut']}")
     params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
     if encdec:
         _encdec().draw_final_norms(params, seed + 9)
-    batch, cross = _tp_inputs(model, params, seed)
+    batch, cross = _tp_inputs(model, params, seed, B, sv["S"])
     # the pure data-parallel model prefills on whole weights, decodes on the serve specs
     placed = _placed(params, model.param_specs(ctx, serve=pure_dp), ctx)
     weights = params if pure_dp else placed
@@ -4044,9 +4253,9 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, ph: dict,
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    n_tokens = PREFILL_B * batch["tokens" if "tokens" in batch else "embeds"].shape[1]
+    n_tokens = B * batch["tokens" if "tokens" in batch else "embeds"].shape[1]
     prefill = make_prefill_step(model, ctx)
-    prefill(weights, batch if encdec else _tp_prefix(batch, TP_WARMUP_S))  # warm-up
+    prefill(weights, batch if encdec else _tp_prefix(batch, sv["warmup_s"]))  # warm-up
     torch.cuda.synchronize()
     fa.launches = 0
     ctx.counts.clear()
@@ -4065,46 +4274,52 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, ph: dict,
     if out["flash_launches"] != attention_layers(cfg):
         raise AssertionError(f"{tag}: rank {rank}'s sharded prefill launched flash_attention "
                              f"{out['flash_launches']} times, not {attention_layers(cfg)}")
-    if not torch.isfinite(logits).all() or logits.shape != (PREFILL_B, cfg.vocab):
+    if not torch.isfinite(logits).all() or logits.shape != (B, cfg.vocab):
         raise AssertionError(f"{tag}: sharded prefill logits {tuple(logits.shape)} not finite")
+    what = "sequence-sharded" if seq > 1 else "data-parallel" if pure_dp else "sharded"
     log(f"{tag}: {model.n_params()} parameters, full width, {cfg.n_layers} layers"
         + (f" and {cfg.encoder_layers} encoder layers on {WHISPER_FRAMES} frames" if encdec
            else "")
-        + f"; {'data-parallel' if pure_dp else 'sharded'} prefill {n_tokens} tokens: "
-        f"{pre_wall:.4f} s, {out['prefill_tokens_per_s']:.1f} tokens/s on {ctx.size(ctx.axis_names)} "
-        f"ranks sharing the card, flash launches on this rank {out['flash_launches']}, collectives "
+        + f"; {what} prefill {B} x {n_tokens // B} tokens: {pre_wall:.4f} s, "
+        f"{out['prefill_tokens_per_s']:.1f} tokens/s on {ctx.size(ctx.axis_names)} ranks sharing "
+        f"the card, flash launches on this rank {out['flash_launches']}, collectives "
         f"{out['counts']['prefill']} ({card})")
     if rank == 0:
         moe = cfg.family == "moe"
         with mc.ep_emulated(*mesh) if moe else contextlib.nullcontext():
+            t = time.perf_counter()
             plain = make_prefill_step(model)(params, batch)
-            with crit.tp_rounding(ctx.n_model):
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t
+            with crit.tp_rounding(ctx.n_model, seq=seq):
                 jit = make_prefill_step(model)(params, batch)
+        log(f"{tag}: the unsharded prefill of the same inputs on rank 0 (the other ranks "
+            f"waiting): {t:.4f} s, {n_tokens / t:.1f} tokens/s ({card})")
         _, err, tol = _logits_close(logits, plain)
-        what = "data-parallel" if pure_dp else "sharded"
         out["prefill_held"] = tp_judge(
             f"{tag}: {what} prefill against the unsharded prefill"
             + (" (its expert-parallel branch emulated)" if moe else "")
             + f" on the card (max |logit| {float(plain.abs().max()):.3e}, greedy tokens agree "
-            f"{int((logits.argmax(-1) == plain.argmax(-1)).sum())}/{PREFILL_B}), max |diff|",
+            f"{int((logits.argmax(-1) == plain.argmax(-1)).sum())}/{B}), max |diff|",
             err, _logits_close(plain if pure_dp else jit, plain)[1], tol,
             None if pure_dp else float((logits - jit).abs().max()), "prefill" in exact)
         del plain, jit
 
-    B = PREFILL_B
     serve = make_serve_step(model, ctx)
-    serve(placed, _tp_cache(model, cache_len, cross, ctx), _decode_batch(batch, 0))  # warm-up
-    cache = _tp_cache(model, cache_len, cross, ctx)
+    warm_len, warm_first = sv["warm"] if not encdec else (cache_len, 0)
+    serve(placed, new_cache(model, B, warm_len, warm_first, seed, cross, ctx),
+          {**_decode_batch(batch, 0), "cur_len": warm_first})  # warm-up
+    cache = new_cache(model, B, cache_len, first, seed, cross, ctx)
     fed, seen = [batch["tokens"][:, 0].contiguous() if "tokens" in batch else None], []
 
     def feed(i: int) -> dict:
         """Step i's input: the VLM's prefill embedding i, else the greedy token fed."""
-        return _decode_batch(batch, i) if cfg.embeddings_input else {"token": fed[i],
-                                                                     "cur_len": i}
+        return ({**_decode_batch(batch, i), "cur_len": first + i} if cfg.embeddings_input
+                else {"token": fed[i], "cur_len": first + i})
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    for i in range(TP_DECODE_STEPS):
+    for i in range(sv["steps"]):
         if i == 1:
             ctx.counts.clear()
         step_logits, cache = serve(placed, cache, feed(i))
@@ -4114,69 +4329,84 @@ def tp_serve(ctx, arch: str, seed: int, card: str, rank: int, ph: dict,
         fed.append(step_logits.argmax(-1).to(torch.int32))
     torch.cuda.synchronize()
     dec_wall = time.perf_counter() - t
-    out["decode_tokens_per_s"] = B * TP_DECODE_STEPS / dec_wall
-    log(f"{tag}: sharded decode, {TP_DECODE_STEPS} "
+    out["decode_tokens_per_s"] = B * sv["steps"] / dec_wall
+    kv = sum(c.to_local().numel() * c.to_local().element_size() for k, c in cache.items()
+             if k in ("k", "v"))
+    log(f"{tag}: {what} decode, {sv['steps']} "
         + ("steps fed the prefill's embeddings" if cfg.embeddings_input else "greedy steps")
-        + f" of batch {B} against a {cache_len}-long cache"
-        + (f" (its cross K/V of {WHISPER_FRAMES} frames filled from the encoder)" if encdec
+        + f" of batch {B} at positions {first}..{first + sv['steps'] - 1} against a "
+        f"{cache_len}-long cache ({kv} bytes of K/V on this rank"
+        + (f"; its cross K/V of {WHISPER_FRAMES} frames filled from the encoder" if encdec
            else "")
-        + f": {dec_wall:.4f} s, {out['decode_tokens_per_s']:.1f} tokens/s on "
+        + f"): {dec_wall:.4f} s, {out['decode_tokens_per_s']:.1f} tokens/s on "
         f"{ctx.size(ctx.axis_names)} ranks sharing the card, collectives a step "
         f"{out['counts']['decode']} ({card})")
     del cache
     moe_routes = None
     if cfg.family == "moe":  # the same steps again, rank 0 recording its routes
-        cache = _tp_cache(model, cache_len, cross, ctx)
+        cache = new_cache(model, B, cache_len, first, seed, cross, ctx)
         with mc.RouteLog() as log_routes:
-            for i in range(TP_DECODE_STEPS):
+            for i in range(sv["steps"]):
                 _, cache = serve(placed, cache, feed(i))
         moe_routes = log_routes.calls
         del cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["peak"] = torch.cuda.max_memory_allocated()
     if rank == 0:
         def unsharded() -> tuple[list, list]:
-            plain_cache, step, got = _tp_cache(model, cache_len, cross), make_serve_step(model), []
+            plain_cache = new_cache(model, B, cache_len, first, seed, cross)
+            step, got = make_serve_step(model), []
             with mc.RouteLog() as calls:
-                for i in range(TP_DECODE_STEPS):
+                for i in range(sv["steps"]):
                     want, plain_cache = step(params, plain_cache, feed(i))
                     got.append(want)
             return got, calls.calls
 
         want, want_routes = unsharded()
-        with crit.tp_rounding(ctx.n_model):
+        gc.collect()
+        torch.cuda.empty_cache()
+        with crit.tp_rounding(ctx.n_model, seq=seq):
             jit, jit_routes = unsharded()
         routes = (moe_routes, want_routes, jit_routes) if moe_routes is not None else None
         out["decode_held"] = tp_decode_judge(
-            f"{tag}: sharded decode against the unsharded decode ({TP_DECODE_STEPS} steps "
+            f"{tag}: {what} decode against the unsharded decode ({sv['steps']} steps "
             f"teacher-forced on the sharded run's inputs", seen, want, jit, routes,
             "decode" in exact)
         del want, jit
-    out["peak"] = torch.cuda.max_memory_allocated()
     del placed, model, weights, cross, batch
     params = None
     gc.collect()
     torch.cuda.empty_cache()
+    dist.barrier()
     return out
 
 
 def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> None:
-    """``arch`` at full width and TP_SHALLOW_LAYERS layers (whisper's encoder
-    too), not pure data-parallel, in bf16 and
-    in f32 (weights drawn on the card): the sharded prefill of
-    ``_tp_inputs`` and TP_SHALLOW_STEPS decode steps fed the prefill's
-    tokens (or embeddings), against the unsharded ones on rank 0 (the MoE
-    prefill's with its expert-parallel branch emulated, ``ep_emulated``),
-    each also against its twin, the unsharded run under ``tp_rounding``
-    (in f32 also ``tp_columns``). In bf16 held as ``tp_serve`` holds them;
-    in f32 (the decode's K/V cache and score chain too, ``f32_scores``)
-    within TP_WITNESS_RTOL of the largest |logit| of the twin at every
-    check, and of the plain unsharded run where the twin is within it
-    too: the sharded math's witness where the bf16 model is
-    ill-conditioned. For the SSM and hybrid families the decode steps that
-    read the bf16 conv window back are printed, not held, with the
-    window's entries that differ after step 0 counted, and the f32 run is
-    repeated with the window kept in f32 and held at every step; the
-    column-parallel products' differing bits are printed
-    (``column_bits``)."""
+    """``arch`` at full width and the phase's ``shallow_depths`` layers
+    (else TP_SHALLOW_LAYERS; whisper's encoder too), not pure
+    data-parallel, in bf16 and in f32 (weights drawn on the card), with the
+    phase's ``shallow`` shapes (as ``tp_serve``'s ``serve``): the sharded
+    prefill of ``_tp_inputs`` and ``steps`` decode steps from ``first`` fed
+    the prefill's tokens (or embeddings), against the unsharded ones on
+    rank 0 (the MoE prefill's with its expert-parallel branch emulated,
+    ``ep_emulated``), each also against its twin, the unsharded run under
+    ``tp_rounding(model, seq=)`` (in f32 with model > 1 also
+    ``tp_columns``). In bf16 held as ``tp_serve`` holds them; in f32 (the
+    decode's K/V cache and score chain too, ``f32_scores``) within
+    TP_WITNESS_RTOL of the largest |logit| of the twin at every check, and
+    of the plain unsharded run where the twin is within it too: the
+    sharded math's witness where the bf16 model is ill-conditioned. With
+    model > 1, for the SSM and hybrid families (whose ranks' in-projections
+    run on other shapes) the decode steps that read the bf16 conv window
+    back are printed, not held, with the window's entries that differ after
+    step 0 counted, and the f32 run is repeated with the window kept in f32
+    and held at every step; the column-parallel products' differing bits
+    are printed (``column_bits``). With the sequence sharded, the f32
+    prefill is held where one f32 ulp on every RMS norm (``norm_nudged``)
+    moves the unsharded prefill less than the tolerance, and printed where
+    it moves it more: a rank's f32 products on its rows, which cuBLAS may
+    sum in another order, have no twin."""
     import contextlib
     import dataclasses
     import gc
@@ -4190,7 +4420,10 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> Non
     from repro_torch.models.sharding import whole
     from repro_torch.train.steps import make_prefill_step, make_serve_step
 
-    depth, mesh = TP_SHALLOW_LAYERS, (ctx.n_batch, ctx.n_model)
+    mesh, sh = (ctx.n_batch, ctx.n_model), ph["shallow"]
+    depth, B, first = ph["shallow_depths"].get(arch, TP_SHALLOW_LAYERS), sh["B"], sh["first"]
+    seq = ctx.n_batch if ctx.seq_sharded(B) else 1
+    new_cache = _seq_cache if sh["drawn"] else _tp_cache
     for dtype in ("bfloat16", "float32"):
         full = get_arch(arch)
         encdec = full.family == "encdec"
@@ -4199,23 +4432,24 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> Non
         log(f"reduced: tp {arch} {dtype} check n_layers {full.n_layers} -> {depth}"
             + (f" and encoder_layers {full.encoder_layers} -> {depth}" if encdec else "")
             + " (the bf16 model at full depth is ill-conditioned from random weights)")
-        cache_len = WHISPER_TOKENS if encdec else TP_CACHE
+        cache_len = WHISPER_TOKENS if encdec else sh["cache_len"]
         model = build_model(cfg, max_pos=cache_len, device="cuda")
         model.pure_dp = False
         params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
         if encdec:
             _encdec().draw_final_norms(params, seed + 9)
         placed = _placed(params, model.param_specs(ctx), ctx)
-        batch, cross = _tp_inputs(model, params, seed + 1)
+        batch, cross = _tp_inputs(model, params, seed + 1, B, sh["S"])
         moe, ssm = cfg.family == "moe", cfg.is_ssm
+        split_window = ssm and ctx.n_model > 1
 
         def decode(serve, weights, c) -> tuple[list, list, torch.Tensor]:
             """(the decode steps' logits, their routes, the conv window after
             the first step, whole, for the SSM families)."""
             steps, window = [], None
             with mc.RouteLog() as routes:
-                for i in range(TP_SHALLOW_STEPS):
-                    logits, c = serve(weights, c, _decode_batch(batch, i))
+                for i in range(sh["steps"]):
+                    logits, c = serve(weights, c, {**_decode_batch(batch, i), "cur_len": first + i})
                     steps.append(logits)
                     if ssm and i == 0:
                         window = whole(c["conv"]).clone()
@@ -4229,38 +4463,41 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> Non
             with mc.ep_emulated(*mesh) if moe and not sharded else contextlib.nullcontext():
                 pre = make_prefill_step(model, step_ctx)(weights, batch)
             f32 = dtype == "float32"
-            cache = _tp_cache(model, cache_len, cross, step_ctx,
+            cache = new_cache(model, B, cache_len, first, seed, cross, step_ctx,
                               (("k", "v") if f32 else ()) + (("conv",) if f32_window else ()))
             with f32_scores() if f32 else contextlib.nullcontext():
                 return [pre], *decode(make_serve_step(model, step_ctx), weights, cache)
 
         got = run(True)
-        got32 = run(True, True) if ssm and dtype == "float32" else None
+        got32 = run(True, True) if split_window and dtype == "float32" else None
         if rank == 0:
             f32 = dtype == "float32"
 
             def twin(f32_window: bool = False) -> tuple:
                 """The unsharded run rounded as the ranks round and, in f32, its
                 column-parallel products on the ranks' blocks (``tp_columns``)."""
-                with crit.tp_rounding(ctx.n_model), (
-                        tp_columns(ctx.n_model) if f32 else contextlib.nullcontext()):
+                with crit.tp_rounding(ctx.n_model, seq=seq), (
+                        tp_columns(ctx.n_model) if f32 and ctx.n_model > 1
+                        else contextlib.nullcontext()):
                     return run(False, f32_window)
 
             want, jit = run(False), twin()
             tag = f"tp {arch} {dtype} {depth} layers (full width)"
             if f32:
-                labels = ["prefill"] + [f"decode step {i}" for i in range(TP_SHALLOW_STEPS)]
-                windowed = set(labels[2:]) if ssm else set()
+                labels = ["prefill"] + [f"decode step {first + i}" for i in range(sh["steps"])]
+                windowed = ({label: "it reads the bf16 window back" for label in labels[2:]}
+                            if split_window else {})
                 tol = TP_WITNESS_RTOL
 
                 def rel(a: tuple, b: tuple) -> list:
                     return [float((x - w).abs().max() / w.abs().max())
                             for x, w in zip(a[0] + a[1], b[0] + b[1])]
 
-                def witness(what: str, got_: tuple, want_: tuple, jit_: tuple, skip: set) -> None:
+                def witness(what: str, got_: tuple, want_: tuple, jit_: tuple, skip: dict) -> None:
                     """Each label sharded within the tolerance of the twin, and of
                     the unsharded run where the twin is within it of that run
-                    too; the labels in ``skip`` printed, not held."""
+                    too; the labels in ``skip`` printed, not held (for the reason
+                    it gives)."""
                     errs, selfs, near = rel(got_, want_), rel(jit_, want_), rel(got_, jit_)
                     bad = [label for label, e, r, d in zip(labels, errs, selfs, near)
                            if label not in skip and (d > tol or r <= tol < e)]
@@ -4275,16 +4512,33 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> Non
                            f"unsharded run: " + ", ".join(label for label, r in zip(labels, selfs)
                                                          if r > tol and label not in skip)
                            if any(r > tol for r in selfs) else "")
-                        + (f"; printed, not held: {', '.join(sorted(skip))} (they read the bf16 "
-                           f"window back)" if skip else "") + f" ({card})")
+                        + ("; printed, not held: " + ", ".join(f"{label} ({why})"
+                                                               for label, why in skip.items())
+                           if skip else "") + f" ({card})")
                     if bad:
                         raise AssertionError(f"{tag}, {what}: not held: {bad} (sharded against "
                                              f"unsharded {errs}, twin {selfs}, sharded against "
                                              f"twin {near})")
 
-                witness("the conv window in bf16 as the reference keeps it" if ssm else "",
-                        got, want, jit, windowed)
-                if ssm:
+                unmodeled = {}
+                if seq > 1:
+                    # a rank's f32 prefill products run on its rows of the sequence,
+                    # which cuBLAS may sum in another order than on all of them, and
+                    # no twin models that (a decode step's one row is the same on
+                    # every rank): the prefill is held where one f32 ulp on every RMS
+                    # norm (another order of their f32 sums) moves the unsharded
+                    # prefill by less than the tolerance
+                    with crit.norm_nudged(math.inf):
+                        nudged = make_prefill_step(model)(params, batch)
+                    moved = float((nudged - want[0][0]).abs().max() / want[0][0].abs().max())
+                    log(f"{tag}: one f32 ulp on every RMS norm moves the unsharded prefill "
+                        f"{moved:.3e} of its largest |logit| ({card})")
+                    if moved > tol:
+                        unmodeled["prefill"] = (f"ill-conditioned: one f32 ulp on every RMS "
+                                                f"norm moves the unsharded prefill {moved:.3e}")
+                witness("the conv window in bf16 as the reference keeps it" if split_window else "",
+                        got, want, jit, {**windowed, **unmodeled})
+                if split_window:
                     a, b = got[3].float(), want[3].float()
                     ulps = (a - b).abs() / torch.from_numpy(mc.bf16_ulp(b.cpu().numpy())).to(b)
                     log(f"{tag}: the bf16 conv window after decode step 0, sharded against "
@@ -4292,8 +4546,9 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> Non
                         f"most {float(ulps.max()):.3f} bf16 ulps; the twin's "
                         f"{int((jit[3] != want[3]).sum())}")
                     witness("the conv window kept in f32", got32, run(False, True), twin(True),
-                            set())
-                column_bits(params, seed, tag, card, ctx.n_model)
+                            {})
+                if ctx.n_model > 1:
+                    column_bits(params, seed, tag, card, ctx.n_model)
             else:
                 exact = ph["exact"].get(arch, ())
                 _, err, tol = _logits_close(got[0][0], want[0][0])
@@ -4303,8 +4558,8 @@ def tp_shallow(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> Non
                          float((got[0][0] - jit[0][0]).abs().max()), "prefill" in exact)
                 routes = (got[2], want[2], jit[2]) if moe else None
                 tp_decode_judge(f"{tag}: sharded decode against the unsharded decode "
-                                f"({TP_SHALLOW_STEPS} steps", got[1], want[1], jit[1], routes,
-                                "decode" in exact)
+                                f"({sh['steps']} steps from position {first}", got[1], want[1],
+                                jit[1], routes, "decode" in exact)
             del want, jit
         del params, placed, got, got32, model, batch, cross
         gc.collect()
@@ -4442,7 +4697,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--size-mib", type=int, default=512)
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "chip_smoke")
-    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # phase 9's and 10's ranks
+    ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # the ranks of phases 9-11
     ap.add_argument("--tp-dir", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--tp-phase", type=int, default=9, help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4576,8 +4831,9 @@ def main() -> int:
         counts["flash_attention"] += drive_embed(arch, args.seed, card, args.out)
     elapsed("phase 5d's serving")
     for arch in EMBED_MODELS:
-        if not embed_card_vs_cpu(args.seed, arch) and not embed_card_vs_cpu(args.seed, arch,
-                                                                             "float32"):
+        log(f"reduced: {arch} card vs CPU in float32 only (the script's 900 s; its bfloat16 "
+            f"check is ill-conditioned from random weights and was printed, never held)")
+        if not embed_card_vs_cpu(args.seed, arch):
             raise AssertionError(f"{arch}: the f32 card-vs-CPU check did not hold every "
                                  f"criterion")
     torch.cuda.empty_cache()
@@ -4629,29 +4885,21 @@ def main() -> int:
         f"{w['save_gb_s']:.4f} GB/s, recon {w['recon_gb_s']:.4f} GB/s, restore "
         f"{w['restore_gb_s']:.4f} GB/s ({card})")
     elapsed("phase 8")
-    # phase 9: tensor and expert parallelism over "model", two ranks sharing the card, the
-    # flash launches counted from zero on each rank inside
-    t9 = time.perf_counter()
-    tp = drive_tp(args.seed, card, args.out, counts, worst)
-    log(f"phase 9: {time.perf_counter() - t9:.3f} s; on (data=1, model=2), two processes "
-        f"sharing the card over gloo: "
-        + "; ".join(f"{a} prefill {r['prefill_tokens_per_s']:.1f}, decode "
-                    f"{r['decode_tokens_per_s']:.1f}"
-                    + (f", train at {r['train_depth']} layers {r['train_tokens_per_s']:.1f}"
-                       if "train_depth" in r else "") + " tokens/s" for a, r in tp.items())
-        + f" ({card})")
-    elapsed("phase 9")
-    # phase 10: the fallback layouts over "model" (qwen2-0.5b on model=4), four ranks sharing
-    # the card, the flash launches counted from zero on each rank inside
-    t10 = time.perf_counter()
-    fb = drive_tp(args.seed, card, args.out, counts, worst, phase=10)
-    log(f"phase 10: {time.perf_counter() - t10:.3f} s; on (data=1, model=4), four processes "
-        f"sharing the card over gloo: "
-        + "; ".join(f"{a} prefill {r['prefill_tokens_per_s']:.1f}, decode "
-                    f"{r['decode_tokens_per_s']:.1f}, train at {r['train_depth']} layers "
-                    f"{r['train_tokens_per_s']:.1f} tokens/s" for a, r in fb.items())
-        + f" ({card})")
-    elapsed("phase 10")
+    # phases 9-11 (TP_PHASES): tensor and expert parallelism over "model" (9), its fallback
+    # layouts (10), sequence sharding for serving (11); ranks sharing the card, the flash
+    # launches counted from zero on each rank inside
+    for phase, ph in TP_PHASES.items():
+        t = time.perf_counter()
+        res = drive_tp(args.seed, card, args.out, counts, worst, phase)
+        log(f"phase {phase}: {time.perf_counter() - t:.3f} s; on (data={ph['mesh'][0]}, "
+            f"model={ph['mesh'][1]}), {math.prod(ph['mesh'])} processes sharing the card over "
+            f"gloo, prefill B = {ph['serve']['B']}: "
+            + "; ".join(f"{a} prefill {r['prefill_tokens_per_s']:.1f}, decode "
+                        f"{r['decode_tokens_per_s']:.1f}"
+                        + (f", train at {r['train_depth']} layers {r['train_tokens_per_s']:.1f}"
+                           if "train_depth" in r else "") + " tokens/s" for a, r in res.items())
+            + f" ({card})")
+        elapsed(f"phase {phase}")
 
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]

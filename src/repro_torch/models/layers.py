@@ -7,8 +7,9 @@ trees are nested dicts of tensors; stacked-layer weights carry a leading L
 axis. With a ``MeshCtx`` whose "model" axis is larger than 1 (``ctx``),
 ``moe_layer`` runs the reference's expert-parallel branch,
 ``expand_kv_to_local_heads`` is its attention's KV-to-heads expansion, each
-on this rank's blocks, and ``gqa_attention(hd_split=)`` attends on the
-rank's block of head_dim.
+on this rank's blocks, ``gqa_attention(hd_split=)`` attends on the
+rank's block of head_dim, and ``gqa_attention(seq_split=)`` on the rank's
+block of a cache whose sequence is sharded over the batch axes.
 """
 from __future__ import annotations
 
@@ -107,7 +108,8 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool = True,
                   window: int | None = None, q_chunk: int = 1024,
                   score_dtype: torch.dtype = torch.bfloat16,
-                  hd_split: "MeshCtx | None" = None) -> torch.Tensor:
+                  hd_split: "MeshCtx | None" = None,
+                  seq_split: "MeshCtx | None" = None) -> torch.Tensor:
     """Grouped-query attention, q (B, Sq, H, hd); k/v (B, Sk, KV, hd).
 
     The reference's jnp attention, with its score chain in ``score_dtype``
@@ -128,7 +130,18 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     "model"): each rank's f32 partial scores are summed over "model" and
     rounded to ``score_dtype`` once, as the reference's single product
     rounds them, the scale is that of the whole head_dim, and the output is
-    the rank's block of head_dim."""
+    the rank's block of head_dim.
+
+    With ``seq_split`` (a ``MeshCtx``) k and v hold this rank's block of
+    the keys, the sequence sharded over the batch axes (the decode over a
+    sequence-sharded cache; ``k_pos`` their global positions): each rank
+    scores its own keys in the same chain; the row max is the max over the
+    batch axes (exact), so that every rank's bf16 ``exp(s - m)`` rounds as
+    the unsharded chain's does; the f32 denominator is the sum of the ranks'
+    partial sums, ``w = e / den`` is taken in bf16, and ``w . v`` is summed
+    in f32 over each rank's keys, then over the ranks, and rounded once
+    (``MeshCtx.seq_sum``: in sequence order). A rank whose keys are all
+    masked adds exactly 0."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -146,10 +159,16 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         bias = _mask_bias(qp_blk, k_pos, window, causal).to(score_dtype)
         s = s * scale + bias
         m = s.amax(dim=-1, keepdim=True)
+        if seq_split is not None:
+            m = seq_split.all_reduce(m.float(), seq_split.batch_axes, "max").to(m.dtype)
         e = torch.exp(s - m)
         den = e.sum(dim=-1, keepdim=True, dtype=torch.float32)
+        if seq_split is not None:
+            den = seq_split.seq_sum(den)
         w = e / den.to(score_dtype)
         out = torch.einsum("bkgqs,bskd->bqkgd", w.float(), v.float())
+        if seq_split is not None:
+            out = seq_split.seq_sum(out)
         return out.to(q.dtype)
 
     qg = q.reshape(B, Sq, KV, G, hd)

@@ -81,6 +81,24 @@ whole logits of them, summed over "model"); the MoE layer and the Mamba2
 mixer run the reference's whole-array forms over the gathered tokens (the
 MoE's over the global batch: its capacity and dispatch order are global)
 and keep the rank's block.
+
+Sequence sharding (``sp``, a ``MeshCtx`` whose batch axes the batch does
+not fill: ``LM.seq_ctx``), for the dense, SSM and hybrid families'
+serving: h holds this rank's block of the sequence, the contiguous block at
+its ``seq_rank`` (split again over "model" where Megatron-SP runs), at the
+global positions from its offset; every layer's window comes from the whole
+length. The attention computes q, k and v on the block, gathers the keys
+and values over the batch axes (the whole sequence's: one all-gather a
+layer, 33.5 MB for gemma3-1b's 32768 tokens; a windowed layer would need
+only the previous window - 1 keys, but the flash kernel skips every
+masked tile, so the extra keys cost the gather alone) and attends the
+block's queries at their offset (the flash kernel's ``q_offset``; a masked
+tile adds exactly 0, so the block's rows equal the whole sequence's). The
+Mamba2 mixer reads the previous rank's conv rows and relays its state
+(``models/ssd.py``). The decode step writes the new K/V on the rank that
+owns ``cur_len``, attends on each rank's block of the cache
+(``gqa_attention(seq_split=)``) and runs the SSM layers, whose conv and
+state caches the batch axes do not shard, alike on every rank.
 """
 from __future__ import annotations
 
@@ -110,6 +128,9 @@ from repro_torch.models.layers import (
     swiglu_mlp,
 )
 from repro_torch.models.sharding import (
+    SEQ_FALLBACK,
+    SEQ_FAMILIES,
+    SEQ_TRAINING,
     MeshCtx,
     NamedSharding,
     spec_with_model_on,
@@ -369,6 +390,36 @@ class LM(nn.Module):
             return None
         return ctx
 
+    def seq_ctx(self, ctx: MeshCtx | None, global_batch: int, tp: MeshCtx | None = None,
+                train: bool = False) -> MeshCtx | None:
+        """``ctx`` where a step of ``global_batch`` rows shards the sequence
+        over the batch axes (they are more than one, and the batch does not
+        fill them: ``MeshCtx.token_spec``), else None. ``tp`` is the step's
+        tensor-parallel context (``tp_ctx``). Raises ``NotImplementedError``
+        for what does not run yet: training, the MoE, VLM and
+        encoder-decoder families, and a fallback layout over "model"."""
+        if ctx is None or ctx.n_batch == 1 or not ctx.seq_sharded(global_batch):
+            return None
+        if train:
+            raise NotImplementedError(SEQ_TRAINING)
+        if self.cfg.family not in ("dense", "ssm", "hybrid"):
+            raise NotImplementedError(f"{self.cfg.name} ({self.cfg.family}): {SEQ_FAMILIES}")
+        if self._fallback(tp):
+            raise NotImplementedError(f"{self.cfg.name} on model={ctx.n_model}: {SEQ_FALLBACK}")
+        return ctx
+
+    def _fallback(self, tp: MeshCtx | None) -> bool:
+        """Whether ``tp`` runs a fallback layout of this dense, SSM or hybrid
+        model: its heads, d_ff or SSM heads do not divide "model", or
+        neither its vocab nor d_model does."""
+        cfg = self.cfg
+        if tp is None:
+            return False
+        dims = {"dense": [cfg.d_ff], "ssm": [cfg.ssm_heads]}.get(cfg.family,
+                                                                [cfg.d_ff, cfg.ssm_heads])
+        return (cfg.family != "ssm" and self._hd_fallback(tp)) or self._head_whole(tp) or \
+            any(not self._splits(tp, d) for d in dims)
+
     @staticmethod
     def _splits(tp: MeshCtx | None, dim: int) -> bool:
         """Whether tensor parallelism splits a dim of size ``dim`` over
@@ -406,7 +457,9 @@ class LM(nn.Module):
 
     def _windows(self, S: int) -> list[int]:
         """Each layer's attention window: ``sliding_window`` on local
-        layers, S + 1 (no limit) on global ones."""
+        layers, S + 1 (no limit) on global ones; S is the whole sequence's
+        length (not a sequence rank's block: its global layers would be
+        windowed)."""
         cfg = self.cfg
         if not cfg.global_every:
             return [S + 1] * cfg.n_layers
@@ -522,7 +575,8 @@ class LM(nn.Module):
 
     def _attn(self, lp: dict, x: torch.Tensor, *, cos=None, sin=None, window: int | None,
               train_pos: torch.Tensor | None, causal: bool = True,
-              kv: torch.Tensor | None = None, tp: MeshCtx | None = None) -> torch.Tensor:
+              kv: torch.Tensor | None = None, tp: MeshCtx | None = None,
+              sp: MeshCtx | None = None) -> torch.Tensor:
         """The layer's attention: the flash kernel (``window`` 0 for none),
         or with ``train_pos`` (the query positions, and the key positions
         but in cross-attention) the differentiable ``gqa_attention``
@@ -533,13 +587,21 @@ class LM(nn.Module):
         fallback (``_hd_fallback``, the weights whole: ``_tp_layers``), on
         every head of the queries of x, this rank's block of the sequence,
         at its offset, against the keys of the sequence gathered (or of
-        ``kv``): the block's own output."""
+        ``kv``): the block's own output. With ``sp`` x is this sequence
+        rank's block (gathered over "model" where ``tp`` runs Megatron-SP)
+        and cos/sin its positions: its K/V are gathered over the batch axes
+        (the whole sequence's keys, module docstring) and its queries
+        attend at the block's offset."""
         q_off, src = 0, kv
         if self._hd_fallback(tp):
             q_off = tp.model_rank * x.shape[1]
             if kv is None:
                 src = tp.gather_seq(x)
         q, k, v = self._qkv(lp, x, cos, sin, src, q_off)
+        if sp is not None:  # one gather for both
+            k, v = sp.gather_seq(torch.cat([k, v], dim=2), axes=sp.batch_axes).split(
+                [k.shape[2], v.shape[2]], dim=2)
+            q_off = sp.seq_rank * x.shape[1]
         if self._expands(tp):
             k, v = expand_kv_to_local_heads(k, v, q.shape[2], tp)
         if train_pos is not None:
@@ -561,13 +623,15 @@ class LM(nn.Module):
         return _sp(lambda v: self._attn(lp, v, tp=tp, **attn), x, tp)
 
     def _dense_block(self, lp: dict, h: torch.Tensor, *, cos, sin, window: int | None,
-                     train_pos: torch.Tensor | None = None, tp: MeshCtx | None = None
-                     ) -> tuple[torch.Tensor, torch.Tensor | None]:
+                     train_pos: torch.Tensor | None = None, tp: MeshCtx | None = None,
+                     sp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """(h, the MLP's auxiliary loss: ``_mlp``). With ``tp``, h is this
-        rank's block of the sequence, gathered for the attention."""
+        rank's block of the sequence, gathered for the attention; with
+        ``sp``, of the sequence rank's block."""
         cfg = self.cfg
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
-        h = h + self._attn_sp(lp, x, tp, cos=cos, sin=sin, window=window, train_pos=train_pos)
+        h = h + self._attn_sp(lp, x, tp, cos=cos, sin=sin, window=window, train_pos=train_pos,
+                              sp=sp)
         y, aux = self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), tp)
         return h + y, aux
 
@@ -612,28 +676,33 @@ class LM(nn.Module):
         y = y.narrow(0, tp.index(tp.batch_axes) * B, B)
         return (y if decode else _rank_block(y, tp)), tp.shared_model(aux)
 
-    def _mamba_layer(self, lp: dict, h: torch.Tensor, tp: MeshCtx | None = None) -> torch.Tensor:
+    def _mamba_layer(self, lp: dict, h: torch.Tensor, tp: MeshCtx | None = None,
+                     sp: MeshCtx | None = None) -> torch.Tensor:
         """h + the Mamba2 mixer of its norm: on the rank's SSM heads
         (Megatron-SP), or where they do not divide "model" the whole mixer
         (its leaves whole: ``_tp_layers``) over the sequence gathered, of
-        which the rank keeps its block."""
+        which the rank keeps its block. With ``sp`` on the sequence rank's
+        block (``models/ssd.py``)."""
         x = rms_norm(h, lp["ln"], self.cfg.norm_eps)
         if tp is not None and not self._splits(tp, self.cfg.ssm_heads):
             return h + _rank_block(ssd.mamba2_mixer(lp, tp.gather_seq(x), self.cfg), tp)
-        return h + _sp(lambda v: ssd.mamba2_mixer(lp, v, self.cfg, tp), x, tp)
+        return h + _sp(lambda v: ssd.mamba2_mixer(lp, v, self.cfg, tp, sp=sp), x, tp)
 
     def _forward(self, params: Params, batch: dict, *, train: bool = False,
-                 tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+                 tp: MeshCtx | None = None,
+                 sp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The family's stack over ``batch``'s inputs (the reference's
         ``input_specs``: ``tokens``; ``embeds`` and ``positions`` for the
         VLM; ``audio_embeds`` and ``tokens`` for the encoder-decoder):
         (h (B, S, D) before the final norm, the MoE layers' summed auxiliary
-        loss or None). With ``tp``, h is this rank's block of the sequence."""
+        loss or None). With ``tp``, h is this rank's block of the sequence;
+        with ``sp`` (``seq_ctx``) ``batch`` is the sequence rank's block of
+        the tokens, and h its block (of which ``tp`` holds a block)."""
         if self.cfg.family == "encdec":
             return self._run_encdec(params, batch, train=train, tp=tp), None
-        h, positions = self._inputs(params, batch, tp)
+        h, positions = self._inputs(params, batch, tp, sp)
         return self._run_stack(params, h, positions=positions, train=train, tp=tp,
-                               q_pos=batch.get("mask_pos"))
+                               q_pos=batch.get("mask_pos"), sp=sp)
 
     def _embed(self, params: Params, tokens: torch.Tensor, tp: MeshCtx | None = None,
                decode: bool = False) -> torch.Tensor:
@@ -668,14 +737,15 @@ class LM(nn.Module):
         split = [d for d in (0, 1) if table.shape[d] != full[d]]
         return tp.gather_seq(table, dim=split[0]) if split else table
 
-    def _inputs(self, params: Params, batch: dict,
-                tp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    def _inputs(self, params: Params, batch: dict, tp: MeshCtx | None = None,
+                sp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor]:
         """The stack's input in the configuration's dtype (bf16 for every
         configuration of the catalog, the reference's cast) and its
         positions: ``embeds`` and ``positions`` (3, B, S) given (embeddings
         input), or the embedded ``tokens`` at 0..S-1 (B, S), stacked three
         times for M-RoPE. With ``tp`` the input is this rank's block of the
-        sequence (the positions stay whole)."""
+        sequence (the positions stay whole). With ``sp`` the tokens are the
+        sequence rank's block, at the global positions from its offset."""
         cfg = self.cfg
         if cfg.embeddings_input:
             h = batch["embeds"].to(dt(cfg))
@@ -683,30 +753,34 @@ class LM(nn.Module):
         tokens = batch["tokens"]
         B, S = tokens.shape
         h = self._embed(params, tokens, tp)
-        positions = torch.arange(S, dtype=torch.int32, device=h.device)[None].expand(B, S)
+        first = 0 if sp is None else sp.seq_rank * S
+        positions = torch.arange(first, first + S, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S)
         if cfg.rope_style == "mrope":
             positions = positions[None].expand(3, B, S)
         return h, positions
 
     def _run_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
                    train: bool = False, tp: MeshCtx | None = None,
-                   q_pos: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
+                   q_pos: torch.Tensor | None = None,
+                   sp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The family's layer stack (not the encoder-decoder's:
         ``_run_encdec``) over the embedded inputs h (B, S, D), positions
         (B, S) or for M-RoPE (3, B, S): (h, the MoE layers' summed auxiliary
-        loss, None for the other families)."""
+        loss, None for the other families). With ``sp``, h and the
+        positions are the sequence rank's block."""
         family = self.cfg.family
         if family == "ssm":
-            return self._run_ssm_stack(params, h, train=train, tp=tp), None
+            return self._run_ssm_stack(params, h, train=train, tp=tp, sp=sp), None
         if family == "hybrid":
             return self._run_hybrid_stack(params, h, positions=positions, train=train,
-                                          tp=tp), None
+                                          tp=tp, sp=sp), None
         return self._run_decoder_stack(params, h, positions=positions, train=train, tp=tp,
-                                       q_pos=q_pos)
+                                       q_pos=q_pos, sp=sp)
 
     def _run_decoder_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
                            train: bool = False, tp: MeshCtx | None = None,
-                           q_pos: torch.Tensor | None = None
+                           q_pos: torch.Tensor | None = None, sp: MeshCtx | None = None
                            ) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The layer stack: h (B, S, D) bf16, positions (B, S), or (3, B, S)
         for M-RoPE. Query and key positions are ``positions[0]``, for M-RoPE
@@ -720,8 +794,9 @@ class LM(nn.Module):
         block of the sequence, the positions whole. ``q_pos`` replaces the
         query and key positions (a batch's block on a mesh: the global
         batch's first temporal stream, which the reference masks every row
-        by)."""
-        S = positions.shape[-1]
+        by). With ``sp``, h and the positions are the sequence rank's block
+        (the windows the whole sequence's)."""
+        S = positions.shape[-1] * (1 if sp is None else sp.n_batch)
         cos, sin = self._rope(positions)
         if q_pos is None:
             q_pos = positions[0, 0] if self.cfg.rope_style == "mrope" else positions[0]
@@ -730,21 +805,22 @@ class LM(nn.Module):
         layers = _layers(self._tp_layers(params["layers"], tp))
         for lp, window in zip(layers, self._windows(S)):
             h, a = _checkpointed(self._dense_block, lp, h, train=train, cos=cos, sin=sin,
-                                 window=window, tp=tp, **train_pos)
+                                 window=window, tp=tp, sp=sp, **train_pos)
             if a is not None:
                 aux = a if aux is None else aux + a
         return h, aux
 
     def _run_ssm_stack(self, params: Params, h: torch.Tensor, *, train: bool = False,
-                       tp: MeshCtx | None = None) -> torch.Tensor:
+                       tp: MeshCtx | None = None, sp: MeshCtx | None = None) -> torch.Tensor:
         """The SSM stack: h + mamba2_mixer(rms_norm(h)) for each layer; with
         ``train``, each layer under ``torch.utils.checkpoint``."""
         for lp in _layers(self._tp_layers(params["layers"], tp)):
-            h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp)
+            h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp, sp=sp)
         return h
 
     def _run_hybrid_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
-                          train: bool = False, tp: MeshCtx | None = None) -> torch.Tensor:
+                          train: bool = False, tp: MeshCtx | None = None,
+                          sp: MeshCtx | None = None) -> torch.Tensor:
         """Zamba2: after every ``shared_attn_every`` Mamba2 layers, the one
         shared block (causal, unwindowed attention, then its SwiGLU MLP); the
         trailing ``n_layers mod shared_attn_every`` layers run with no shared
@@ -754,7 +830,9 @@ class LM(nn.Module):
         ``torch.utils.checkpoint`` (the reference checkpoints per group and
         per layer: the same numbers). With ``tp``, h is this rank's block of
         the sequence and the shared block's K/V weights are cut to the
-        rank's heads once a step."""
+        rank's heads once a step. With ``sp``, h is the sequence rank's
+        block: each Mamba2 layer relays its state and the shared block
+        gathers its keys over the batch axes."""
         cos, sin = self._rope(positions)
         E = self.cfg.shared_attn_every
         # "no window" is 0 for the flash kernel, None for gqa_attention (to
@@ -763,9 +841,10 @@ class LM(nn.Module):
             dict(cos=cos, sin=sin, window=0)
         shared = self._tp_layers(params["shared"], tp, "shared")
         for i, lp in enumerate(_layers(self._tp_layers(params["layers"], tp))):
-            h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp)
+            h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp, sp=sp)
             if (i + 1) % E == 0:
-                h, _ = _checkpointed(self._dense_block, shared, h, train=train, tp=tp, **attn)
+                h, _ = _checkpointed(self._dense_block, shared, h, train=train, tp=tp, sp=sp,
+                                     **attn)
         return h
 
     def _run_encdec(self, params: Params, batch: dict, *, train: bool = False,
@@ -999,7 +1078,8 @@ class LM(nn.Module):
         return out
 
     def decode_step(self, params: Params, cache: dict[str, torch.Tensor], batch: dict,
-                    ctx: MeshCtx | None = None) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+                    ctx: MeshCtx | None = None, seq_sharded: bool = False
+                    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
         """One token for the whole batch against the cache.
 
         batch: {"token": (B,) int, "cur_len": int}, or for embeddings input
@@ -1022,12 +1102,22 @@ class LM(nn.Module):
         over it. In the fallback layouts the attention runs on the rank's
         block of head_dim (its partial scores and out-projection summed
         over "model"), and a replicated MLP, MoE layer, mixer or head whole
-        on every rank."""
+        on every rank.
+
+        With ``seq_sharded`` (the batch does not fill the batch axes:
+        ``seq_ctx``, which the serve step checks), the token is the whole
+        batch on every rank and the K/V cache this rank's block of the
+        sequence (``cache_specs``): the rank that holds position
+        ``cur_len`` writes the new K/V, each rank attends on its block
+        (``gqa_attention(seq_split=)``), and the conv and SSM caches, which
+        the batch axes do not shard, step alike on every rank."""
         cfg = self.cfg
         tp = self.tp_ctx(ctx, serve=True)
+        sp = ctx if seq_sharded else None
         cur = int(batch["cur_len"])
-        if "k" in cache and not 0 <= cur < cache["k"].shape[2]:
-            raise ValueError(f"cur_len {cur} outside the {cache['k'].shape[2]}-long cache")
+        S = cache["k"].shape[2] * (1 if sp is None else sp.n_batch) if "k" in cache else 0
+        if "k" in cache and not 0 <= cur < S:
+            raise ValueError(f"cur_len {cur} outside the {S}-long cache")
         if cfg.embeddings_input:
             x = batch["embed"].to(dt(cfg))
         else:
@@ -1039,17 +1129,17 @@ class LM(nn.Module):
         if family == "ssm":
             h = self._decode_ssm(params, cache, h, tp)
         elif family == "hybrid":
-            h = self._decode_hybrid(params, cache, h, cur, tp)
+            h = self._decode_hybrid(params, cache, h, cur, tp, sp)
         elif family == "encdec":
             h = self._decode_encdec(params, cache, h, cur, tp)
         else:
-            h = self._decode_dense(params, cache, h, cur, tp)
+            h = self._decode_dense(params, cache, h, cur, tp, sp)
         return self._logits(params, h, tp), cache
 
     def _decode_attn(self, lp: dict, h: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur: int, *, window: int | None,
                      pos1: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-                     tp: MeshCtx | None = None) -> torch.Tensor:
+                     tp: MeshCtx | None = None, sp: MeshCtx | None = None) -> torch.Tensor:
         """The attention of one token against its layer's cache (B, S, KV,
         hd), the new K/V written at ``cur``: its output, whole. With
         ``tp``, on this rank's heads (the out-projection's partial sums,
@@ -1057,27 +1147,32 @@ class LM(nn.Module):
         cache holds a block of head_dim, gathered to read. In the fallback
         layout the weights and the cache hold this rank's block of head_dim
         (``_qkv`` with ``hd_split``; ``gqa_attention`` sums the partial
-        scores), or all of it where head_dim does not divide "model"."""
-        S = k_cache.shape[1]  # the per-layer cache is (B, S, KV, hd)
+        scores), or all of it where head_dim does not divide "model". With
+        ``sp`` the cache is this sequence rank's block: the new K/V is
+        written where the rank holds ``cur``, and the softmax runs over the
+        ranks' blocks (``gqa_attention(seq_split=)``)."""
+        S = k_cache.shape[1]  # the per-layer cache is (B, S, KV, hd), or a rank's block of S
+        first = 0 if sp is None else sp.seq_rank * S
+        mine = 0 <= cur - first < S  # this rank holds position cur
         hd_split = tp if self._hd_fallback(tp) and k_cache.shape[-1] != self.cfg.hd else None
         q, k_new, v_new = self._qkv(lp, h, cos, sin, hd_split=hd_split)
-        k_pos = torch.arange(S, dtype=torch.int32, device=h.device)
-        if not self._expands(tp):
-            k_cache[:, cur] = k_new[:, 0]
-            v_cache[:, cur] = v_new[:, 0]
-            k, v = k_cache, v_cache
-        else:
-            def written(c: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
-                if c.shape[-1] == new.shape[-1]:
-                    c[:, cur] = new[:, 0]
-                    return c
-                c[:, cur] = new[:, 0].chunk(tp.n_model, dim=-1)[tp.model_rank]
-                return tp.all_gather(c, dim=-1)
+        k_pos = torch.arange(first, first + S, dtype=torch.int32, device=h.device)
 
-            k, v = expand_kv_to_local_heads(written(k_cache, k_new), written(v_cache, v_new),
-                                            q.shape[2], tp)
+        def written(c: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+            """The cache with the new K or V at ``cur`` (where this rank holds
+            it), whole along head_dim: where the rank expands the KV heads its
+            cache holds a block of head_dim, written and gathered."""
+            split = c.shape[-1] != new.shape[-1]
+            if mine:
+                c[:, cur - first] = new[:, 0].chunk(tp.n_model, dim=-1)[tp.model_rank] \
+                    if split else new[:, 0]
+            return tp.all_gather(c, dim=-1) if split else c
+
+        k, v = written(k_cache, k_new), written(v_cache, v_new)
+        if self._expands(tp):
+            k, v = expand_kv_to_local_heads(k, v, q.shape[2], tp)
         o = gqa_attention(q, k, v, q_pos=pos1, k_pos=k_pos, causal=True, window=window,
-                          hd_split=hd_split)
+                          hd_split=hd_split, seq_split=sp)
         return self._summed(self._out_proj(lp, o), tp, hd_split)
 
     def _summed(self, y: torch.Tensor, tp: MeshCtx | None,
@@ -1091,11 +1186,11 @@ class LM(nn.Module):
 
     def _decode_block(self, lp: dict, h: torch.Tensor, k_cache: torch.Tensor,
                       v_cache: torch.Tensor, cur: int, tp: MeshCtx | None = None,
-                      **attn) -> torch.Tensor:
+                      sp: MeshCtx | None = None, **attn) -> torch.Tensor:
         """A pre-norm attention block's decode step: attention against its
         cache, then its MLP."""
         x = rms_norm(h, lp["ln1"], self.cfg.norm_eps)
-        h = h + self._decode_attn(lp, x, k_cache, v_cache, cur, tp=tp, **attn)
+        h = h + self._decode_attn(lp, x, k_cache, v_cache, cur, tp=tp, sp=sp, **attn)
         return h + self._mlp(lp, rms_norm(h, lp["ln2"], self.cfg.norm_eps), tp, decode=True)[0]
 
     def _decode_rope(self, h: torch.Tensor, cur: int) -> dict:
@@ -1109,11 +1204,12 @@ class LM(nn.Module):
         return {"pos1": pos1, "cos": cos, "sin": sin}
 
     def _decode_dense(self, params: Params, cache: dict[str, torch.Tensor],
-                      h: torch.Tensor, cur: int, tp: MeshCtx | None = None) -> torch.Tensor:
+                      h: torch.Tensor, cur: int, tp: MeshCtx | None = None,
+                      sp: MeshCtx | None = None) -> torch.Tensor:
         rope = self._decode_rope(h, cur)
-        windows = self._windows(cache["k"].shape[2])
+        windows = self._windows(cache["k"].shape[2] * (1 if sp is None else sp.n_batch))
         for i, lp in enumerate(_layers(self._tp_layers(params["layers"], tp, decode=True))):
-            h = self._decode_block(lp, h, cache["k"][i], cache["v"][i], cur, tp,
+            h = self._decode_block(lp, h, cache["k"][i], cache["v"][i], cur, tp, sp,
                                    window=windows[i], **rope)
         return h
 
@@ -1146,9 +1242,11 @@ class LM(nn.Module):
         return h
 
     def _decode_hybrid(self, params: Params, cache: dict[str, torch.Tensor],
-                       h: torch.Tensor, cur: int, tp: MeshCtx | None = None) -> torch.Tensor:
+                       h: torch.Tensor, cur: int, tp: MeshCtx | None = None,
+                       sp: MeshCtx | None = None) -> torch.Tensor:
         """The hybrid's decode step: the shared block after each group of
-        Mamba2 layers attends against its group's K/V, with no window."""
+        Mamba2 layers attends against its group's K/V, with no window (with
+        ``sp``, this sequence rank's block of it)."""
         rope = self._decode_rope(h, cur)
         E = self.cfg.shared_attn_every
         shared = self._tp_layers(params["shared"], tp, "shared", decode=True)
@@ -1156,7 +1254,7 @@ class LM(nn.Module):
             h = self._decode_mamba(lp, h, cache, i, tp)
             if (i + 1) % E == 0:
                 g = i // E
-                h = self._decode_block(shared, h, cache["k"][g], cache["v"][g], cur, tp,
+                h = self._decode_block(shared, h, cache["k"][g], cache["v"][g], cur, tp, sp,
                                        window=None, **rope)
         return h
 

@@ -31,9 +31,21 @@ every family: on the heads, FFN, experts, ``d_inner`` and SSM heads where
 they divide it, with the embedding and head on d_model where the vocab
 does not; where they do not, the reference's fallback layouts (head_dim
 sharded, or the leaf replicated), which the model gathers whole and runs
-on the rank's block of the sequence (``LM.tp_ctx``). The sequence sharding
-of ``token_spec`` is a later item (ROADMAP A); its specs are computed all
-the same.
+on the rank's block of the sequence (``LM.tp_ctx``).
+
+A batch that does not fill the batch axes (the reference's ``long_500k``,
+B = 1) shards the sequence dim over them instead (``token_spec``,
+``seq_sharded``): a rank holds the contiguous block of the sequence at its
+flattened index over the batch axes, pod outermost (``seq_rank``), split
+again over "model" where Megatron-SP runs. The model then crosses the
+ranks' blocks with the sequence collectives over the batch axes: the keys'
+gather (``gather_seq(axes=batch_axes)``), the halo of the previous rank's
+last rows (``halo``), the rank-to-rank relay of a carried state in
+sequence order (``relay_in``/``relay_out``), and the f32 max and sum over
+them (``all_reduce(op="max")``, ``seq_sum``). Sequence-sharded serving runs
+for the dense, SSM and hybrid families (``LM.seq_ctx``); training, the other
+families and the fallback layouts raise ``NotImplementedError`` naming
+their ROADMAP items (``SEQ_TRAINING``, ``SEQ_FAMILIES``, ``SEQ_FALLBACK``).
 """
 from __future__ import annotations
 
@@ -46,8 +58,14 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
-SEQUENCE_SHARDING = ("the sequence sharding of MeshCtx.token_spec, for a batch that does not "
-                     "fill the batch axes (ROADMAP A, \"Sequence sharding\")")
+# what sequence sharding (a batch that does not fill the batch axes) does not run yet
+SEQ_TRAINING = ("training with sequence sharding: the backward through the keys' gather, the halo "
+                "and the relay (ROADMAP A, \"Sequence-sharded training\")")
+SEQ_FAMILIES = ("sequence sharding for the MoE, VLM and encoder-decoder families (ROADMAP A, "
+                "\"Sequence sharding for the other families and the fallback layouts\")")
+SEQ_FALLBACK = ("sequence sharding with a fallback layout over \"model\" (head_dim-sharded "
+                "attention, or a replicated FFN, mixer or head; ROADMAP A, \"Sequence sharding "
+                "for the other families and the fallback layouts\")")
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 # the attribute ``launch.mesh.make_shared_card_mesh`` sets on the CUDA mesh it
 # builds over gloo (which takes every collective below for CUDA tensors in the
@@ -188,10 +206,17 @@ class MeshCtx:
     def replicated(self) -> NamedSharding:
         return self.ns()
 
+    def seq_sharded(self, global_batch: int) -> bool:
+        """Whether a batch of ``global_batch`` rows does not fill the batch
+        axes (fewer rows than ranks, or a count they do not divide), so that
+        the sequence dim is sharded over them instead."""
+        return not (global_batch >= self.n_batch and global_batch % self.n_batch == 0)
+
     def token_spec(self, global_batch: int, extra_dims: int = 0) -> tuple:
         """(B, S, ...) activation spec: shard batch if it fills the batch
-        axes, otherwise shard the sequence dim (context/sequence parallel)."""
-        if global_batch >= self.n_batch and global_batch % self.n_batch == 0:
+        axes, otherwise shard the sequence dim (context/sequence parallel:
+        the rank's block is the one at ``seq_rank``)."""
+        if not self.seq_sharded(global_batch):
             return (self.batch_axes, None) + (None,) * extra_dims
         return (None, self.batch_axes) + (None,) * extra_dims
 
@@ -222,6 +247,14 @@ class MeshCtx:
     def model_rank(self) -> int:
         return self.index(("model",))
 
+    @property
+    def seq_rank(self) -> int:
+        """This rank's place in the sequence where the sequence is sharded
+        over the batch axes: its flattened index over them, pod outermost
+        (where ``place`` puts ``Shard(1)`` of the spec ``(None,
+        batch_axes)``)."""
+        return self.index(self.batch_axes)
+
     def _comm(self, kind: str, axes: tuple[str, ...], x: torch.Tensor, fn) -> torch.Tensor:
         """``fn(x, group)`` over the group of ``axes``, counted by kind."""
         self.counts[kind] = self.counts.get(kind, 0) + 1
@@ -241,14 +274,19 @@ class MeshCtx:
                    dim: int = 0) -> torch.Tensor:
         """The blocks of ``axes``' ranks concatenated along ``dim``, in the
         order of ``index(axes)``."""
-        n = self.size(tuple(axes))
+        return self._gather("all_gather", x, tuple(axes), dim)
+
+    def _gather(self, kind: str, x: torch.Tensor, axes: tuple[str, ...],
+                dim: int) -> torch.Tensor:
+        """``all_gather``, counted as ``kind``."""
+        n = self.size(axes)
 
         def run(t, group):
             out = t.new_empty((n * t.shape[0], *t.shape[1:]))
             _all_gather(out, t, group=group)
             return out
 
-        return self._comm("all_gather", tuple(axes), x.movedim(dim, 0), run).movedim(0, dim)
+        return self._comm(kind, axes, x.movedim(dim, 0), run).movedim(0, dim)
 
     def reduce_scatter(self, x: torch.Tensor, axes: tuple[str, ...] = ("model",),
                        dim: int = 0, op: str = "sum") -> torch.Tensor:
@@ -274,6 +312,55 @@ class MeshCtx:
             return out
 
         return self._comm("all_to_all", tuple(axes), x, run)
+
+    # the sequence over the batch axes (module docstring)
+    def halo(self, x: torch.Tensor, k: int, dim: int = 1) -> torch.Tensor:
+        """The last ``k`` rows along ``dim`` of the previous sequence rank's
+        ``x`` (zeros on the first rank): what a causal window of k + 1 rows
+        reads before this rank's block. Every rank's last rows are
+        all-gathered (k rows a rank: a point-to-point exchange would save
+        nothing at this size)."""
+        tail = x.narrow(dim, x.shape[dim] - k, k)
+        every = self._gather("halo", tail, self.batch_axes, dim)
+        r = self.seq_rank
+        return every.narrow(dim, (r - 1) * k, k) if r else torch.zeros_like(tail)
+
+    def relay_in(self, start: torch.Tensor) -> torch.Tensor:
+        """The tensor that the previous sequence rank passes on with
+        ``relay_out`` (a state carried in sequence order), or ``start`` on
+        the first rank; shaped and typed like ``start``. Each rank calls
+        ``relay_in``, computes, then ``relay_out``: rank r waits for rank
+        r - 1 alone, so the hops run in sequence order."""
+        r = self.seq_rank
+        if r == 0:
+            return start
+        group = self.group(self.batch_axes)
+        buf = torch.empty(start.shape, dtype=start.dtype,
+                          device="cpu" if _on_host(start, group) else start.device)
+        dist.recv(buf, src=dist.get_global_rank(group, r - 1), group=group)
+        return buf.to(start.device)
+
+    def relay_out(self, x: torch.Tensor) -> None:
+        """``x`` sent to the next sequence rank (its ``relay_in``); nothing on
+        the last rank. Counted once a relay on every rank."""
+        self.counts["relay"] = self.counts.get("relay", 0) + 1
+        r = self.seq_rank
+        if r == self.n_batch - 1:
+            return
+        group = self.group(self.batch_axes)
+        dist.send(x.cpu() if _on_host(x, group) else x.contiguous(),
+                  dst=dist.get_global_rank(group, r + 1), group=group)
+
+    def seq_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The f32 sum over the batch axes of each rank's ``x``, added in
+        sequence order (rank 0's first): every rank's part is all-gathered
+        and added here, so that the order is fixed, where an all-reduce's
+        is the backend's. f32."""
+        parts = self.all_gather(x.float()[None], self.batch_axes).unbind(0)
+        out = parts[0]
+        for part in parts[1:]:
+            out = out + part
+        return out
 
     # the model's layout changes over "model", differentiable (module docstring)
     def gather_seq(self, x: torch.Tensor, dim: int = 1,
@@ -319,6 +406,13 @@ class MeshCtx:
         same loss, and the step averages the gradients over the batch axes,
         so the backward scales by 1 / n_model."""
         return _PmeanAll.apply(x, self)
+
+
+def _on_host(x: torch.Tensor, group) -> bool:
+    """Whether a point-to-point transfer of ``x`` on ``group`` is staged
+    through host memory: a CUDA tensor over gloo (a shared-card mesh),
+    whose send and receive take host tensors."""
+    return x.is_cuda and "gloo" in dist.get_backend(group)
 
 
 def _f32_sum(op, x: torch.Tensor, *args, axes: tuple[str, ...] = ("model",)) -> torch.Tensor:

@@ -25,6 +25,18 @@ are cut to the rank's heads and channels (its ``x`` channels and the shared
 B and C); the gated RMSNorm's mean over ``d_inner`` sums its squares over
 "model"; the output is the out-projection's partial sums.
 
+With a ``MeshCtx`` whose batch axes shard the sequence (``sp``: a batch
+that does not fill them), the mixer runs on this rank's block of the
+sequence. The causal conv reads the previous rank's last K - 1 rows of its
+input (``MeshCtx.halo``; zeros on the first rank) where the whole sequence
+pads zeros, and the carried state crosses the ranks by a relay
+(``MeshCtx.relay_in``/``relay_out``): each rank computes its chunks' own
+contributions and decays at once, receives the state entering its first
+chunk from the previous rank, runs its share of the same loop over the
+chunks and passes its last state on, one (B, G, Hg, N, P) f32 state a hop.
+Both run the same operations on the same values as the whole sequence's
+mixer, so the rank's rows equal its rows bit for bit.
+
 Parameter layout per layer (the caller stacks a leading L axis):
   wz, wx (D, d_inner) | wB, wC (D, G*N) | wdt (D, H) | dt_bias (H,)
   A_log (H,) | Dskip (H,) | conv_w (K, conv_dim) | norm (d_inner,)
@@ -53,11 +65,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _causal_conv(u: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _causal_conv(u: torch.Tensor, w: torch.Tensor,
+                 before: torch.Tensor | None = None) -> torch.Tensor:
     """Depthwise causal conv1d: u (B, L, C), w (K, C) -> (B, L, C): K
-    shifted products added in f32 in the order j = 0..K-1, cast to u's dtype."""
+    shifted products added in f32 in the order j = 0..K-1, cast to u's
+    dtype. ``before`` (B, K-1, C) holds the K - 1 rows before u (a
+    sequence rank's halo), zeros where None."""
     K, L = w.shape[0], u.shape[1]
-    pad = F.pad(u, (0, 0, K - 1, 0))
+    pad = F.pad(u, (0, 0, K - 1, 0)) if before is None else torch.cat([before, u], dim=1)
     out = torch.zeros(u.shape, dtype=torch.float32, device=u.device)
     for j in range(K):
         out = out + pad[:, j:j + L].float() * w[j].float()
@@ -96,23 +111,28 @@ def _channels(cfg: ArchConfig, tp: "MeshCtx", device: torch.device) -> torch.Ten
 
 
 def mamba2_mixer(p: dict, x: torch.Tensor, cfg: ArchConfig,
-                 tp: "MeshCtx | None" = None) -> torch.Tensor:
+                 tp: "MeshCtx | None" = None, sp: "MeshCtx | None" = None) -> torch.Tensor:
     """x (B, L, D) -> (B, L, D). Chunked SSD over the full sequence. With
-    ``tp``, on this rank's heads: the out-projection's partial sums."""
+    ``tp``, on this rank's heads: the out-projection's partial sums. With
+    ``sp``, x is this rank's block of a sequence sharded over the batch
+    axes (module docstring): L must be a multiple of the chunk."""
     B, L, D = x.shape
     P, N = cfg.ssm_headdim, cfg.ssm_state
-    Q = min(cfg.ssm_chunk, L)
+    Q = min(cfg.ssm_chunk, L) if sp is None else cfg.ssm_chunk
     if L % Q:
-        raise ValueError(f"sequence length {L} is not a multiple of the chunk {Q}")
+        raise ValueError(f"sequence length {L} is not a multiple of the chunk {Q}"
+                         + (f" (this rank's block of a sequence of {L * sp.n_batch} sharded "
+                            f"over {sp.n_batch} ranks)" if sp is not None else ""))
     p, H, d_in = _local(p, cfg, tp)
     z, xbc, dt_raw = _in_proj(p, x)
-    xbc = F.silu(_causal_conv(xbc, p["conv_w"]).float()).to(x.dtype)
+    before = None if sp is None else sp.halo(xbc, p["conv_w"].shape[0] - 1)
+    xbc = F.silu(_causal_conv(xbc, p["conv_w"], before).float()).to(x.dtype)
     xin, Bp, Cp = xbc[..., :d_in], xbc[..., d_in:d_in + G * N], xbc[..., d_in + G * N:]
 
     dt_ = softplus(dt_raw.float() + p["dt_bias"].float())
     A = -torch.exp(p["A_log"].float())
     xh = xin.reshape(B, L, H, P)
-    y = _ssd_chunked(xh, dt_, A, Bp.reshape(B, L, G, N), Cp.reshape(B, L, G, N), Q)
+    y = _ssd_chunked(xh, dt_, A, Bp.reshape(B, L, G, N), Cp.reshape(B, L, G, N), Q, sp)
     y = y + xh.float() * p["Dskip"].float()[None, None, :, None]
     y = y.reshape(B, L, d_in).to(x.dtype)
     y = y * F.silu(z.float()).to(x.dtype)
@@ -133,9 +153,10 @@ def _gated_norm(y: torch.Tensor, norm: torch.Tensor, eps: float,
 
 
 def _ssd_chunked(x: torch.Tensor, dt_: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
-                 Cm: torch.Tensor, Q: int) -> torch.Tensor:
+                 Cm: torch.Tensor, Q: int, sp: "MeshCtx | None" = None) -> torch.Tensor:
     """Minimal SSD. x (B, L, H, P) bf16 or f32, dt (B, L, H) f32, A (H,),
-    Bm/Cm (B, L, G, N). Returns y (B, L, H, P) f32."""
+    Bm/Cm (B, L, G, N). Returns y (B, L, H, P) f32. With ``sp`` the
+    sequence rank's block, its entering state relayed (``_inter_chunk``)."""
     B, L, H, P = x.shape
     N = Bm.shape[-1]
     nC, Hg = L // Q, H // G
@@ -144,7 +165,7 @@ def _ssd_chunked(x: torch.Tensor, dt_: torch.Tensor, A: torch.Tensor, Bm: torch.
     Bc = Bm.reshape(B, nC, Q, G, N).float()
     Cc = Cm.reshape(B, nC, Q, G, N).float()
     cum = torch.cumsum(dtc * A.reshape(1, 1, 1, G, Hg), dim=2)  # running log-decay, <= 0
-    y = _intra_chunk(xc, dtc, Bc, Cc, cum) + _inter_chunk(xc, dtc, Bc, Cc, cum)
+    y = _intra_chunk(xc, dtc, Bc, Cc, cum) + _inter_chunk(xc, dtc, Bc, Cc, cum, sp)
     return y.reshape(B, L, G * Hg, P)
 
 
@@ -165,10 +186,13 @@ def _intra_chunk(xc: torch.Tensor, dtc: torch.Tensor, Bc: torch.Tensor, Cc: torc
 
 
 def _inter_chunk(xc: torch.Tensor, dtc: torch.Tensor, Bc: torch.Tensor, Cc: torch.Tensor,
-                 cum: torch.Tensor) -> torch.Tensor:
+                 cum: torch.Tensor, sp: "MeshCtx | None" = None) -> torch.Tensor:
     """The carried state's term: each chunk's own contribution to the state
     (every chunk at once), the state entering each chunk (the one loop over
-    chunks), and y[q] = (C_q . state) exp(cum_q). -> (B, nC, Q, G, Hg, P)."""
+    chunks), and y[q] = (C_q . state) exp(cum_q). -> (B, nC, Q, G, Hg, P).
+    With ``sp`` the loop starts from the state the previous sequence rank
+    ended with and passes this rank's last state on (the relay: one state a
+    hop, not every chunk's)."""
     B, nC, Q, G_, Hg, P = xc.shape
     N = Bc.shape[-1]
     # s_new[n, p] = sum_k B[k, n] (dt_k exp(cum_end - cum_k) x_k)[p]
@@ -179,10 +203,14 @@ def _inter_chunk(xc: torch.Tensor, dtc: torch.Tensor, Bc: torch.Tensor, Cc: torc
     s_new = s_new.permute(0, 1, 2, 4, 3, 5)                          # (B, nC, G, Hg, N, P)
     chunk_decay = torch.exp(cum[:, :, -1])[..., None, None]          # (B, nC, G, Hg, 1, 1)
     state = torch.zeros((B, G_, Hg, N, P), dtype=torch.float32, device=xc.device)
+    if sp is not None:
+        state = sp.relay_in(state)
     entering = []
     for c in range(nC):
         entering.append(state)
         state = chunk_decay[:, c] * state + s_new[:, c]
+    if sp is not None:
+        sp.relay_out(state)
     states = torch.stack(entering, dim=1)                             # (B, nC, G, Hg, N, P)
     states = states.permute(0, 1, 2, 4, 3, 5).reshape(B, nC, G_, N, Hg * P)
     cs = (Cc.permute(0, 1, 3, 2, 4) @ states).reshape(B, nC, G_, Q, Hg, P)

@@ -20,9 +20,13 @@ heads, FFN, experts, SSM heads or the vocab with d_model do not divide
 "model", the model runs the reference's fallback layouts (head_dim
 sharded, or the leaf replicated: ``LM``); a gathered head_dim-sharded leaf
 gets its gradient summed back by the gather's backward, a replicated one
-by ``_sum_over_model``, each once. What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item: the sequence sharding of a
-batch that does not fill the batch axes.
+by ``_sum_over_model``, each once. A batch that does not fill the batch
+axes (the reference's ``long_500k``, B = 1) shards the sequence over them
+to prefill and decode (``LM.seq_ctx``): each rank runs its block of the
+sequence, and every rank returns the logits of the whole batch. What the
+port does not run yet raises ``NotImplementedError`` naming its ROADMAP
+item: sequence-sharded training, and sequence sharding for the MoE, VLM and
+encoder-decoder families and with a fallback layout over "model".
 """
 from __future__ import annotations
 
@@ -32,7 +36,6 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.models.lm import LM, Params
 from repro_torch.models.registry import input_specs
 from repro_torch.models.sharding import (
-    SEQUENCE_SHARDING,
     MeshCtx,
     NamedSharding,
     on_model,
@@ -125,7 +128,7 @@ def make_train_step(model: LM, ctx: MeshCtx | None = None, opt_cfg: AdamWConfig 
     zspecs = adamw_specs(pspecs, model.param_template(), ctx)["m"]
 
     def sharded_train_step(params: Tree, opt_state: Tree, batch: dict):
-        bspecs, dp_axes = _batch_layout(model, ctx, batch, "train")
+        bspecs, dp_axes, _ = _batch_layout(model, ctx, batch, "train", tp)
         params = tree_map(place, params, pspecs)
         local = tree_map(lambda p: p.to_local(), params)
         block = {k: ctx.local(v, bspecs[k]) for k, v in batch.items()}
@@ -161,11 +164,18 @@ def make_prefill_step(model: LM, ctx: MeshCtx | None = None):
     value; whole for a pure data-parallel model, else laid out as
     ``param_specs``, the last position's hidden state taken from the rank
     that holds it and the logits gathered over "model") and the logits are
-    gathered over the batch's axes: every rank returns all B rows."""
+    gathered over the batch's axes: every rank returns all B rows. Where
+    the batch does not fill the batch axes (``LM.seq_ctx``) each rank runs
+    its block of the sequence; the last position's hidden state is taken
+    from the last sequence rank (of the model group's blocks, the last), and
+    every rank returns the B rows whole."""
     @torch.no_grad()
-    def local_prefill(params: Params, batch: dict, tp: MeshCtx | None = None) -> torch.Tensor:
-        h, _ = model._forward(params, batch, tp=tp)
-        last = h[:, -1:] if tp is None else tp.gather_seq(h[:, -1:])[:, -1:]
+    def local_prefill(params: Params, batch: dict, tp: MeshCtx | None = None,
+                      sp: MeshCtx | None = None) -> torch.Tensor:
+        h, _ = model._forward(params, batch, tp=tp, sp=sp)
+        # the ranks that hold blocks of the sequence, in its order: the last one holds its end
+        axes = (sp.batch_axes if sp is not None else ()) + (("model",) if tp is not None else ())
+        last = h[:, -1:] if not axes else (tp or sp).gather_seq(h[:, -1:], axes=axes)[:, -1:]
         return model._logits(params, last, tp)
 
     if ctx is None:
@@ -174,10 +184,11 @@ def make_prefill_step(model: LM, ctx: MeshCtx | None = None):
     pspecs = model.param_specs(ctx) if tp is not None else None
 
     def prefill_step(params: Params, batch: dict) -> torch.Tensor:
-        bspecs, dp_axes = _batch_layout(model, ctx, batch, "prefill")
+        bspecs, dp_axes, sp = _batch_layout(model, ctx, batch, "prefill", tp)
         local = _local_params(params, pspecs, ctx)
-        logits = local_prefill(local, {k: ctx.local(v, bspecs[k]) for k, v in batch.items()}, tp)
-        return ctx.all_gather(logits, dp_axes)
+        logits = local_prefill(local, {k: ctx.local(v, bspecs[k]) for k, v in batch.items()},
+                               tp, sp)
+        return logits if sp is not None else ctx.all_gather(logits, dp_axes)
 
     return prefill_step
 
@@ -193,7 +204,10 @@ def make_serve_step(model: LM, ctx: MeshCtx | None = None):
     rank's blocks of ``param_specs`` (with ``serve=True`` for a pure
     data-parallel model, whose decode the reference runs tensor-parallel
     on them) and the cache's heads are sharded over it
-    (``LM.decode_step``); the logits are gathered over the batch axes."""
+    (``LM.decode_step``); the logits are gathered over the batch axes.
+    Where the batch does not fill the batch axes (``LM.seq_ctx``) the token
+    is whole on every rank, the K/V cache's sequence is sharded over them
+    (``cache_specs``), and every rank returns the B rows whole."""
     @torch.no_grad()
     def serve_step(params: Params, cache: dict, batch: dict):
         return model.decode_step(params, cache, batch)
@@ -207,14 +221,17 @@ def make_serve_step(model: LM, ctx: MeshCtx | None = None):
     def sharded_serve_step(params: Params, cache: dict, batch: dict):
         key = "embed" if "embed" in batch else "token"
         B, S = batch[key].shape[0], cache["k"].shape[2] if "k" in cache else 0
-        if not (B >= ctx.n_batch and B % ctx.n_batch == 0):
-            raise NotImplementedError(SEQUENCE_SHARDING)
+        sp = model.seq_ctx(ctx, B, tp)
+        if sp is not None and S % ctx.n_batch:
+            raise ValueError(f"a {S}-long cache does not split over {ctx.n_batch} batch ranks")
         cspecs = model.cache_specs(B, S, ctx)
         blocks = {k: ctx.local(v, cspecs[k]) for k, v in cache.items()}
-        tok = ctx.local(batch[key], ctx.ns(ctx.batch_axes, *([None] * (batch[key].ndim - 1))))
+        rows = ctx.token_spec(B)[:1]  # the batch axes, or None: the token whole on every rank
+        tok = ctx.local(batch[key], ctx.ns(*rows, *([None] * (batch[key].ndim - 1))))
         logits, _ = model.decode_step(_local_params(params, pspecs, ctx), blocks,
-                                      {key: tok, "cur_len": batch["cur_len"]}, ctx)
-        return ctx.all_gather(logits, ctx.batch_axes), cache
+                                      {key: tok, "cur_len": batch["cur_len"]}, ctx,
+                                      seq_sharded=sp is not None)
+        return (logits if sp is not None else ctx.all_gather(logits, ctx.batch_axes)), cache
 
     return sharded_serve_step
 
@@ -257,20 +274,25 @@ def _sum_over_model(grads: Tree, pspecs: Tree, ctx: MeshCtx) -> Tree:
     return tree_map(lambda _: next(leaves), grads)
 
 
-def _batch_layout(model: LM, ctx: MeshCtx, batch: dict,
-                  kind: str) -> tuple[dict[str, NamedSharding], tuple[str, ...]]:
-    """The global ``batch``'s shardings (``batch_shardings``) and the mesh
-    axes its batch dim is sharded over; raises where the batch does not
-    fill the batch axes (the reference shards the sequence there), and
-    where a sequence (the tokens or embeddings, the encoder's audio frames)
-    does not split over a "model" axis that shards it."""
+def _batch_layout(model: LM, ctx: MeshCtx, batch: dict, kind: str, tp: MeshCtx | None
+                  ) -> tuple[dict[str, NamedSharding], tuple[str, ...], MeshCtx | None]:
+    """The global ``batch``'s shardings (``batch_shardings``), the mesh axes
+    its batch dim is sharded over, and the step's sequence-sharding context
+    (``LM.seq_ctx``, with the step's ``tp``: None where the batch fills the
+    batch axes, () its axes then); raises where what the step needs does
+    not run yet, and where a sequence (the tokens or embeddings, the
+    encoder's audio frames) does not split over the axes that shard it."""
     seq = batch["tokens" if "tokens" in batch else "embeds"]
     B, S = seq.shape[:2]
     bspecs = batch_shardings(model.cfg, ShapeConfig("step", S, B, kind), ctx, model)
     dp_axes = bspecs["tokens" if "tokens" in bspecs else "embeds"].spec[0]
-    if dp_axes is None:
-        raise NotImplementedError(f"a batch of {B} on {ctx.n_batch} batch ranks: "
-                                  f"{SEQUENCE_SHARDING}")
+    sp = model.seq_ctx(ctx, B, tp, train=kind == "train")
+    if sp is not None:
+        n = ctx.n_batch * (ctx.n_model if tp is not None else 1)
+        if S % n:
+            raise ValueError(f"a sequence of {S} does not split over {ctx.n_batch} batch ranks"
+                             + (f" x model={ctx.n_model}" if tp is not None else ""))
+        return {k: bspecs[k] for k in batch}, (), sp
     if "model" not in dp_axes and ctx.n_model > 1:
         lengths = {"a sequence": S}
         if "audio_embeds" in batch:
@@ -278,7 +300,7 @@ def _batch_layout(model: LM, ctx: MeshCtx, batch: dict,
         for what, n in lengths.items():
             if n % ctx.n_model:
                 raise ValueError(f"{what} of {n} does not split over model={ctx.n_model}")
-    return {k: bspecs[k] for k in batch}, tuple(dp_axes)
+    return {k: bspecs[k] for k in batch}, tuple(dp_axes), None
 
 
 def _mean(x: torch.Tensor, ctx: MeshCtx, axes: tuple[str, ...]) -> torch.Tensor:

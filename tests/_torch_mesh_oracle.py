@@ -11,7 +11,11 @@ jitted with the shardings of ``training_state_specs`` and
 asked, ``make_prefill_step(model, ctx)`` with the model's attention swapped
 for the reference's ``flash_attention_ref`` at the layer's window (the
 port's prefill attends with the flash kernel: ``tests/test_torch_models.py``),
-compiled with every bf16 rounding kept.
+compiled with every bf16 rounding kept. ``reference_seq_run`` runs the
+reference's ``make_prefill_step`` and ``make_serve_step`` at B = 1, which
+shards the sequence over the batch axes (``token_spec``, ``cache_specs``),
+as ``launch/dryrun.py`` jits them, for several archs and meshes in one
+subprocess.
 """
 from __future__ import annotations
 
@@ -102,6 +106,80 @@ _SCRIPT = textwrap.dedent(
 )
 
 
+_SEQ_SCRIPT = textwrap.dedent(
+    """
+    import dataclasses, json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n}"
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import AxisType
+    import repro.models.lm as jax_lm
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeConfig
+    from repro.kernels.flash_attention.ref import flash_attention_ref
+    from repro.models.registry import build_model
+    from repro.models.sharding import MeshCtx
+    from repro.train.steps import batch_shardings, make_prefill_step, make_serve_step
+
+    src, meta = np.load(sys.argv[1]), json.loads(open(sys.argv[3]).read())
+    exact = {{"xla_allow_excess_precision": False}}
+    gqa = jax_lm.gqa_attention
+    out = {{}}
+    for label, shape, names, arch, m in [(label, shape, names, arch, m)
+                                         for label, (shape, names) in {meshes}.items()
+                                         for arch, m in meta.items()]:
+        n = int(np.prod(shape))
+        ctx = MeshCtx(jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * len(shape),
+                                    devices=jax.devices()[:n]))
+        cfg = dataclasses.replace(get_arch(m["arch"]).reduced(), **m["overrides"])
+        model = build_model(cfg, max_pos=m["max_pos"])
+        model.pure_dp = False
+        flat, tree = jax.tree_util.tree_flatten_with_path(model.param_shapes())
+        name = lambda path: ".".join(k.key for k in path)
+        params = jax.tree.unflatten(tree, [jnp.asarray(src[f"{{arch}}/p:" + name(p)], sd.dtype)
+                                           for p, sd in flat])
+        pspecs = model.param_specs(ctx, serve=True)
+        tokens = jnp.asarray(src[f"{{arch}}/tokens"])
+        B, S = tokens.shape
+        bsh = batch_shardings(cfg, ShapeConfig("t", S, B, "prefill"), ctx)
+        sw = cfg.sliding_window
+        def attention(q, k, v, *, q_pos, k_pos, causal=True, window=None, ctx=None, **_):
+            G = q.shape[2] // k.shape[2]
+            qh, kh, vh = (x.transpose(0, 2, 1, 3) for x in
+                          (q, jnp.repeat(k, G, axis=2), jnp.repeat(v, G, axis=2)))
+            ref = lambda w: flash_attention_ref(qh, kh, vh, causal=causal,
+                                                window=w).transpose(0, 2, 1, 3)
+            return ref(0) if not sw else jax.lax.cond(window == sw, lambda: ref(sw),
+                                                      lambda: ref(0))
+        # the prefill attends through the flash oracle (the port's prefill: the flash kernel)
+        jax_lm.gqa_attention = attention
+        fn = jax.jit(make_prefill_step(model, ctx), in_shardings=(pspecs, {{"tokens": bsh["tokens"]}}),
+                     out_shardings=ctx.replicated())
+        batch = {{"tokens": tokens}}
+        out[f"{{label}}/{{arch}}/prefill"] = np.asarray(fn.lower(params, batch).compile(exact)(
+            params, batch))
+        jax_lm.gqa_attention = gqa
+        cache = {{k[len(arch) + 3:]: jnp.asarray(src[k], jnp.float32 if k.endswith(":ssm") else
+                                                  jnp.bfloat16)
+                  for k in src.files if k.startswith(f"{{arch}}/c:")}}
+        L = cache["k"].shape[2] if "k" in cache else 0
+        dsh = batch_shardings(cfg, ShapeConfig("t", L, B, "decode"), ctx)
+        cspecs = model.cache_specs(B, L, ctx)
+        step = jax.jit(make_serve_step(model, ctx), in_shardings=(pspecs, cspecs, dsh),
+                       out_shardings=(ctx.replicated(), cspecs))
+        feeds = src[f"{{arch}}/feeds"]
+        first = {{"token": jnp.asarray(feeds[0]), "cur_len": jnp.int32(m["start"])}}
+        compiled = step.lower(params, cache, first).compile(exact)
+        for i in range(feeds.shape[0]):
+            logits, cache = compiled(params, cache, {{"token": jnp.asarray(feeds[i]),
+                                                     "cur_len": jnp.int32(m["start"] + i)}})
+            out[f"{{label}}/{{arch}}/decode{{i}}"] = np.asarray(logits)
+    np.savez(sys.argv[2], **out)
+    """
+)
+
+
 class ReferenceFailed(AssertionError):
     """The reference's run exited with an error; the message is the end of
     its standard error."""
@@ -137,6 +215,45 @@ def reference_run(arch: str, shape: tuple[int, ...], names: tuple[str, ...], par
     return {"loss": float(got["loss"]),
             "params": {k[2:]: got[k] for k in got.files if k.startswith("p:")},
             "logits": got["logits"] if "logits" in got.files else None}
+
+
+def reference_seq_run(meshes: dict, archs: dict, workdir: Path, timeout: float = 420) -> dict:
+    """The reference's sequence-sharded serving on Auto meshes (``meshes``:
+    label -> (shape, names), on the first devices of as many fake ones as
+    the largest takes; B = 1 does not fill their batch axes), for each
+    entry of ``archs`` (name -> ``arch``, ``overrides``, ``max_pos``, numpy
+    ``params`` (dotted name -> array, bf16 as f32), ``tokens`` (1, S),
+    ``cache`` (the decode's starting cache, bf16 as f32), ``feeds`` (steps,
+    1) and ``start``), in one subprocess: its ``make_prefill_step`` (the
+    attention swapped for its flash oracle) and ``make_serve_step`` at
+    ``start``, ``start + 1``, ..., jitted on the shardings ``launch/
+    dryrun.py`` gives them (``param_specs(ctx, serve=True)``,
+    ``batch_shardings``, ``cache_specs``), models not pure data-parallel,
+    compiled with every bf16 rounding kept: label -> name -> {"prefill",
+    "decode": [logits]}."""
+    import json
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    src, dst, meta = workdir / "in.npz", workdir / "out.npz", workdir / "meta.json"
+    arrays = {}
+    for a, m in archs.items():
+        arrays.update({f"{a}/p:{k}": np.asarray(v, np.float32) for k, v in m["params"].items()})
+        arrays.update({f"{a}/c:{k}": np.asarray(v, np.float32) for k, v in m["cache"].items()})
+        arrays[f"{a}/tokens"], arrays[f"{a}/feeds"] = m["tokens"], m["feeds"]
+    np.savez(src, **arrays)
+    meta.write_text(json.dumps({a: {k: m[k] for k in ("arch", "overrides", "max_pos", "start")}
+                                for a, m in archs.items()}))
+    script = _SEQ_SCRIPT.format(n=max(int(np.prod(sh)) for sh, _ in meshes.values()),
+                                meshes={k: (tuple(sh), tuple(nm)) for k, (sh, nm) in meshes.items()})
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", script, str(src), str(dst), str(meta)], env=env,
+                         cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise ReferenceFailed(out.stderr[-3000:])
+    got = np.load(dst)
+    return {k: {a: {"prefill": got[f"{k}/{a}/prefill"],
+                    "decode": [got[f"{k}/{a}/decode{i}"] for i in range(len(m["feeds"]))]}
+                for a, m in archs.items()} for k in meshes}
 
 
 def as_f32(arrays: dict) -> dict:

@@ -203,6 +203,127 @@ def _tp_run(ctx, args: dict, dtype: str) -> dict:
     return out
 
 
+def case_seq_families(args: dict) -> dict:
+    """Sequence sharding: for each entry of ``args["families"]`` (name ->
+    its ``arch``, ``overrides``, ``params``, the B = 1 ``prefill`` batch,
+    the decode's starting global ``cache``, its ``feeds`` and first
+    ``start`` position), on one mesh whose batch axes B does not fill, a
+    model that is not pure data-parallel: the sharded prefill and the decode
+    steps at ``start``, ``start + 1``, ..., each with the collectives it
+    made, by kind. Also, where asked, the mesh's block order (``ctx.local``
+    of ``args["positions"]`` positions under the spec ``(None,
+    batch_axes)``, beside ``seq_rank``), the mixer alone on the rank's
+    block (``args["mixer"]``: ``_seq_mixer``) and the error of a prefill
+    whose rank blocks do not hold a whole number of SSM chunks
+    (``args["ragged"]``: arch, overrides, params, batch)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
+
+    ctx = _ctx(args["shape"], args["names"])
+
+    def model_of(family: dict):
+        cfg = dataclasses.replace(get_arch(family["arch"]).reduced(), **family["overrides"])
+        model = build_model(cfg, max_pos=args["max_pos"], device="cpu")
+        model.pure_dp = False
+        return model
+
+    out = {}
+    for name, family in args["families"].items():
+        model = model_of(family)
+        ctx.counts.clear()
+        logits = make_prefill_step(model, ctx)(family["params"], family["prefill"])
+        counts = {"prefill": dict(ctx.counts)}
+        ctx.counts.clear()
+        steps = _decode(model, make_serve_step(model, ctx),
+                        {**family, "steps": len(family["feeds"]),
+                         "cache_len": family["cache"]["k"].shape[2]
+                         if "k" in family["cache"] else 0}, ctx, first=family["start"])
+        counts["decode"] = {k: v / len(steps) for k, v in ctx.counts.items()}
+        out[name] = {"logits": logits, "decode": steps, "counts": counts}
+    out["seq_rank"] = ctx.seq_rank
+    if "positions" in args:
+        S = args["positions"]
+        out["block"] = ctx.local(torch.arange(S)[None], ctx.ns(None, ctx.batch_axes))
+    if "mixer" in args:
+        out["mixer"] = _seq_mixer(ctx, args["mixer"])
+    if "ragged" in args:
+        ragged = args["ragged"]
+        try:
+            make_prefill_step(model_of(ragged), ctx)(ragged["params"], ragged["prefill"])
+            out["ragged"] = None
+        except ValueError as e:
+            out["ragged"] = str(e)
+    return out
+
+
+def _seq_mixer(ctx, args: dict) -> dict:
+    """The reduced mamba2's mixer on this rank's block of ``args["x"]``
+    (sequence-sharded over the batch axes) beside the whole sequence's
+    mixer's rows of the block; the (shape, dtype) of every tensor the
+    relay sent; the halo of the conv's input beside the rows before the
+    block (zeros on the first rank)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import ssd
+
+    cfg = get_arch("mamba2_2_7b").reduced()
+    p, x = args["p"], args["x"]
+    L = x.shape[1] // ctx.n_batch
+    first = ctx.seq_rank * L
+    sent, send = [], dist.send
+
+    def recording(t, *a, **k):
+        sent.append((tuple(t.shape), t.dtype))
+        return send(t, *a, **k)
+
+    dist.send = recording
+    try:
+        block = ssd.mamba2_mixer(p, x[:, first:first + L].contiguous(), cfg, sp=ctx)
+    finally:
+        dist.send = send
+    xbc = ssd._in_proj(p, x)[1]
+    K = p["conv_w"].shape[0]
+    want = xbc[:, first - K + 1:first] if first else torch.zeros_like(xbc[:, :K - 1])
+    return {"block": block, "whole": ssd.mamba2_mixer(p, x, cfg)[:, first:first + L],
+            "sent": sent, "halo": ctx.halo(xbc[:, first:first + L].contiguous(), K - 1),
+            "halo_want": want}
+
+
+def case_seq_shared_card(args: dict) -> dict:
+    """On the card: ``make_shared_card_mesh(args["shape"])``, whose batch
+    axes B = 1 does not fill, and each of ``args["archs"]`` at full width
+    and ``args["layers"]`` layers, not pure data-parallel, its weights drawn
+    on the card from ``args["seed"]``: the sequence-sharded prefill of
+    ``args["tokens"]`` (1, S), its logits on the host, the flash kernel's
+    launches and the collectives by kind."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.launch.mesh import make_shared_card_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.models.sharding import MeshCtx
+    from repro_torch.train.steps import make_prefill_step
+
+    torch.cuda.set_device(0)
+    ctx = MeshCtx(make_shared_card_mesh(args["shape"]))
+    tokens, out = args["tokens"].cuda(), {}
+    for arch in args["archs"]:
+        cfg = dataclasses.replace(get_arch(arch), n_layers=args["layers"])
+        model = build_model(cfg, max_pos=tokens.shape[1])
+        model.pure_dp = False
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(args["seed"]))
+        fa.launches = 0
+        ctx.counts.clear()
+        logits = make_prefill_step(model, ctx)(params, {"tokens": tokens})
+        out[arch] = {"logits": logits.cpu(), "launches": fa.launches, "counts": dict(ctx.counts)}
+    return out
+
+
 def case_shared_card(args: dict) -> dict:
     """On the card: ``make_shared_card_mesh`` over this gloo group, which
     ``MeshCtx`` takes, and a CUDA mesh over gloo built any other way, which
@@ -342,10 +463,10 @@ def case_serve(args: dict) -> dict:
     return {"decode": _decode(model, make_serve_step(model, ctx), args, ctx)}
 
 
-def _decode(model, serve_step, args: dict, ctx) -> list:
+def _decode(model, serve_step, args: dict, ctx, first: int = 0) -> list:
     """The logits of ``args["steps"]`` decode steps from ``args["cache"]``
-    (the global cache, where given) or a zero cache, step i fed
-    ``args["feeds"][i]`` (where given) or the tokens
+    (the global cache, where given) or a zero cache, step i at position
+    ``first + i`` fed ``args["feeds"][i]`` (where given) or the tokens
     ``args["tokens"][:, i]``."""
     from repro_torch.train.elastic import reshard_state
 
@@ -356,7 +477,7 @@ def _decode(model, serve_step, args: dict, ctx) -> list:
                           model.cache_specs(B, args["cache_len"], ctx))
     out = []
     for i in range(args["steps"]):
-        logits, cache = serve_step(args["params"], cache, {**feeds[i], "cur_len": i})
+        logits, cache = serve_step(args["params"], cache, {**feeds[i], "cur_len": first + i})
         out.append(logits)
     return out
 

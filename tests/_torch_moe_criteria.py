@@ -47,6 +47,16 @@ def bf16_ulp(a) -> np.ndarray:
     return np.exp2(np.floor(np.log2(m)) - 7)
 
 
+def row_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest, over rows (all but the last dim), of a row's max |got -
+    want| in bf16 ulps of the row's largest |want|: a limit that scales with
+    what is compared, where outputs of an attention over many keys are far
+    below 1. NaN where ``got`` is not finite."""
+    g, w = got.float(), want.float()
+    m = w.abs().amax(-1).clamp_min(2.0**-126)
+    return float(((g - w).abs().amax(-1) / torch.exp2(torch.floor(torch.log2(m)) - 7)).max())
+
+
 def ep_moe(x, wr, w_gate, w_up, w_down, *, top_k: int, capacity_factor: float,
            n_batch: int, n_model: int):
     """``moe_layer``'s expert-parallel branch on an (n_batch, n_model) mesh,

@@ -23,6 +23,7 @@ ranks of tensor parallelism round them: the probe, and the one-device
 counterpart, of the sharded serving steps.
 """
 import contextlib
+import math
 
 import numpy as np
 import torch
@@ -235,7 +236,7 @@ def norm_nudged(to: float):
 
 
 @contextlib.contextmanager
-def tp_rounding(n: int):
+def tp_rounding(n: int, seq: int = 1):
     """While active, every product that tensor parallelism splits into
     partial sums over "model" (the attention's out-projection over its
     heads, SwiGLU's and the GELU MLP's down-projections over d_ff, the
@@ -251,7 +252,15 @@ def tp_rounding(n: int):
     does, whole in the prefill, and in the decode step (one query) on the
     head_dim blocks: its f32 partial scores added in f32 in rank order and
     rounded once, its out-projection as ``n`` partial products over the
-    head_dim block of every head."""
+    head_dim block of every head.
+
+    With ``seq`` > 1 the decode step's attention (one query) also runs as
+    ``seq`` ranks of a sequence-sharded cache run it
+    (``gqa_attention(seq_split=)``): each contiguous block of the keys
+    scored in the bf16 chain, the max over the blocks, each block's f32
+    denominator and ``w . v`` summed over its keys, then added in f32 in
+    the blocks' order (``MeshCtx.seq_sum``); the prefill rounds nothing of
+    its own there (each rank's rows are the whole sequence's)."""
     from repro_torch.models import layers, lm, ssd
 
     def split(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -283,8 +292,37 @@ def tp_rounding(n: int):
         def psum_model(self, _):
             return self.s
 
+    def seq_gqa(q, k, v, *, q_pos, k_pos, causal=True, window=None,
+                score_dtype=torch.bfloat16, **_):
+        B, Sq, H, hd = q.shape
+        KV = k.shape[2]
+        scale = layers._rounded(1.0 / math.sqrt(hd), score_dtype)
+        qg = q.reshape(B, Sq, KV, H // KV, hd).float()
+        c = k.shape[1] // seq
+        blocks = [slice(i * c, (i + 1) * c) for i in range(seq)]
+        s = [torch.einsum("bqkgd,bskd->bkgqs", qg, k[:, b].contiguous().float()).to(score_dtype)
+             * scale + layers._mask_bias(q_pos, k_pos[b], window, causal).to(score_dtype)
+             for b in blocks]
+        m = s[0].amax(dim=-1, keepdim=True)
+        for sb in s[1:]:
+            m = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+        e = [torch.exp(sb - m) for sb in s]
+
+        def in_order(parts):
+            out = parts[0]
+            for part in parts[1:]:
+                out = out + part
+            return out
+
+        den = in_order([eb.sum(dim=-1, keepdim=True, dtype=torch.float32) for eb in e])
+        out = in_order([torch.einsum("bkgqs,bskd->bqkgd", (eb / den.to(score_dtype)).float(),
+                                     v[:, b].contiguous().float()) for eb, b in zip(e, blocks)])
+        return out.to(q.dtype).reshape(B, Sq, H, hd)
+
     def gqa(q, k, v, *, hd_split=None, **kw):
         B, Sq, H, hd = q.shape
+        if seq > 1 and Sq == 1 and hd_split is None:
+            return seq_gqa(q, k, v, **kw)
         if Sq > 1 or hd_split is not None or H % n == 0 or hd % n:
             return real[6](q, k, v, hd_split=hd_split, **kw)
         c, KV = hd // n, k.shape[2]
@@ -319,10 +357,10 @@ def tp_rounding(n: int):
     real = (lm.LM._out_proj, lm.swiglu_mlp, ssd.mamba2_mixer, ssd.mamba2_decode_step,
             lm.LM._head, lm.gelu_mlp, lm.gqa_attention)
 
-    def mixer(p, x, cfg, tp=None):
+    def mixer(p, x, cfg, tp=None, **kw):
         if cfg.ssm_heads % n:
-            return real[2](p, x, cfg, tp)
-        return split(real[2](identity_wo(p), x, cfg, tp), p["wo"])
+            return real[2](p, x, cfg, tp, **kw)
+        return split(real[2](identity_wo(p), x, cfg, tp, **kw), p["wo"])
 
     def step(p, x, conv, state, cfg, tp=None):
         if cfg.ssm_heads % n:
