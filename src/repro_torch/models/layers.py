@@ -141,7 +141,14 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     partial sums, ``w = e / den`` is taken in bf16, and ``w . v`` is summed
     in f32 over each rank's keys, then over the ranks, and rounded once
     (``MeshCtx.seq_sum``: in sequence order). A rank whose keys are all
-    masked adds exactly 0."""
+    masked adds exactly 0.
+
+    Both together (the head_dim fallback on a sequence-sharded cache: a
+    rank holds its head_dim block of its block of the keys), in this fixed
+    order: the f32 partial scores summed over "model" and rounded once, the
+    row max over the batch axes, the f32 denominator and ``w . v`` summed
+    over the batch axes in sequence order; the output is the rank's
+    head_dim block, whose out-projection the caller sums over "model"."""
     B, Sq, H, hd = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV

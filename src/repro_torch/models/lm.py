@@ -98,7 +98,15 @@ Mamba2 mixer reads the previous rank's conv rows and relays its state
 (``models/ssd.py``). The decode step writes the new K/V on the rank that
 owns ``cur_len``, attends on each rank's block of the cache
 (``gqa_attention(seq_split=)``) and runs the SSM layers, whose conv and
-state caches the batch axes do not shard, alike on every rank.
+state caches the batch axes do not shard, alike on every rank. Every layout
+over "model" composes with it, the fallback layouts included (gemma3-1b's
+``long_500k`` on model=16): the head_dim-sharded attention's queries, a
+rank's rows of its sequence rank's block, attend at ``seq_rank * S/n_batch
++ model_rank * S/(n_batch * n_model)``; its decode runs on the rank's
+head_dim block of its sequence block of the cache (``gqa_attention`` with
+both ``hd_split`` and ``seq_split``); the replicated MLP and head run on the
+rank's rows; the whole Mamba2 mixer runs on the sequence rank's block on
+every "model" rank, each relaying over its own group of the batch axes.
 """
 from __future__ import annotations
 
@@ -128,7 +136,6 @@ from repro_torch.models.layers import (
     swiglu_mlp,
 )
 from repro_torch.models.sharding import (
-    SEQ_FALLBACK,
     SEQ_FAMILIES,
     SEQ_TRAINING,
     MeshCtx,
@@ -390,35 +397,21 @@ class LM(nn.Module):
             return None
         return ctx
 
-    def seq_ctx(self, ctx: MeshCtx | None, global_batch: int, tp: MeshCtx | None = None,
+    def seq_ctx(self, ctx: MeshCtx | None, global_batch: int,
                 train: bool = False) -> MeshCtx | None:
         """``ctx`` where a step of ``global_batch`` rows shards the sequence
         over the batch axes (they are more than one, and the batch does not
-        fill them: ``MeshCtx.token_spec``), else None. ``tp`` is the step's
-        tensor-parallel context (``tp_ctx``). Raises ``NotImplementedError``
-        for what does not run yet: training, the MoE, VLM and
-        encoder-decoder families, and a fallback layout over "model"."""
+        fill them: ``MeshCtx.token_spec``), else None. Every layout over
+        "model" (``tp_ctx``) composes with it, the fallback layouts
+        included. Raises ``NotImplementedError`` for what does not run yet:
+        training, and the MoE, VLM and encoder-decoder families."""
         if ctx is None or ctx.n_batch == 1 or not ctx.seq_sharded(global_batch):
             return None
         if train:
             raise NotImplementedError(SEQ_TRAINING)
         if self.cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(f"{self.cfg.name} ({self.cfg.family}): {SEQ_FAMILIES}")
-        if self._fallback(tp):
-            raise NotImplementedError(f"{self.cfg.name} on model={ctx.n_model}: {SEQ_FALLBACK}")
         return ctx
-
-    def _fallback(self, tp: MeshCtx | None) -> bool:
-        """Whether ``tp`` runs a fallback layout of this dense, SSM or hybrid
-        model: its heads, d_ff or SSM heads do not divide "model", or
-        neither its vocab nor d_model does."""
-        cfg = self.cfg
-        if tp is None:
-            return False
-        dims = {"dense": [cfg.d_ff], "ssm": [cfg.ssm_heads]}.get(cfg.family,
-                                                                [cfg.d_ff, cfg.ssm_heads])
-        return (cfg.family != "ssm" and self._hd_fallback(tp)) or self._head_whole(tp) or \
-            any(not self._splits(tp, d) for d in dims)
 
     @staticmethod
     def _splits(tp: MeshCtx | None, dim: int) -> bool:
@@ -587,11 +580,15 @@ class LM(nn.Module):
         fallback (``_hd_fallback``, the weights whole: ``_tp_layers``), on
         every head of the queries of x, this rank's block of the sequence,
         at its offset, against the keys of the sequence gathered (or of
-        ``kv``): the block's own output. With ``sp`` x is this sequence
-        rank's block (gathered over "model" where ``tp`` runs Megatron-SP)
-        and cos/sin its positions: its K/V are gathered over the batch axes
-        (the whole sequence's keys, module docstring) and its queries
-        attend at the block's offset."""
+        ``kv``): the block's own output. With ``sp`` the sequence rank's
+        block (x, or in the fallback the x gathered over "model"; Megatron-SP
+        gathers it before) and cos/sin its positions: its K/V are gathered
+        over the batch axes (the whole sequence's keys, module docstring)
+        and its queries attend at the block's offset, in the fallback
+        ``seq_rank * S/n_batch + model_rank * S/(n_batch * n_model)``: the
+        keys come out in sequence order, the gather over "model" within a
+        sequence rank's block, then the one over the batch axes, seq rank
+        outermost."""
         q_off, src = 0, kv
         if self._hd_fallback(tp):
             q_off = tp.model_rank * x.shape[1]
@@ -601,7 +598,7 @@ class LM(nn.Module):
         if sp is not None:  # one gather for both
             k, v = sp.gather_seq(torch.cat([k, v], dim=2), axes=sp.batch_axes).split(
                 [k.shape[2], v.shape[2]], dim=2)
-            q_off = sp.seq_rank * x.shape[1]
+            q_off += sp.seq_rank * (x if src is None else src).shape[1]
         if self._expands(tp):
             k, v = expand_kv_to_local_heads(k, v, q.shape[2], tp)
         if train_pos is not None:
@@ -682,10 +679,13 @@ class LM(nn.Module):
         (Megatron-SP), or where they do not divide "model" the whole mixer
         (its leaves whole: ``_tp_layers``) over the sequence gathered, of
         which the rank keeps its block. With ``sp`` on the sequence rank's
-        block (``models/ssd.py``)."""
+        block (``models/ssd.py``); in the whole mixer every "model" rank of
+        a sequence rank runs it, with the halo and the relay over its own
+        group of the batch axes (the ranks that share its "model" index),
+        so that no rank waits for another "model" rank's relay."""
         x = rms_norm(h, lp["ln"], self.cfg.norm_eps)
         if tp is not None and not self._splits(tp, self.cfg.ssm_heads):
-            return h + _rank_block(ssd.mamba2_mixer(lp, tp.gather_seq(x), self.cfg), tp)
+            return h + _rank_block(ssd.mamba2_mixer(lp, tp.gather_seq(x), self.cfg, sp=sp), tp)
         return h + _sp(lambda v: ssd.mamba2_mixer(lp, v, self.cfg, tp, sp=sp), x, tp)
 
     def _forward(self, params: Params, batch: dict, *, train: bool = False,
@@ -1109,8 +1109,9 @@ class LM(nn.Module):
         batch on every rank and the K/V cache this rank's block of the
         sequence (``cache_specs``): the rank that holds position
         ``cur_len`` writes the new K/V, each rank attends on its block
-        (``gqa_attention(seq_split=)``), and the conv and SSM caches, which
-        the batch axes do not shard, step alike on every rank."""
+        (``gqa_attention(seq_split=)``; in the head_dim fallback on its
+        head_dim block of it), and the conv and SSM caches, which the batch
+        axes do not shard, step alike on every rank."""
         cfg = self.cfg
         tp = self.tp_ctx(ctx, serve=True)
         sp = ctx if seq_sharded else None
@@ -1148,9 +1149,10 @@ class LM(nn.Module):
         layout the weights and the cache hold this rank's block of head_dim
         (``_qkv`` with ``hd_split``; ``gqa_attention`` sums the partial
         scores), or all of it where head_dim does not divide "model". With
-        ``sp`` the cache is this sequence rank's block: the new K/V is
-        written where the rank holds ``cur``, and the softmax runs over the
-        ranks' blocks (``gqa_attention(seq_split=)``)."""
+        ``sp`` the cache is this sequence rank's block (of head_dim in the
+        fallback): the new K/V is written where the rank holds ``cur`` (its
+        head_dim block), and the softmax runs over the ranks' blocks
+        (``gqa_attention(seq_split=)``, in the order it states)."""
         S = k_cache.shape[1]  # the per-layer cache is (B, S, KV, hd), or a rank's block of S
         first = 0 if sp is None else sp.seq_rank * S
         mine = 0 <= cur - first < S  # this rank holds position cur

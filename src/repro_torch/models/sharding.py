@@ -43,9 +43,13 @@ gather (``gather_seq(axes=batch_axes)``), the halo of the previous rank's
 last rows (``halo``), the rank-to-rank relay of a carried state in
 sequence order (``relay_in``/``relay_out``), and the f32 max and sum over
 them (``all_reduce(op="max")``, ``seq_sum``). Sequence-sharded serving runs
-for the dense, SSM and hybrid families (``LM.seq_ctx``); training, the other
-families and the fallback layouts raise ``NotImplementedError`` naming
-their ROADMAP items (``SEQ_TRAINING``, ``SEQ_FAMILIES``, ``SEQ_FALLBACK``).
+for the dense, SSM and hybrid families (``LM.seq_ctx``), in every layout
+over "model", the fallback layouts included: the sequence's gather over
+"model" within a sequence rank's block composes with the keys' gather
+over the batch axes, and a "model" rank's halo and relay run over its own
+group of the batch axes, so the composition adds no collective of its own.
+Training and the other families raise ``NotImplementedError`` naming their
+ROADMAP items (``SEQ_TRAINING``, ``SEQ_FAMILIES``).
 """
 from __future__ import annotations
 
@@ -62,10 +66,7 @@ from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distr
 SEQ_TRAINING = ("training with sequence sharding: the backward through the keys' gather, the halo "
                 "and the relay (ROADMAP A, \"Sequence-sharded training\")")
 SEQ_FAMILIES = ("sequence sharding for the MoE, VLM and encoder-decoder families (ROADMAP A, "
-                "\"Sequence sharding for the other families and the fallback layouts\")")
-SEQ_FALLBACK = ("sequence sharding with a fallback layout over \"model\" (head_dim-sharded "
-                "attention, or a replicated FFN, mixer or head; ROADMAP A, \"Sequence sharding "
-                "for the other families and the fallback layouts\")")
+                "\"Sequence sharding for the MoE, VLM and encoder-decoder families\")")
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 # the attribute ``launch.mesh.make_shared_card_mesh`` sets on the CUDA mesh it
 # builds over gloo (which takes every collective below for CUDA tensors in the

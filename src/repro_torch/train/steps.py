@@ -221,7 +221,7 @@ def make_serve_step(model: LM, ctx: MeshCtx | None = None):
     def sharded_serve_step(params: Params, cache: dict, batch: dict):
         key = "embed" if "embed" in batch else "token"
         B, S = batch[key].shape[0], cache["k"].shape[2] if "k" in cache else 0
-        sp = model.seq_ctx(ctx, B, tp)
+        sp = model.seq_ctx(ctx, B)
         if sp is not None and S % ctx.n_batch:
             raise ValueError(f"a {S}-long cache does not split over {ctx.n_batch} batch ranks")
         cspecs = model.cache_specs(B, S, ctx)
@@ -278,15 +278,17 @@ def _batch_layout(model: LM, ctx: MeshCtx, batch: dict, kind: str, tp: MeshCtx |
                   ) -> tuple[dict[str, NamedSharding], tuple[str, ...], MeshCtx | None]:
     """The global ``batch``'s shardings (``batch_shardings``), the mesh axes
     its batch dim is sharded over, and the step's sequence-sharding context
-    (``LM.seq_ctx``, with the step's ``tp``: None where the batch fills the
-    batch axes, () its axes then); raises where what the step needs does
-    not run yet, and where a sequence (the tokens or embeddings, the
-    encoder's audio frames) does not split over the axes that shard it."""
+    (``LM.seq_ctx``: None where the batch fills the batch axes, () its
+    axes then; ``tp``, the step's tensor-parallel context, splits each
+    sequence rank's block again over "model"); raises where what the step
+    needs does not run yet, and where a sequence (the tokens or embeddings,
+    the encoder's audio frames) does not split over the axes that shard
+    it."""
     seq = batch["tokens" if "tokens" in batch else "embeds"]
     B, S = seq.shape[:2]
     bspecs = batch_shardings(model.cfg, ShapeConfig("step", S, B, kind), ctx, model)
     dp_axes = bspecs["tokens" if "tokens" in bspecs else "embeds"].spec[0]
-    sp = model.seq_ctx(ctx, B, tp, train=kind == "train")
+    sp = model.seq_ctx(ctx, B, train=kind == "train")
     if sp is not None:
         n = ctx.n_batch * (ctx.n_model if tp is not None else 1)
         if S % n:

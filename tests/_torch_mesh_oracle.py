@@ -266,7 +266,7 @@ def reference_inputs(arch: str, overrides: dict, *, B: int, S: int,
                      index_positions: bool = False) -> tuple:
     """(the reduced config with ``overrides``, the reference's parameters
     (``init_params(PRNGKey(0))``; whisper's 1-D leaves drawn, as in
-    ``tests/test_torch_train.py``), [its ``make_inputs`` B x S train batch
+    ``tests/_torch_train_pair.py``), [its ``make_inputs`` B x S train batch
     (seed 1), its prefill batch (seed 2)]), all numpy. ``index_positions``
     replaces the VLM's M-RoPE positions by the index on all three streams."""
     import dataclasses
@@ -300,7 +300,7 @@ def reference_inputs(arch: str, overrides: dict, *, B: int, S: int,
 class OracleCase:
     """One arch on one mesh, both packages from the reference's parameters
     (``init_params(PRNGKey(0))``; whisper's 1-D leaves drawn, as in
-    ``tests/test_torch_train.py``) and its ``make_inputs`` (B x S train
+    ``tests/_torch_train_pair.py``) and its ``make_inputs`` (B x S train
     batch, seed 1; prefill batch, seed 2): the reference's sharded step and
     prefill (``reference_run``) and the port's on gloo ranks
     (``_torch_mesh_ranks``, case ``step``); ``pure_dp`` overrides both

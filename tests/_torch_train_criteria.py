@@ -20,7 +20,10 @@ RMS norm's output, does so for a model without an SSD); ``hold_step`` is
 the one policy that decides, from it, whether and how a step is held.
 ``tp_rounding`` rounds the unsharded model's row-parallel products as n
 ranks of tensor parallelism round them: the probe, and the one-device
-counterpart, of the sharded serving steps.
+counterpart, of the sharded serving steps. ``tp_rows`` runs the prefill's
+products on the row blocks of the sequence that the ranks of a
+sequence-sharded mesh hold: with it, an f32 witness of the sharded prefill
+has a one-device twin on the card too.
 """
 import contextlib
 import math
@@ -260,7 +263,12 @@ def tp_rounding(n: int, seq: int = 1):
     scored in the bf16 chain, the max over the blocks, each block's f32
     denominator and ``w . v`` summed over its keys, then added in f32 in
     the blocks' order (``MeshCtx.seq_sum``); the prefill rounds nothing of
-    its own there (each rank's rows are the whole sequence's)."""
+    its own there (each rank's rows are the whole sequence's). Composed
+    with the head_dim fallback (``hd_split`` and ``seq_split`` together),
+    in this order: each block's f32 partial scores of the ``n`` head_dim
+    blocks added in rank order and rounded once, the row max over the key
+    blocks, the denominator and ``w . v`` in the blocks' order, then the
+    out-projection's ``n`` partial products."""
     from repro_torch.models import layers, lm, ssd
 
     def split(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -300,8 +308,17 @@ def tp_rounding(n: int, seq: int = 1):
         qg = q.reshape(B, Sq, KV, H // KV, hd).float()
         c = k.shape[1] // seq
         blocks = [slice(i * c, (i + 1) * c) for i in range(seq)]
-        s = [torch.einsum("bqkgd,bskd->bkgqs", qg, k[:, b].contiguous().float()).to(score_dtype)
-             * scale + layers._mask_bias(q_pos, k_pos[b], window, causal).to(score_dtype)
+        # the head_dim fallback's blocks of the partial scores (one block without it)
+        d = hd // n if n > 1 and H % n and hd % n == 0 else hd
+        dims = [slice(j * d, (j + 1) * d) for j in range(hd // d)]
+
+        def scores(b: slice) -> torch.Tensor:
+            kb = k[:, b].contiguous()
+            parts = [torch.einsum("bqkgd,bskd->bkgqs", qg[..., j], kb[..., j].float())
+                     for j in dims]
+            return sum(parts[1:], parts[0]).to(score_dtype)
+
+        s = [scores(b) * scale + layers._mask_bias(q_pos, k_pos[b], window, causal).to(score_dtype)
              for b in blocks]
         m = s[0].amax(dim=-1, keepdim=True)
         for sb in s[1:]:
@@ -379,3 +396,113 @@ def tp_rounding(n: int, seq: int = 1):
         yield
     finally:
         install(real)
+
+
+class _Sequence:
+    """The sequence ranks' exchanges of the Mamba2 mixer (``MeshCtx.halo``,
+    ``relay_in``, ``relay_out``) for one device that runs the ranks' blocks
+    one after another, in sequence order: each block's halo is the previous
+    block's last rows (zeros for the first), its entering state the state
+    the previous block ended with."""
+
+    def __init__(self, n_batch: int):
+        self.n_batch, self.tail, self.state = n_batch, None, None
+
+    def halo(self, x: torch.Tensor, k: int, dim: int = 1) -> torch.Tensor:
+        tail = x.narrow(dim, x.shape[dim] - k, k)
+        before = torch.zeros_like(tail) if self.tail is None else self.tail
+        self.tail = tail
+        return before
+
+    def relay_in(self, start: torch.Tensor) -> torch.Tensor:
+        return start if self.state is None else self.state
+
+    def relay_out(self, x: torch.Tensor) -> None:
+        self.state = x
+
+
+@contextlib.contextmanager
+def tp_rows(cfg, n_seq: int, n_model: int = 1):
+    """While active, the prefill of ``cfg`` runs each product over the
+    sequence's rows on the contiguous blocks of rows that the ranks of a
+    sequence-sharded mesh hold, each block a contiguous copy, one after
+    another: ``n_seq`` blocks (a sequence rank's) for what a rank runs on
+    its sequence rank's block (the K/V projections, Megatron-SP's
+    gathered products), ``n_seq * n_model`` (a rank's rows)
+    for what it runs on its own rows (the RMS norms of the hidden state,
+    and where the fallback layouts run: the query projection, the flash
+    kernel's queries at their offsets and the out-projection of a
+    head_dim-sharded attention, a replicated MLP). The Mamba2 mixer runs
+    whole on each sequence rank's block, its halo and relay handed on from
+    the previous block (``_Sequence``). In f32, cuBLAS may pick
+    another algorithm for a block's shape, whose sums differ in the last
+    bit, which ``tp_rounding`` and ``tp_columns`` (the column blocks) do
+    not model: entered inside them, it makes the unsharded prefill compute
+    as the ranks compute it. A product over one row (the decode's, the
+    head's) runs as it is. Each patch wraps what is installed when it is
+    entered."""
+    from repro_torch.models import lm, ssd
+
+    coarse, fine = n_seq, n_seq * n_model
+    hd_fb = n_model > 1 and cfg.family != "ssm" and cfg.n_heads % n_model != 0
+    ffn_fb = n_model > 1 and cfg.family != "ssm" and cfg.d_ff % n_model != 0
+
+    def blocks(x: torch.Tensor, n: int, dim: int = 1) -> list[torch.Tensor] | None:
+        """x's n contiguous blocks along ``dim`` (copies), or None where it
+        has one row or does not split."""
+        if x.ndim < 3 or x.shape[dim] == 1 or x.shape[dim] % n:
+            return None
+        return [b.contiguous() for b in x.chunk(n, dim=dim)]
+
+    def by_rows(fn, x: torch.Tensor, n: int, *rest, dim: int = 1):
+        parts = blocks(x, n, dim)
+        return fn(x, *rest) if parts is None else torch.cat([fn(b, *rest) for b in parts], dim)
+
+    query = [None]  # the weight of the query projection being made
+
+    def qkv(self, lp, *a, **k):
+        query[0] = lp["wq"]
+        try:
+            return real["qkv"](self, lp, *a, **k)
+        finally:
+            query[0] = None
+
+    def proj(x, w):
+        return by_rows(real["proj"], x, fine if hd_fb and w is query[0] else coarse, w)
+
+    def out_proj(self, lp, o):
+        return by_rows(lambda b: real["out_proj"](self, lp, b), o, fine if hd_fb else coarse)
+
+    def mlp(x, *w):
+        return by_rows(real["mlp"], x, fine if ffn_fb else coarse, *w)
+
+    def norm(x, w, eps=1e-6):
+        return by_rows(real["norm"], x, fine, w, eps)
+
+    def flash(q, k, v, *, q_offset: int = 0, **kw):
+        parts = blocks(q, fine if hd_fb else coarse, dim=2)
+        if parts is None:
+            return real["flash"](q, k, v, q_offset=q_offset, **kw)
+        rows = parts[0].shape[2]
+        return torch.cat([real["flash"](b, k, v, q_offset=q_offset + i * rows, **kw)
+                          for i, b in enumerate(parts)], dim=2)
+
+    def mixer(p, x, cfg_, tp=None, sp=None):
+        parts = blocks(x, coarse) if sp is None else None
+        if parts is None:
+            return real["mixer"](p, x, cfg_, tp, sp=sp)
+        seq = _Sequence(coarse)
+        return torch.cat([real["mixer"](p, b, cfg_, tp, sp=seq) for b in parts], dim=1)
+
+    targets = {"qkv": (lm.LM, "_qkv", qkv), "proj": (lm, "_proj", proj),
+               "out_proj": (lm.LM, "_out_proj", out_proj), "mlp": (lm, "swiglu_mlp", mlp),
+               "norm": (lm, "rms_norm", norm), "flash": (lm, "flash_attention", flash),
+               "mixer": (ssd, "mamba2_mixer", mixer)}
+    real = {k: getattr(owner, name) for k, (owner, name, _) in targets.items()}
+    for owner, name, fn in targets.values():
+        setattr(owner, name, fn)
+    try:
+        yield
+    finally:
+        for k, (owner, name, _) in targets.items():
+            setattr(owner, name, real[k])

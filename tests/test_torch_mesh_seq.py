@@ -38,7 +38,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ShapeConfig, get_arch
+from repro_torch.configs import ShapeConfig, all_archs, get_arch
+from repro_torch.configs.base import shapes_for
 from repro_torch.models.registry import build_model, make_inputs
 from repro_torch.models.sharding import AbstractMesh, MeshCtx
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -308,18 +309,14 @@ def _abstract(shape=(2, 1), names=("data", "model")) -> MeshCtx:
     return MeshCtx(AbstractMesh(shape, names))
 
 
+FAMILIES_ITEM = "Sequence sharding for the MoE, VLM and encoder-decoder families"
 RAISES = {
     # id -> (arch, overrides, mesh shape, step kind, the message's ROADMAP item)
     "training": ("qwen2_0_5b", {}, (2, 1), "train", "Sequence-sharded training"),
-    "moe": ("olmoe_1b_7b", {}, (2, 1), "prefill", "the other families"),
-    "moe-decode": ("olmoe_1b_7b", {}, (2, 1), "decode", "the other families"),
-    "vlm": ("qwen2_vl_7b", {}, (2, 1), "prefill", "the other families"),
-    "encdec": ("whisper_base", {}, (2, 1), "prefill", "the other families"),
-    "head_dim-fallback": ("qwen2_0_5b", {"n_heads": 6, "head_dim": 16}, (2, 4), "prefill",
-                          "the fallback layouts"),
-    "head_dim-fallback-decode": ("qwen2_0_5b", {"n_heads": 6, "head_dim": 16}, (2, 4),
-                                 "decode", "the fallback layouts"),
-    "ffn-fallback": ("qwen2_0_5b", {"d_ff": 90}, (2, 4), "prefill", "the fallback layouts"),
+    "moe": ("olmoe_1b_7b", {}, (2, 1), "prefill", FAMILIES_ITEM),
+    "moe-decode": ("olmoe_1b_7b", {}, (2, 1), "decode", FAMILIES_ITEM),
+    "vlm": ("qwen2_vl_7b", {}, (2, 1), "prefill", FAMILIES_ITEM),
+    "encdec": ("whisper_base", {}, (2, 1), "prefill", FAMILIES_ITEM),
 }
 
 
@@ -327,8 +324,9 @@ RAISES = {
 def test_seq_steps_raise_for_what_does_not_run_yet(case):
     """A B = 1 step on a mesh of two batch ranks raises
     ``NotImplementedError`` naming its ROADMAP item, before any
-    collective: training, the MoE, VLM and encoder-decoder families, and a
-    fallback layout over "model" (on model=4)."""
+    collective: training, and the MoE, VLM and encoder-decoder families
+    (the fallback layouts over "model" run:
+    ``test_torch_mesh_seq_fallback.py``)."""
     arch, overrides, shape, kind, item = RAISES[case]
     model = _model(arch, **overrides)
     ctx = _abstract(shape)
@@ -383,3 +381,35 @@ def test_seq_ctx_and_specs_follow_the_references_token_spec():
         assert specs["k"].spec[2] == axes and specs["v"].spec[2] == axes
         assert all(axes not in s.spec for n_, s in specs.items() if n_ in ("conv", "ssm"))
     assert _model("qwen2_0_5b").seq_ctx(_abstract((1, 2)), 1) is None
+
+
+PRODUCTION = {"16x16": ((16, 16), ("data", "model")),
+              "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
+CELLS = [pytest.param(a, shape.name, m, id=f"{a}-{shape.name}-{m}")
+         for m in PRODUCTION for a in sorted(all_archs()) for shape in shapes_for(get_arch(a))]
+
+
+@pytest.mark.parametrize("arch,shape,mesh", CELLS)
+def test_every_production_cell_is_accepted(arch, shape, mesh):
+    """Every cell of the reference's ``launch/dryrun.py`` (each catalog
+    arch, each of its ``shapes_for`` shapes, on the production meshes) is
+    accepted by ``tp_ctx`` and ``seq_ctx`` as its step asks them (the
+    prefill and train steps' ``tp_ctx(ctx)``, the serve step's with
+    ``serve``): none raises, a sequence-sharded cell's sequence splits over
+    the batch ranks and "model", and ``gemma3_1b``'s ``long_500k`` (4 heads
+    and 1 KV head on model=16: the head_dim fallback) lays out its cache with
+    "model" on head_dim and the batch axes on the sequence, as the
+    reference's ``cache_specs`` do."""
+    cfg = get_arch(arch)
+    cell = next(s for s in shapes_for(cfg) if s.name == shape)
+    ctx = MeshCtx(AbstractMesh(*PRODUCTION[mesh]))
+    model = build_model(cfg, max_pos=448 if cfg.family == "encdec" else 4096, device="cpu")
+    tp = model.tp_ctx(ctx, serve=cell.kind == "decode")
+    sp = model.seq_ctx(ctx, cell.global_batch, train=cell.kind == "train")
+    assert sp is (ctx if ctx.seq_sharded(cell.global_batch) else None)
+    if sp is not None:
+        assert cell.seq_len % (ctx.n_batch * (ctx.n_model if tp is not None else 1)) == 0
+    if (arch, shape) == ("gemma3_1b", "long_500k"):
+        assert sp is ctx and model._hd_fallback(tp)
+        spec = model.cache_specs(cell.global_batch, cell.seq_len, ctx)["k"].spec
+        assert spec[2] == ctx.batch_axes and spec[4] == "model", spec
