@@ -275,6 +275,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    shapes from ``TP_PHASES``; ``--tp-phase N`` (repeatable) runs the
    set-up and the kernels' build as the whole script does, then those
    phases alone, with no result line.
+13. the dry run against the card (``launch.dryrun``, ``roofline.op_count``):
+   qwen2-0.5b at full width, its prefill of 4 x 2048 (phase 5's, 24 layers)
+   and its train step of 4 x 2048 (phase 7's, 2 layers), each traced on
+   fake CUDA tensors, then run on the card: ``FlopCounterMode`` over the
+   real step counts the trace's FLOPs exactly, the card's peak
+   (``max_memory_allocated`` after a reset, the arguments resident) lies
+   within 10 % of the trace's, the median of 3 steps is no faster than
+   ``roofline_report(hw=H100)``'s lower bound allows (its share at most
+   105 %), and the prefill launches flash as often as the trace called it;
+   the dry run's CLI traces qwen2-0.5b's decode_32k cell at ranks 0 and 255
+   of the (16, 16) mesh on this machine, which has no JAX; the four examples
+   (``repro_torch.examples``) run with ``--device cuda``, quickstart and
+   reconfigure_live printing what they print with ``--device cpu`` (run in
+   subprocesses meanwhile), their storage kernels' launches joining the
+   kernels' line. ``--dryrun-phase`` runs the set-up and the kernels' build,
+   then this phase alone, with no result line.
 
 The line before the last holds the kernels' launches and times, the last
 line ``{"ok": true, "device": {...}}``. With no CUDA device, or outside a
@@ -282,6 +298,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
     python3 chip_smoke.py [--seed 0] [--size-mib 512] [--out chiprun_out/chip_smoke]
     python3 chip_smoke.py --tp-phase 12 [--tp-phase 11]   # those phases alone
+    python3 chip_smoke.py --dryrun-phase                   # phase 13 alone
 """
 from __future__ import annotations
 
@@ -633,31 +650,6 @@ FLASH_TIMED = (
 )
 
 
-def _causal_pairs(Sq: int, Sk: int, window: int = 0, causal: bool = True,
-                  q_offset: int = 0) -> int:
-    """Unmasked (q, k) pairs of one head under the top-left causal mask and
-    a window (0 <= q - k < window; 0 for none), the queries at positions
-    ``q_offset`` .. ``q_offset + Sq - 1``: what the kernel computes.
-    Non-causal with no window: every pair."""
-    if not causal and not window:
-        return Sq * Sk
-    last = (lambda q: min(q, Sk - 1)) if causal else (lambda q: Sk - 1)
-    return sum(max(0, last(q) - (max(0, q - window + 1) if window else 0) + 1)
-               for q in range(q_offset, q_offset + Sq))
-
-
-def _keys_reached(Sq: int, Sk: int, window: int = 0, causal: bool = True,
-                  q_offset: int = 0) -> int:
-    """Keys that some query at ``q_offset`` .. ``q_offset + Sq - 1`` attends
-    under the masks of ``_causal_pairs``: the K and V rows the kernel must
-    read. A query's keys run from ``q - window + 1`` (0 with no window) to
-    ``q`` (the last key if not causal), so the block's run from its first
-    query's first key to its last query's last."""
-    first = max(0, q_offset - window + 1) if window else 0
-    last = min(q_offset + Sq - 1, Sk - 1) if causal else Sk - 1
-    return max(0, last - first + 1)
-
-
 def check_flash(rng: np.random.Generator, card: str) -> dict:
     """The flash-attention kernel against its plain version on the cases
     above (tolerance 2e-2 in bf16: one bf16 rounding of outputs near 1;
@@ -783,6 +775,7 @@ def time_flash(case: tuple, rng: np.random.Generator, card: str) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention import work
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     dev = torch.device("cuda")
@@ -791,10 +784,9 @@ def time_flash(case: tuple, rng: np.random.Generator, card: str) -> dict:
     q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dev, dtype)
                for shape in ((B, H, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
     ke, ve = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
-    flops = 4 * hd * _causal_pairs(Sq, Sk, window, causal, off) * B * H
+    flops = work.flops(B, H, Sq, Sk, hd, window, causal, off)
     # q in and o out; the K and V rows the masks reach, each read once
-    nbytes = (2 * q.numel() + 2 * B * Hkv * _keys_reached(Sq, Sk, window, causal, off) * hd
-              ) * q.element_size()
+    nbytes = work.hbm_bytes(B, H, Hkv, Sq, Sk, hd, q.element_size(), window, causal, off)
     flop_ms, byte_ms = flops / BF16_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     bound_ms, bound_by = max(flop_ms, byte_ms), "operations" if flop_ms >= byte_ms else "bytes"
     qp, kp = off + torch.arange(Sq, device=dev)[:, None], torch.arange(Sk, device=dev)[None]
@@ -4804,6 +4796,232 @@ def run_tp_phase(seed: int, card: str, out_dir: Path, counts: dict, worst: dict,
         + f" ({card})")
 
 
+# ---------------------------------------------------------------- phase 13
+# the dry run (``launch.dryrun``, ``roofline.op_count``) held against the
+# card: qwen2-0.5b at full width, its prefill at phase 5's shape and its
+# train step at phase 7's (TRAIN_DEPTH layers), each traced on fake CUDA
+# tensors, then run here; one production cell through the CLI; the four
+# examples on the card
+DRYRUN_STEP_RUNS = 3  # timed steps a kind, the median held against the bound
+DRYRUN_PEAK_RTOL = 0.10  # the card's peak against the trace's
+DRYRUN_SHARE_MAX = 1.05  # the share of the bound that no step can reach
+DRYRUN_CELL = ("qwen2_0_5b", "decode_32k")  # on (16, 16), ranks 0 and 255
+EXAMPLES = ("quickstart", "reconfigure_live", "serve_decode", "train_ec_checkpoint")
+EXAMPLES_SAME_ON_CPU = ("quickstart", "reconfigure_live")
+
+
+def _storage_bytes(tree) -> int:
+    """The bytes of the distinct storages of a tree's tensors."""
+    from repro_torch.roofline.op_count import tensors_of
+
+    seen = {t.untyped_storage()._cdata: t.untyped_storage().nbytes() for t in tensors_of(tree)}
+    return sum(seen.values())
+
+
+def _dryrun_step(kind: str, seed: int, card: str) -> dict:
+    """One qwen2-0.5b step (``kind`` "prefill": full depth, PREFILL_B x
+    PREFILL_S; "train": TRAIN_DEPTH layers, TRAIN_B x TRAIN_S, AdamW)
+    traced on fake CUDA tensors (``count_step``), then run on the card:
+    FlopCounterMode over a real step must count the trace's FLOPs exactly,
+    the card's peak (``max_memory_allocated`` after a reset, less what was
+    resident besides the step's arguments) lie within DRYRUN_PEAK_RTOL of
+    the trace's, the median of DRYRUN_STEP_RUNS steps take at least
+    1 / DRYRUN_SHARE_MAX of ``roofline_report(hw=H100)``'s lower bound, and
+    a prefill launch flash as often as the trace called it."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models.registry import build_model
+    from repro_torch.roofline.analysis import H100, roofline_report
+    from repro_torch.roofline.op_count import count_step
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_prefill_step, make_train_step
+    from repro_torch.tree import tree_map
+
+    cfg = get_arch(MODEL)
+    if kind == "train":
+        cfg = dataclasses.replace(cfg, n_layers=TRAIN_DEPTH)
+    B, S = (PREFILL_B, PREFILL_S) if kind == "prefill" else (TRAIN_B, TRAIN_S)
+
+    def inputs(make):
+        model = build_model(cfg, max_pos=S, device="cuda")
+        params = tree_map(lambda sd: make(tuple(sd[0]), sd[1]), model.param_template())
+        tokens = make((B, S), torch.int32)
+        if kind == "prefill":
+            return make_prefill_step(model), (params, {"tokens": tokens})
+        batch = {"tokens": tokens, "labels": make((B, S), torch.int32)}
+        return make_train_step(model, None, AdamWConfig(lr=TRAIN_LR)), \
+            (params, adamw_init(params), batch)
+
+    with FakeTensorMode():
+        step, args = inputs(lambda shp, dtype: torch.empty(shp, dtype=dtype, device="cuda"))
+        _, trace = count_step(step, *args)
+    gen = torch.Generator("cuda").manual_seed(seed)
+
+    def draw(shp, dtype):
+        if dtype == torch.int32:
+            return torch.randint(0, cfg.vocab, shp, dtype=dtype, device="cuda", generator=gen)
+        return (torch.randn(shp, device="cuda", generator=gen) * 0.02).to(dtype)
+
+    step, args = inputs(draw)
+    step(*args)  # warm-up: cuBLAS handles, the kernel library
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - _storage_bytes(args)
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    with FlopCounterMode(display=False) as counter:
+        out = step(*args)
+    torch.cuda.synchronize()
+    flops, launches = counter.get_total_flops(), fa.launches
+    peak = torch.cuda.max_memory_allocated() - resident
+    finite = bool(torch.isfinite(out if kind == "prefill" else out[2]).all())
+    del out
+    walls = []
+    for _ in range(DRYRUN_STEP_RUNS):
+        t0 = time.perf_counter()
+        step(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall = sorted(walls)[len(walls) // 2]
+    tokens = B * S
+    report = roofline_report(flops=trace.flops, bytes_accessed=trace.hbm_bytes,
+                             collective_bytes=0.0, n_chips=1,
+                             model_flops=(6 if kind == "train" else 2) *
+                             build_model(cfg, device="cpu").n_active_params() * tokens,
+                             hw=H100, links_per_chip=H100.links)
+    bound = report["step_time_lower_bound"]
+    share = bound / wall
+    log(f"dryrun: {MODEL} {kind} ({cfg.n_layers} layers, {B} x {S}): trace {trace.seconds:.3f} s "
+        f"on fake CUDA tensors, {trace.flops} FLOPs, {trace.hbm_bytes} HBM bytes, peak "
+        f"{trace.peak_bytes} bytes ({trace.argument_bytes} at the start), flash calls "
+        f"{trace.flash_calls}; the card: {flops} FLOPs (FlopCounterMode), peak {peak} bytes "
+        f"(max_memory_allocated {peak + resident} less {resident} resident besides the "
+        f"arguments), {launches} flash launches; median of {DRYRUN_STEP_RUNS} steps {wall:.4f} s "
+        f"({', '.join(f'{w:.4f}' for w in walls)}), {tokens / wall:.1f} tokens/s; H100 bound "
+        f"{bound:.6f} s ({report['dominant']}: compute {report['compute']:.6f} s, memory "
+        f"{report['memory']:.6f} s), {100 * share:.2f} % of the bound ({card})")
+    top = sorted(trace.bytes_by_op.items(), key=lambda kv: -kv[1])[:6]
+    log(f"dryrun: {MODEL} {kind}: HBM bytes by operation " + ", ".join(
+        f"{op} {n / 1e9:.3f} GB" for op, n in top) + "; live at the peak " + ", ".join(
+        f"{r['dtype']}{r['shape']} {r['bytes'] / 1e9:.3f} GB ({r['op']}, {r['where']})"
+        for r in trace.top[:4]))
+    failures = []
+    if flops != trace.flops:
+        failures.append(f"FLOPs {flops} on the card, {trace.flops} in the trace")
+    if not abs(peak - trace.peak_bytes) <= DRYRUN_PEAK_RTOL * trace.peak_bytes:
+        failures.append(f"peak {peak} on the card, {trace.peak_bytes} in the trace "
+                        f"(more than {DRYRUN_PEAK_RTOL:.0%} apart)")
+    if share > DRYRUN_SHARE_MAX:
+        failures.append(f"{100 * share:.2f} % of the lower bound: faster than the bound allows")
+    if launches != trace.flash_calls:
+        failures.append(f"{launches} flash launches, {trace.flash_calls} flash calls traced")
+    if not finite:
+        failures.append("a non-finite output")
+    if failures:
+        raise AssertionError(f"dryrun {kind}: " + "; ".join(failures))
+    del step, args
+    torch.cuda.empty_cache()
+    return {"kind": kind, "flops": flops, "trace_flops": trace.flops, "peak": peak,
+            "trace_peak": trace.peak_bytes, "wall": wall, "bound": bound, "share": share,
+            "launches": launches, "trace_s": trace.seconds}
+
+
+def _example(name: str, device: str) -> tuple[str, dict]:
+    """``repro_torch.examples.<name>`` run here on ``device``: its standard
+    output and the storage and flash kernels' launches it made."""
+    import importlib
+    import io
+
+    from repro_torch.kernels.cdc_gearhash import ops as cdc
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.gf256_matmul import ops as gf
+
+    mods = {"gf256_matmul": gf, "cdc_gearhash": cdc, "flash_attention": fa}
+    before = {k: m.launches for k, m in mods.items()}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        importlib.import_module(f"repro_torch.examples.{name}").main(["--device", device])
+    return buf.getvalue(), {k: m.launches - before[k] for k, m in mods.items()}
+
+
+def drive_dryrun(seed: int, card: str, out_dir: Path, counts: dict) -> None:
+    """Phase 13: the dry run's trace held against the card (``_dryrun_step``
+    for qwen2-0.5b's prefill and train step); ``DRYRUN_CELL`` through
+    ``python -m repro_torch.launch.dryrun`` (ranks 0 and 255 of (16, 16) on
+    fake CUDA tensors over a fake process group, no JAX); the four examples
+    with ``--device cuda``, quickstart's and reconfigure_live's output
+    equal to their ``--device cpu`` runs' (in subprocesses meanwhile). Adds
+    the kernels' launches of the prefill and the examples to ``counts``."""
+    import os
+
+    from repro_torch.kernels.cdc_gearhash import ops as cdc
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.gf256_matmul import ops as gf
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="2")
+    cell_dir = out_dir / "dryrun"
+    arch, shape = DRYRUN_CELL
+    side = {"cell": subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+         "--out", str(cell_dir)], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)}
+    side.update({name: subprocess.Popen(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", "--device", "cpu"], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for name in EXAMPLES_SAME_ON_CPU})
+    try:
+        held = [_dryrun_step(kind, seed, card) for kind in ("prefill", "train")]
+        cdc.launches = gf.launches = fa.launches = 0
+        launches = {}
+        outputs = {}
+        for name in EXAMPLES:
+            outputs[name], launches[name] = _example(name, "cuda")
+        for name in EXAMPLES_SAME_ON_CPU:
+            cpu, err = side[name].communicate(timeout=300)
+            if side[name].returncode != 0:
+                raise AssertionError(f"{name} --device cpu: {err[-2000:]}")
+            if cpu != outputs[name]:
+                raise AssertionError(f"{name} printed otherwise on the card than on the CPU:\n"
+                                     f"{outputs[name]}\n-- CPU --\n{cpu}")
+        log_text = side["cell"].communicate(timeout=300)[0]
+        if side["cell"].returncode != 0:
+            raise AssertionError(f"dryrun {arch} {shape}: {log_text[-3000:]}")
+    finally:
+        for p in side.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    cell = json.loads((cell_dir / f"{arch}__{shape}__pod1.json").read_text())
+    if cell["status"] != "ok" or [r["rank"] for r in cell["ranks"]] != [0, 255]:
+        raise AssertionError(f"dryrun {arch} {shape}: {cell.get('error', cell['status'])}")
+    r = cell["roofline"]
+    log(f"dryrun: {arch} {shape} on (16, 16), ranks 0 and 255 traced in {cell['trace_s']} s on "
+        f"this machine (no JAX): peak {cell['per_chip_live_bytes'] / 1e9:.3f} GB a rank, "
+        f"{cell['flops_per_chip']:.4e} FLOPs, {cell['bytes_per_chip']:.4e} HBM bytes, "
+        f"{cell['collective_bytes_total']:.4e} collective bytes; H100 bound "
+        f"{r['step_time_lower_bound']:.6f} s ({r['dominant']}), MFU bound "
+        f"{100 * r['mfu_upper_bound']:.4f} % ({card})")
+    for name in EXAMPLES:
+        last = outputs[name].strip().splitlines()[-1]
+        log(f"dryrun: example {name} --device cuda: launches {launches[name]}"
+            + (" (the same output as --device cpu)" if name in EXAMPLES_SAME_ON_CPU else "")
+            + f"; its last line: {last}")
+    total = {k: sum(v[k] for v in launches.values()) for k in ("gf256_matmul", "cdc_gearhash")}
+    for k in ("gf256_matmul", "cdc_gearhash"):
+        if total[k] == 0:
+            raise AssertionError(f"the examples never launched {k}")
+        counts[k] += total[k]
+    counts["flash_attention"] += held[0]["launches"]
+    log(f"phase 13: {time.perf_counter() - t0:.3f} s; " + "; ".join(
+        f"{h['kind']} {100 * h['share']:.2f} % of the H100 bound, peak {h['peak'] / 1e9:.3f} GB "
+        f"(trace {h['trace_peak'] / 1e9:.3f} GB), FLOPs equal ({h['flops']})" for h in held)
+        + f"; examples' launches {total} ({card})")
+
+
 def tp_phases_alone(args, card: str, t_start: float) -> int:
     """``--tp-phase``: after ``main``'s set-up and the kernels' build, only
     the phases named, each as the whole run drives it; prints no result line
@@ -4824,6 +5042,9 @@ def main() -> int:
     ap.add_argument("--out", type=Path, default=ROOT / "chiprun_out" / "chip_smoke")
     ap.add_argument("--tp-rank", type=int, help=argparse.SUPPRESS)  # the ranks of phases 9-12
     ap.add_argument("--tp-dir", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--dryrun-phase", action="store_true",
+                    help="run only phase 13 (the dry run against the card, the examples), "
+                         "after building the kernels; no result line")
     ap.add_argument("--tp-phase", type=int, action="append", choices=sorted(TP_PHASES),
                     help="run only this phase of ranks sharing the card (repeatable), after "
                          "building the kernels; no result line")
@@ -4849,6 +5070,12 @@ def main() -> int:
     log(card)
     # phase 2
     build(args.out)
+    if args.dryrun_phase:
+        counts = {"gf256_matmul": 0, "cdc_gearhash": 0, "flash_attention": 0}
+        drive_dryrun(args.seed, card, args.out, counts)
+        log(f"elapsed: {time.perf_counter() - t_start:.3f} s after phase 13 ({card}); launches "
+            f"{counts}; no result line (not the whole script)")
+        return 0
     if args.tp_phase:
         return tp_phases_alone(args, card, t_start)
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -5020,6 +5247,9 @@ def main() -> int:
     for phase in TP_PHASES:
         run_tp_phase(args.seed, card, args.out, counts, worst, phase)
         elapsed(f"phase {phase}")
+    # phase 13: the dry run against the card, the examples, each counted from zero inside
+    drive_dryrun(args.seed, card, args.out, counts)
+    elapsed("phase 13")
 
     for entry in kernels:
         entry["launches"] = counts[entry["name"]]

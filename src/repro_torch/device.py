@@ -5,6 +5,7 @@ import warnings
 
 import numpy as np
 import torch
+import torch._guards
 
 
 def host_tensor(buf) -> torch.Tensor:
@@ -23,11 +24,15 @@ def host_tensor(buf) -> torch.Tensor:
 
 def resolve_device(device: str | torch.device) -> torch.device:
     """``torch.device(device)``, refusing a CUDA device on a machine without
-    one: the data plane never falls back to the CPU behind the caller's back."""
+    one: the data plane never falls back to the CPU behind the caller's back.
+    The one exception is a ``FakeTensorMode`` (the dry run, which traces a
+    step on tensors with no data): while one is active a CUDA device is
+    accepted without a card, since nothing runs on it."""
     if str(device).split(":")[0] not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}: expected 'cuda' or 'cpu'")
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+    if dev.type == "cuda" and not torch.cuda.is_available() and \
+            torch._guards.detect_fake_mode() is None:
         raise RuntimeError(
             f"device {device!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch versions"

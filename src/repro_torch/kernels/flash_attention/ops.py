@@ -6,14 +6,27 @@ launch, counted in ``launches``; bf16 runs on the tensor cores, f32 on the
 CUDA cores), the plain PyTorch version (``ref.flash_attention_ref``) for
 CPU tensors. There is no fallback from one to the other, and anything the
 kernel does not take raises on both.
+
+The CUDA launch is the custom operator ``torch.ops.repro_torch.flash_attention``
+(``torch.library.custom_op``): its real body launches the kernel; its fake
+body, which ``FakeTensorMode`` runs in place of it (the dry run, on tensors
+with no data), returns an empty tensor of q's shape and dtype and launches
+nothing; its flop formula, which ``FlopCounterMode`` counts, is
+``work.flops``. A fake tensor takes that operator on any device: the dry
+run's tensors stand for the card's, and a CPU-only torch cannot trace fake
+CUDA tensors (its indexing and autograd engine take a CUDA device guard that
+such a build lacks), so there they lie on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import work
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 # Kernel launches made by ``flash_attention`` since the count was last reset.
@@ -51,8 +64,10 @@ def _validate(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int,
         raise ValueError(f"q_offset {q_offset} outside [0, {_INT_MAX}]")
 
 
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
             q_offset: int) -> torch.Tensor:
+    """One kernel launch on CUDA tensors that ``flash_attention`` checked."""
     global launches
     B, H, Sq, hd = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -72,6 +87,24 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, win
     return out
 
 
+@_launch.register_fake
+def _launch_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+                 q_offset: int) -> torch.Tensor:
+    """The launch's result under ``FakeTensorMode``: q's shape and dtype, no
+    data; no kernel runs and ``launches`` does not move. Raises for a tensor
+    with data: a real tensor always reaches the real body."""
+    if not isinstance(q, FakeTensor) and q.device.type != "meta":
+        raise RuntimeError("flash_attention's fake body was given a real tensor")
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _launch_flops(q_shape, k_shape, v_shape, causal: bool, window: int, q_offset: int, *,
+                  out_shape=None, **kwargs) -> int:
+    B, H, Sq, hd = q_shape
+    return work.flops(B, H, Sq, k_shape[2], hd, window, causal, q_offset)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Fused attention. q (B, H, Sq, hd); k/v (B, Hkv, Sk, hd) with
@@ -86,7 +119,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _validate(q, k, v, window, q_offset)
     if q.shape[2] == 0:
         return torch.empty_like(q)
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or isinstance(q, FakeTensor):
+        # a fake tensor (the dry run's) stands for the card's: it takes the
+        # kernel's operator, whose fake body runs and launches nothing
         return _launch(q, k, v, causal, window, q_offset)
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)

@@ -6,8 +6,10 @@ The caller starts the process group first, with the backend of the mesh's
 device and an address of its own, e.g. on one card
 ``torch.distributed.init_process_group("nccl", init_method="tcp://localhost:<port>",
 rank=0, world_size=1)``; NCCL for "cuda", gloo for "cpu" (``MeshCtx``
-checks it). The one exception is ``make_shared_card_mesh``: ranks that
-share one card, over gloo, which NCCL refuses."""
+checks it). The exceptions are ``make_shared_card_mesh``: ranks that
+share one card, over gloo, which NCCL refuses; and ``make_dryrun_mesh``,
+which starts a fake process group itself: one rank of a production mesh,
+traced on fake tensors with no card (``launch.dryrun``)."""
 from __future__ import annotations
 
 import math
@@ -15,7 +17,7 @@ import math
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from repro_torch.models.sharding import SHARED_CARD
+from repro_torch.models.sharding import DRYRUN, SHARED_CARD
 
 
 def make_production_mesh(*, multi_pod: bool = False, device: str = "cuda") -> DeviceMesh:
@@ -49,6 +51,29 @@ def make_shared_card_mesh(shape: tuple[int, ...] = (1, 2)) -> DeviceMesh:
     axes = ("pod", "data", "model")[3 - len(shape):]
     mesh = _mesh("cuda", tuple(shape), axes)
     setattr(mesh, SHARED_CARD, True)
+    return mesh
+
+
+def make_dryrun_mesh(*, multi_pod: bool = False, rank: int = 0,
+                     device: str = "cuda") -> DeviceMesh:
+    """``make_production_mesh``'s mesh as seen by rank ``rank``, over a
+    fake process group of its 256 (or 512) ranks that this call starts
+    (``torch.distributed``'s "fake" backend: its collectives return at once
+    and move nothing), marked as the dry run's (``sharding.DRYRUN``):
+    ``MeshCtx`` takes the fake backend on this mesh alone, and a step on it
+    takes fake tensors only. The process group is the process's own, so a
+    process traces one rank of one mesh."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    world = 512 if multi_pod else 256
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside the {world}-rank mesh")
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already running: the dry run starts its own, "
+                           "one a process")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
+    mesh = make_production_mesh(multi_pod=multi_pod, device=device)
+    setattr(mesh, DRYRUN, True)
     return mesh
 
 

@@ -59,6 +59,7 @@ from typing import Any
 
 import torch
 import torch.distributed as dist
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
@@ -72,6 +73,11 @@ _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 # builds over gloo (which takes every collective below for CUDA tensors in the
 # card machine's torch 2.11)
 SHARED_CARD = "repro_shared_card"
+# the attribute ``launch.mesh.make_dryrun_mesh`` sets on the mesh it builds
+# over a fake process group (``torch.distributed``'s "fake" backend, whose
+# collectives move nothing): the one mesh ``MeshCtx`` takes over it, and on
+# which a step takes fake tensors only (``require_fake``)
+DRYRUN = "repro_dryrun"
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX, "avg": dist.ReduceOp.AVG}
 # ``reduce_scatter_tensor``/``all_gather_into_tensor`` took new names in torch 2.13
 _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
@@ -116,7 +122,9 @@ class MeshCtx:
         want = _BACKENDS.get(self.mesh.device_type)
         if want is None:
             raise ValueError(f"mesh device {self.mesh.device_type!r}: expected 'cuda' or 'cpu'")
-        if getattr(self.mesh, SHARED_CARD, False) and self.mesh.device_type == "cuda":
+        if getattr(self.mesh, DRYRUN, False):
+            want = "fake"  # the dry run's mesh (make_dryrun_mesh): nothing runs on it
+        elif getattr(self.mesh, SHARED_CARD, False) and self.mesh.device_type == "cuda":
             want = "gloo"  # ranks that share one card (make_shared_card_mesh): NCCL refuses them
         elif want == "nccl" and not dist.is_nccl_available():
             raise RuntimeError("a CUDA mesh needs NCCL, which this torch was built without")
@@ -238,7 +246,11 @@ class MeshCtx:
 
     def local(self, x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
         """This rank's block of ``x`` laid out as ``sharding`` (``place``)."""
-        return place(x, sharding).to_local()
+        return self.place(x, sharding).to_local()
+
+    def place(self, x: torch.Tensor, sharding: NamedSharding) -> DTensor:
+        """``place``, its gathers (``whole``'s) counted as "all_gather"."""
+        return place(x, sharding, self.counts)
 
     # ----------------------------------------------------------- collectives
     def size(self, axes: tuple[str, ...]) -> int:
@@ -258,6 +270,7 @@ class MeshCtx:
 
     def _comm(self, kind: str, axes: tuple[str, ...], x: torch.Tensor, fn) -> torch.Tensor:
         """``fn(x, group)`` over the group of ``axes``, counted by kind."""
+        require_fake(x, self.mesh)
         self.counts[kind] = self.counts.get(kind, 0) + 1
         return fn(x.contiguous(), self.group(axes))
 
@@ -332,6 +345,7 @@ class MeshCtx:
         the first rank; shaped and typed like ``start``. Each rank calls
         ``relay_in``, computes, then ``relay_out``: rank r waits for rank
         r - 1 alone, so the hops run in sequence order."""
+        require_fake(start, self.mesh)
         r = self.seq_rank
         if r == 0:
             return start
@@ -344,6 +358,7 @@ class MeshCtx:
     def relay_out(self, x: torch.Tensor) -> None:
         """``x`` sent to the next sequence rank (its ``relay_in``); nothing on
         the last rank. Counted once a relay on every rank."""
+        require_fake(x, self.mesh)
         self.counts["relay"] = self.counts.get("relay", 0) + 1
         r = self.seq_rank
         if r == self.n_batch - 1:
@@ -529,22 +544,35 @@ class _VocabParallelCE(torch.autograd.Function):
         return grad * g[..., None], None, None
 
 
-def place(x: torch.Tensor, sharding: NamedSharding) -> DTensor:
+def place(x: torch.Tensor, sharding: NamedSharding, counts: dict | None = None) -> DTensor:
     """``x`` laid out as ``sharding`` on its mesh (the counterpart of
     ``jax.device_put``): a plain tensor is the global value, the same on
     every rank, of which each rank keeps its block (no communication); a
-    DTensor laid out otherwise is gathered whole first (``whole``)."""
+    DTensor laid out otherwise is gathered whole first (``whole``, its
+    gathers counted in ``counts`` where given)."""
     mesh = sharding.mesh
     if isinstance(mesh, AbstractMesh):
         raise RuntimeError("an AbstractMesh has no devices: build the MeshCtx on a DeviceMesh")
+    require_fake(x, mesh)
     if isinstance(x, DTensor):
         if tuple(x.placements) == tuple(sharding.placements):
             return x
-        x = whole(x)
+        x = whole(x, counts)
     return distribute_tensor(x, mesh, sharding.placements, src_data_rank=None)
 
 
-def whole(x: torch.Tensor) -> torch.Tensor:
+def require_fake(x: torch.Tensor, mesh) -> None:
+    """Raises where ``mesh`` is the dry run's (``DRYRUN``) and ``x`` holds
+    data: its fake process group moves nothing, so a step on it would
+    compute from what no other rank sent."""
+    if getattr(mesh, DRYRUN, False):
+        local = x.to_local() if isinstance(x, DTensor) else x
+        if not isinstance(local, FakeTensor):
+            raise RuntimeError("a real tensor reached a step on the dry run's mesh, whose fake "
+                               "process group moves no data: trace it on fake tensors")
+
+
+def whole(x: torch.Tensor, counts: dict | None = None) -> torch.Tensor:
     """A DTensor's global value, on every rank: its blocks gathered over each
     mesh dim that shards it, the innermost first, so that blocks nested on
     one tensor dim come back in mesh order; a plain tensor as it is. The
@@ -560,6 +588,8 @@ def whole(x: torch.Tensor) -> torch.Tensor:
         if isinstance(p, Shard) and mesh.size(i) > 1:
             src = t.movedim(p.dim, 0).contiguous()
             out = src.new_empty((mesh.size(i) * src.shape[0], *src.shape[1:]))
+            if counts is not None:
+                counts["all_gather"] = counts.get("all_gather", 0) + 1
             _all_gather(out, src, group=mesh.get_group(i))
             t = out.movedim(0, p.dim)
     return t.contiguous()

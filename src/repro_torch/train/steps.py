@@ -39,7 +39,6 @@ from repro_torch.models.sharding import (
     MeshCtx,
     NamedSharding,
     on_model,
-    place,
 )
 from repro_torch.train.optimizer import (
     AdamWConfig,
@@ -129,7 +128,7 @@ def make_train_step(model: LM, ctx: MeshCtx | None = None, opt_cfg: AdamWConfig 
 
     def sharded_train_step(params: Tree, opt_state: Tree, batch: dict):
         bspecs, dp_axes, _ = _batch_layout(model, ctx, batch, "train", tp)
-        params = tree_map(place, params, pspecs)
+        params = tree_map(ctx.place, params, pspecs)
         local = tree_map(lambda p: p.to_local(), params)
         block = {k: ctx.local(v, bspecs[k]) for k, v in batch.items()}
         # the reference masks every row by the global batch's first temporal stream

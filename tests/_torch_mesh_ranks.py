@@ -482,6 +482,15 @@ def _decode(model, serve_step, args: dict, ctx, first: int = 0) -> list:
     return out
 
 
+def case_dryrun_counts(args: dict) -> dict:
+    """The dry run's counts of ``args["archs"]``' train step and prefill
+    (``_torch_dryrun.trace_mesh``) on real CPU tensors over these gloo
+    ranks: what the fake trace of the same steps must count."""
+    from _torch_dryrun import KINDS, trace_mesh
+
+    return trace_mesh(args["archs"], args.get("kinds", KINDS), fake=False)
+
+
 def main() -> int:
     import torch.distributed as dist
 

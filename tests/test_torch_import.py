@@ -29,7 +29,12 @@ for name in ("repro_torch.analysis", "repro_torch.core.gateway", "repro_torch.co
              "repro_torch.train.checkpoint", "repro_torch.train.optimizer",
              "repro_torch.train.compress", "repro_torch.launch.train",
              "repro_torch.models.sharding", "repro_torch.launch.mesh",
-             "repro_torch.train.elastic"):
+             "repro_torch.train.elastic", "repro_torch.roofline", "repro_torch.roofline.analysis",
+             "repro_torch.roofline.op_count", "repro_torch.roofline.report",
+             "repro_torch.launch.dryrun", "repro_torch.launch.buffers", "repro_torch.examples",
+             "repro_torch.examples.quickstart", "repro_torch.examples.reconfigure_live",
+             "repro_torch.examples.serve_decode", "repro_torch.examples.train_ec_checkpoint",
+             "repro_torch.kernels.flash_attention.work"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)

@@ -6,8 +6,9 @@ model=2) and (data=2, model=2) for qwen2-0.5b, olmoe-1b-7b and mamba2-2.7b
 run as models that are not pure data-parallel (``pure_dp=False`` on both
 sides: the reduced configs are below the threshold); reduced configs,
 B = 4, S = 256 (the chunked cross-entropy runs: S > 128). The (pod=2, data=2, model=1) mesh is in
-``test_torch_mesh_ref_pod.py``, so that the reference's compiles spread
-over two test workers.
+``test_torch_mesh_ref_pod.py``, and the tensor-parallel cases in
+``test_torch_mesh_ref_tp.py``, so that the reference's compiles spread over
+three test workers.
 
 The reference runs in a subprocess on fake CPU devices, on a mesh with
 Auto axes (``_torch_mesh_oracle``), the port on gloo ranks, from the same
@@ -39,9 +40,6 @@ MESH = ((2, 1), NAMES)
 CASES = {"qwen2_0_5b": ("qwen2_0_5b", MESH, None), "olmoe_1b_7b": ("olmoe_1b_7b", MESH, None),
          "mamba2_2_7b": ("mamba2_2_7b", MESH, None),
          "whisper_base": ("whisper_base", ((2, 2), NAMES), None)}
-CASES.update({f"{arch}-tp{'x'.join(map(str, shape))}": (arch, (shape, NAMES), False)
-              for arch in ("qwen2_0_5b", "olmoe_1b_7b", "mamba2_2_7b")
-              for shape in ((1, 2), (2, 2))})
 
 
 @pytest.fixture(scope="module", params=sorted(CASES))
