@@ -256,7 +256,17 @@ Phases, each of which fails the run (non-zero exit) on any error:
    across the ranks' seam in bf16, and in f32 (its cache and score chain
    too) as phase 9's f32 witness, the prefill's twin running each product
    on the ranks' row blocks of the sequence
-   (``_torch_train_criteria.tp_rows``).
+   (``_torch_train_criteria.tp_rows``). Then sequence-sharded training
+   (``seq_train``): an f32 witness at 2 layers whose every gradient leaf
+   lies within 1e-4 of the one-process step's (``hold_step``'s policy:
+   widened by the probes' distance up to NUDGE_CAP tolerances; past that,
+   ill-conditioned, within 1e-4 of the twin's, the one-process step
+   computed as the ranks compute it), then one step of B = 1 x
+   8192 at full width (gemma3-1b 6 layers, mamba2-2.7b 8, zamba2-7b 7: a
+   ``reduced:`` line each) held on rank 0 against the one-process step as
+   ``hold_step`` decides, both timed, with the collectives by kind (the
+   backward's ``halo_back`` and ``relay_back`` too), the peak a rank and
+   how long the relay's receives blocked (rank 0's in the backward).
 12. sequence sharding composed with a fallback layout over "model": the
    flash kernel held and timed at the eight (sequence, model) ranks' query
    offsets of qwen2-0.5b on (data=2, model=4) (``SF_FLASH_CASES``: 4096
@@ -267,10 +277,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``chiprun_out/chip_smoke/tp_ranks_12/``): qwen2-0.5b at full width and
    depth, its 14 heads head_dim-sharded, B = 1: the prefill of 1 x 32768
    tokens (the median of 3 after a warm-up; 24 flash launches a rank and
-   prefill, each at its rank's offset) and 8 greedy decode steps against a
-   524288-long cache (its head_dim block of its sequence block on each
-   rank, 0.8 GB of K/V), both bit for bit the unsharded run under
-   ``tp_rounding(4, seq=2)``; the 2-layer bf16 and f32 checks as phase 11's.
+   prefill, each at its rank's offset) and 4 greedy decode steps (cut from
+   8 for the script's time: a ``reduced:`` line) against a 524288-long
+   cache (its head_dim block of its sequence block on each rank, 0.8 GB of
+   K/V), both bit for bit the unsharded run under ``tp_rounding(4,
+   seq=2)``; the 2-layer bf16 and f32 checks as phase 11's;
+   sequence-sharded training as phase 11's, qwen2-0.5b at 4 layers (its
+   head_dim-sharded attention, the fallback layout).
    Phases 9-12 run one driver (``tp_serve``, ``tp_shallow``), each with its
    shapes from ``TP_PHASES``; ``--tp-phase N`` (repeatable) runs the
    set-up and the kernels' build as the whole script does, then those
@@ -3832,6 +3845,25 @@ SEQ_FLASH_CASES = tuple(
     (f"gemma3 sequence rank {r} {'window 512' if w else 'global'} (q_offset {r * SEQ_S // 2})",
      1, 4, 1, SEQ_S // 2, SEQ_S, 256, True, w, torch.bfloat16, 1.0, r * SEQ_S // 2)
     for w in (512, 0) for r in range(SEQ_MESH[0]))
+# sequence-sharded training (``seq_train``, phases 11 and 12): one step of B =
+# 1 x SEQ_TRAIN_S tokens (a rank block of 4096: whole SSM chunks and whole
+# q_chunks of the training attention), at full width and these depths (a
+# reduced: line each), held on rank 0 against the one-process step from the
+# same weights, and an f32 witness at SEQ_WITNESS_LAYERS layers whose every
+# gradient leaf lies within TP_WITNESS_RTOL of the one-process f32 step's
+SEQ_TRAIN_S, SEQ_WITNESS_LAYERS = 8192, 2
+# the witness's two layers hold each kind of layer the step runs: gemma3's one
+# window-512 layer and one global (every other layer global), zamba2's two
+# Mamba2 layers and the shared block after them (the loss must read every
+# leaf)
+SEQ_WITNESS_OVERRIDES = {"gemma3_1b": {"global_every": 2}, "zamba2_7b": {"shared_attn_every": 2}}
+SEQ_TRAIN_DEPTHS = {"gemma3_1b": 6, "mamba2_2_7b": 8, "zamba2_7b": 7}
+SEQ_TRAIN_CUTS = {
+    "gemma3_1b": "the script's 1200 s: five window-512 layers and one global layer",
+    "mamba2_2_7b": "the script's 1200 s, as phase 7b trains it",
+    "zamba2_7b": "the script's 1200 s: one group of six Mamba2 layers, the shared block and "
+                 "a trailing layer, as phase 7b trains it",
+}
 
 # ---------------------------------------------------------------- phase 12
 # sequence sharding composed with a fallback layout over "model": the
@@ -3853,6 +3885,11 @@ SF_FLASH_CASES = tuple(
      f"(q_offset {r * SEQ_S // 8})", 1, 14, 2, SEQ_S // 8, SEQ_S, 64, True, 0, torch.bfloat16, 1.0,
      r * SEQ_S // 8) for r in range(math.prod(SF_MESH)))
 SF_SHALLOW_LAYERS = {"qwen2_0_5b": 2}
+# phase 12's decode steps, cut from SEQ_STEPS (8) for the script's time with
+# phases 11 and 12's training (a reduced: line)
+SF_STEPS = 4
+SF_TRAIN_DEPTHS = {"qwen2_0_5b": 4}
+SF_TRAIN_CUTS = {"qwen2_0_5b": "the script's 1200 s: phases 9 and 10 train qwen2 at 4 layers too"}
 
 # each phase of ranks sharing the card: its mesh, archs, depths (where cut,
 # with the reason), flash shapes, what its serving equals bit for bit, and
@@ -3880,7 +3917,8 @@ TP_PHASES = {
              offsets=(0, 3, "the causal load imbalance: its rows reach 4x the keys"),
              staged="nothing"),
     11: dict(mesh=SEQ_MESH, archs=SEQ_ARCHS, serve_depths=SEQ_DEPTHS, serve_cuts=SEQ_CUTS,
-             train_depths={}, flash=SEQ_FLASH_CASES,
+             train_depths=SEQ_TRAIN_DEPTHS, train_cuts=SEQ_TRAIN_CUTS, seq_train=True,
+             flash=SEQ_FLASH_CASES,
              exact={a: ("prefill", "decode") for a in SEQ_ARCHS},
              serve=dict(B=1, S=SEQ_S, warmup_s=SEQ_WARMUP_S, steps=SEQ_STEPS, cache_len=SEQ_CACHE,
                         first=SEQ_CACHE - 2 * SEQ_STEPS, warm=(2 * SEQ_WARMUP_S, SEQ_WARMUP_S - 1),
@@ -3892,12 +3930,14 @@ TP_PHASES = {
              shallow_depths=SEQ_SHALLOW_LAYERS,
              offsets=(2, 3, "the global layers: rank 1's rows reach 3x the causal pairs"),
              staged="the relays' states (gloo's send and receive)"),
-    12: dict(mesh=SF_MESH, archs=SF_ARCHS, serve_depths={}, serve_cuts={}, train_depths={},
+    12: dict(mesh=SF_MESH, archs=SF_ARCHS, serve_depths={}, serve_cuts={},
+             train_depths=SF_TRAIN_DEPTHS, train_cuts=SF_TRAIN_CUTS, seq_train=True,
              flash=SF_FLASH_CASES, exact={a: ("prefill", "decode") for a in SF_ARCHS},
-             serve=dict(B=1, S=SEQ_S, warmup_s=SEQ_WARMUP_S, steps=SEQ_STEPS, cache_len=SEQ_CACHE,
+             serve=dict(B=1, S=SEQ_S, warmup_s=SEQ_WARMUP_S, steps=SF_STEPS, cache_len=SEQ_CACHE,
                         first=SEQ_CACHE - 2 * SEQ_STEPS, warm=(2 * SEQ_WARMUP_S, SEQ_WARMUP_S - 1),
                         drawn=True),
-             decode_cut=None,
+             decode_cut=f"{SEQ_STEPS} -> {SF_STEPS} (the script's 1200 s with phases 11 and 12's "
+                        f"training: its 8 steps took 28.1 s)",
              shallow=dict(B=1, S=SEQ_SHALLOW_S, steps=SEQ_SHALLOW_STEPS,
                           cache_len=SEQ_SHALLOW_CACHE, first=SEQ_SHALLOW_CACHE // 2 - 2,
                           drawn=True),
@@ -4047,7 +4087,11 @@ def drive_tp(seed: int, card: str, out_dir: Path, totals: dict, worst: dict,
             + f"; prefill {r0['prefill_tokens_per_s']:.1f}, "
             f"decode {r0['decode_tokens_per_s']:.1f}"
             + (f", train {r0['train_tokens_per_s']:.1f}" if "train_tokens_per_s" in r0 else "")
-            + f" tokens/s on {world} ranks sharing the card ({card})")
+            + f" tokens/s on {world} ranks sharing the card"
+            + (f"; rank 0's backward waited {r0['relay_back_s']:.6f} s on the relay in step 1, "
+               f"by rank {[r[arch]['relay_back_s'] for r in ranks]}" if "relay_back_s" in r0
+               else "")
+            + (f"; the one-process step: {r0['plain']}" if "plain" in r0 else "") + f" ({card})")
         if "drops" in r0:
             for layer in r0["drops"]:
                 dropped = sum(r[arch]["drops"][layer][0] for r in ranks)
@@ -4093,7 +4137,8 @@ def tp_rank_main(rank: int, work: Path, seed: int, phase: int = 9) -> int:
             t1 = time.perf_counter()
             served = tp_serve(ctx, arch, seed, card, rank, ph)
             t2 = time.perf_counter()
-            out[arch] = {**served, **(tp_train(ctx, arch, seed, card, rank, ph)
+            train = seq_train if ph.get("seq_train") else tp_train
+            out[arch] = {**served, **(train(ctx, arch, seed, card, rank, ph)
                                       if arch in ph["train_depths"] else {})}
             t3 = time.perf_counter()
             tp_shallow(ctx, arch, seed, card, rank, ph)
@@ -4779,6 +4824,249 @@ def tp_train(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> dict:
             raise AssertionError(f"tp qwen2 f32 1 layer: {verdict}")
     return {"train_tokens_per_s": n_tokens / median, "train_peak": peak,
             "train_depth": cfg.n_layers, "train_counts": counts}
+
+
+def seq_train(ctx, arch: str, seed: int, card: str, rank: int, ph: dict) -> dict:
+    """Sequence-sharded training (phases 11 and 12): first the f32 witness,
+    SEQ_WITNESS_LAYERS layers of the config in f32, whose every gradient
+    leaf (as the sharded step hands its optimizer, averaged over the batch
+    axes, gathered whole) lies within TP_WITNESS_RTOL relative L2 of the
+    one-process step's on rank 0, held. Then ``arch`` at full width and the
+    phase's ``train_depths`` (a ``reduced:`` line), not pure data-parallel,
+    weights drawn on the card, B = 1 x SEQ_TRAIN_S (each sequence rank's
+    block; ``LM.seq_ctx(ctx, 1, train=True)``), lr TRAIN_LR, the
+    parameters stored in the ZeRO layout: step 1 (also the warm-up) and
+    ``TP_TRAIN_STEPS`` timed steps (train tokens/s, peak device memory on
+    every rank, the collectives of step 1 by kind, the backward hops
+    included, and how long each rank's receives blocked on the relay,
+    ``MeshCtx.waits``: rank 0's are its backward's). On rank 0 (the others
+    wait in their next collective) the one-process step from the same
+    weights and batch, its train tokens/s (a warm-up, then
+    ``TP_TRAIN_STEPS``), and step 1 held against it as ``hold_step``
+    decides from its probes, each another correct rounding of the
+    one-process step (``_seq_probes``), printed with the farthest leaves.
+    The f32 witness is held by the same policy (``_witness_verdict``)."""
+    import contextlib
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    import _torch_train_criteria as crit
+
+    import repro_torch.train.steps as steps
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import loss_and_grads, make_train_step, training_state_specs
+    from repro_torch.tree import named_leaves, tree_map
+
+    cfg, depth = get_arch(arch), ph["train_depths"][arch]
+    opt_cfg = AdamWConfig(lr=TRAIN_LR)
+    tag = f"seq {arch} ({ctx.n_batch} sequence ranks x model={ctx.n_model})"
+
+    def sharded_step(model, params, batch, grads: dict | None = None):
+        """Step 1 of the sharded step from ``params`` stored in the ZeRO
+        layout; with ``grads``, the gradients it hands its optimizer
+        recorded there."""
+        pstore, ospecs = training_state_specs(model, ctx)
+        state = reshard_state(params, pstore), reshard_state(adamw_init(params), ospecs)
+        update = steps.adamw_update_sharded
+        if grads is not None:
+            def recording(p, g, *rest):
+                grads.update(g=g)
+                return update(p, g, *rest)
+            steps.adamw_update_sharded = recording
+        try:
+            return make_train_step(model, ctx, opt_cfg)(*state, batch)
+        finally:
+            steps.adamw_update_sharded = update
+
+    def free() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the f32 witness
+    witness = {"n_layers": SEQ_WITNESS_LAYERS, "dtype": "float32",
+               **SEQ_WITNESS_OVERRIDES.get(arch, {})}
+    f32 = dataclasses.replace(cfg, **witness)
+    log(f"reduced: seq {arch} f32 witness "
+        + ", ".join(f"{k} {getattr(cfg, k)} -> {v}" for k, v in witness.items())
+        + " (the witness of the sharded step's gradients)")
+    model = build_model(f32, max_pos=SEQ_TRAIN_S, device="cuda")
+    model.pure_dp = False
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed + 1))
+    batch = _train_batches(f32, 1, SEQ_TRAIN_S, seed + 1, "cuda")()
+    handed: dict = {}
+    sharded_step(model, params, batch, handed)
+    mesh, pspecs = ctx.device_mesh(), model.param_specs(ctx)
+    grads = _whole(tree_map(
+        lambda g, sp: DTensor.from_local(ctx.all_reduce(g.float(), ctx.batch_axes, "avg"), mesh,
+                                         sp.placements, run_check=False), handed["g"], pspecs))
+    if rank == 0:
+        want = dict(named_leaves(loss_and_grads(model, params, batch)[1]))
+        errs = {n: crit.rel_l2(g, want[n]) for n, g in named_leaves(grads)}
+        # the one-process step's own distance under other correct roundings; the
+        # last probe is the twin, the one-process step computed as the ranks compute it
+        floor = dict.fromkeys(errs, 0.0)
+        for name, probe in _seq_probes(crit, f32, ctx).items():
+            with contextlib.ExitStack() as stack:
+                for cm in probe:
+                    stack.enter_context(cm)
+                moved = dict(named_leaves(loss_and_grads(model, params, batch)[1]))
+            dist_ = {n: crit.rel_l2(moved[n], want[n]) for n in want}
+            floor = {n: max(floor[n], dist_[n]) for n in floor}
+            log(f"{tag}: f32 witness: the one-process gradients {name} against themselves, the "
+                f"farthest {_far(dist_)}")
+        twin = {n: crit.rel_l2(g, moved[n]) for n, g in named_leaves(grads)}
+        del moved
+        passed, verdict = _witness_verdict(errs, floor, twin)
+        log(f"{tag}: f32 witness, {f32.n_layers} layers, B=1 x {SEQ_TRAIN_S}: every gradient "
+            f"leaf of the sharded step against the one-process step's, the farthest "
+            f"{_far(errs)}, against the twin's {_far(twin)} (tolerance {TP_WITNESS_RTOL}): "
+            f"{verdict} ({card})")
+        if not passed:
+            raise AssertionError(f"{tag}: f32 witness: {verdict}")
+        del want
+    del grads, handed, params, model, batch
+    free()
+    dist.barrier()
+
+    # the bf16 step at the phase's depth
+    if depth < cfg.n_layers:
+        log(f"reduced: seq {arch} training n_layers {cfg.n_layers} -> {depth} "
+            f"({ph['train_cuts'][arch]})")
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    model = build_model(cfg, max_pos=SEQ_TRAIN_S, device="cuda")
+    model.pure_dp = False
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(seed))
+    next_batch = _train_batches(cfg, 1, SEQ_TRAIN_S, seed, "cuda")
+    batches = [next_batch() for _ in range(TP_TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ctx.counts.clear()
+    ctx.waits.clear()
+    walls, losses = [], []
+    t = time.perf_counter()
+    p1, o1, loss = sharded_step(model, params, batches[0])
+    losses.append(float(loss))
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t)
+    counts, waits = dict(ctx.counts), dict(ctx.waits)
+    step, state = make_train_step(model, ctx, opt_cfg), (p1, o1)
+    for batch in batches[1:]:
+        t = time.perf_counter()
+        state = step(*state, batch)
+        losses.append(float(state[2]))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        state = state[:2]
+    del state
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag}: sharded train losses {losses} are not all finite")
+    median = sorted(walls[1:])[len(walls[1:]) // 2]
+    peaks, every_wait = [None] * dist.get_world_size(), [None] * dist.get_world_size()
+    dist.all_gather_object(peaks, peak)
+    dist.all_gather_object(every_wait, waits)
+    log(f"{tag}: trained at full width, {cfg.n_layers} layers, B=1 x {SEQ_TRAIN_S} tokens "
+        f"({SEQ_TRAIN_S // ctx.n_batch} a sequence rank): {SEQ_TRAIN_S / median:.1f} train "
+        f"tokens/s on {ctx.size(ctx.axis_names)} ranks sharing the card (median step "
+        f"{median:.4f} s of {', '.join(f'{w:.4f}' for w in walls)}, the first step 1, a "
+        f"warm-up); losses {', '.join(f'{x:.6f}' for x in losses)}; peak device memory by rank "
+        f"{peaks} bytes; step 1's collectives by kind {counts}; the relay's receives blocked "
+        f"in step 1, by rank (relay: the forward's, relay_back: the backward's): "
+        f"{[{k: round(v, 6) for k, v in w.items()} for w in every_wait]} s ({card})")
+    whole_p, whole_o = _whole(p1), _whole(o1)
+    del p1, o1
+    out = {"train_tokens_per_s": SEQ_TRAIN_S / median, "train_peak": peak,
+           "train_depth": cfg.n_layers, "train_counts": counts,
+           "relay_back_s": waits.get("relay_back", 0.0)}
+    if rank == 0:
+        plain = make_train_step(model, None, opt_cfg)
+        want_p, want_o, want_loss = plain(params, adamw_init(params), batches[0])
+        nudged = []
+        for name, probe in _seq_probes(crit, cfg, ctx).items():
+            with contextlib.ExitStack() as stack:
+                for cm in probe:
+                    stack.enter_context(cm)
+                pn, on, _ = plain(params, adamw_init(params), batches[0])
+            mn = crit.step_metrics(pn, on, want_p, want_o, TRAIN_LR)
+            nudged.append((mn, None))
+            log(f"{tag}: the one-process step {name} against itself: {_step_summary(mn)}; "
+                f"farthest m {_farthest(mn)}")
+            del pn, on
+        m = crit.step_metrics(whole_p, whole_o, want_p, want_o, TRAIN_LR)
+        held, verdict, failures = crit.hold_step(m, nudged=nudged)
+        log(f"{tag}: sharded step 1 against the one-process step: loss {losses[0]:.6f} / "
+            f"{float(want_loss):.6f}; {_step_summary(m)}; farthest m {_farthest(m)}; the "
+            f"criteria {verdict} ({card})")
+        if failures or abs(losses[0] - float(want_loss)) > crit.LOSS_ATOL:
+            raise AssertionError(f"{tag}: sharded step 1: {verdict}, but {failures}")
+        del want_p, want_o
+        free()
+        out["plain"] = _plain_steps(model, params, batches, SEQ_TRAIN_S)
+        log(f"{tag}: the one-process step on rank 0: {out['plain']} ({card})")
+    del whole_p, whole_o, params, model, batches
+    free()
+    dist.barrier()
+    return out
+
+
+def _seq_probes(crit, cfg, ctx) -> dict:
+    """``seq_train``'s probes of the one-process step, name -> the context
+    managers to enter: another correct rounding each (the one-ulp nudges,
+    the SSD's for the SSM families and the RMS norms' otherwise; last, the
+    twin, the step computed as the ranks compute it, on one process: the
+    cross-entropy in the mesh's chunks, ``chunked_ce``, every product over
+    the sequence's rows and the embedding's lookup on the ranks' row
+    blocks, ``tp_rows``, ``embed_rows``)."""
+    nudge = crit.ssd_nudged if cfg.is_ssm else crit.norm_nudged
+    return {"nudged up": (nudge(math.inf),), "nudged down": (nudge(-math.inf),),
+            "on the ranks' row blocks": (crit.chunked_ce(),
+                                         crit.tp_rows(cfg, ctx.n_batch, ctx.n_model),
+                                         crit.embed_rows(ctx.n_batch))}
+
+
+def _witness_verdict(errs: dict, floor: dict, twin: dict) -> tuple[bool, str]:
+    """How the f32 witness is held, ``hold_step``'s policy for its
+    gradients: each leaf (``errs``) within TP_WITNESS_RTOL of the
+    one-process step's where every probe lies within it
+    (well-conditioned); widened, leaf by leaf, by the farthest probe's
+    distance (``floor``) where that is at most NUDGE_CAP tolerances; past
+    that, ill-conditioned, each leaf within TP_WITNESS_RTOL of the twin's
+    alone (``twin``: the one-process step computed as the ranks compute
+    it), as phases 9-12 hold their serving witnesses. Returns (False where
+    the witness misses, the verdict)."""
+    import _torch_train_criteria as crit
+
+    far = max(floor.values()) / TP_WITNESS_RTOL
+    if far > crit.NUDGE_CAP:
+        missed = [n for n, e in twin.items() if e > TP_WITNESS_RTOL]
+        how = (f"ill-conditioned (another correct rounding moves the one-process gradients "
+               f"{far:.2f} tolerances, past the cap of {crit.NUDGE_CAP}): held against the "
+               f"twin only")
+        if missed:
+            return False, f"{how}, but {', '.join(f'{n} {twin[n]:.3e}' for n in missed)} missed"
+        return True, how
+    missed = [n for n, e in errs.items() if e > TP_WITNESS_RTOL + floor[n]]
+    how = "held" if far <= 1 else (f"held, widened by the probes' distance ({far:.2f} "
+                                   f"tolerances, within the cap of {crit.NUDGE_CAP})")
+    if missed:
+        return False, f"{how}, but {', '.join(f'{n} {errs[n]:.3e}' for n in missed)} missed"
+    return True, how
+
+
+def _far(errs: dict, n: int = 3) -> str:
+    return ", ".join(f"{k} {errs[k]:.3e}" for k in sorted(errs, key=errs.get, reverse=True)[:n])
+
+
+def _farthest(m: dict, n: int = 3) -> str:
+    """The ``n`` leaves of ``step_metrics`` farthest in m, with their m."""
+    return ", ".join(f"{k} {m[k]['m']:.4f}" for k in sorted(m, key=lambda k: -m[k]["m"])[:n])
 
 
 def run_tp_phase(seed: int, card: str, out_dir: Path, counts: dict, worst: dict,

@@ -143,7 +143,7 @@ def step_inputs(model, ctx: MeshCtx, shape: ShapeConfig, device: str = DEVICE,
 def sequence_place(ctx: MeshCtx, model, global_batch: int, kind: str) -> tuple[int, int]:
     """(this rank's place, the ranks) in the sequence where the step shards
     it over the batch axes (``LM.seq_ctx``), else (0, 1)."""
-    sp = model.seq_ctx(ctx, global_batch) if kind != "train" else None
+    sp = model.seq_ctx(ctx, global_batch, train=kind == "train")
     return (ctx.seq_rank, ctx.n_batch) if sp is not None else (0, 1)
 
 

@@ -83,9 +83,9 @@ MoE's over the global batch: its capacity and dispatch order are global)
 and keep the rank's block.
 
 Sequence sharding (``sp``, a ``MeshCtx`` whose batch axes the batch does
-not fill: ``LM.seq_ctx``), for the dense, SSM and hybrid families'
-serving: h holds this rank's block of the sequence, the contiguous block at
-its ``seq_rank`` (split again over "model" where Megatron-SP runs), at the
+not fill: ``LM.seq_ctx``), for the dense, SSM and hybrid families' serving
+and training: h holds this rank's block of the sequence, the contiguous
+block at its ``seq_rank`` (split again over "model" where Megatron-SP runs), at the
 global positions from its offset; every layer's window comes from the whole
 length. The attention computes q, k and v on the block, gathers the keys
 and values over the batch axes (the whole sequence's: one all-gather a
@@ -107,6 +107,13 @@ head_dim block of its sequence block of the cache (``gqa_attention`` with
 both ``hd_split`` and ``seq_split``); the replicated MLP and head run on the
 rank's rows; the whole Mamba2 mixer runs on the sequence rank's block on
 every "model" rank, each relaying over its own group of the batch axes.
+In training the attention is ``gqa_attention`` over the gathered keys at
+their global positions, the queries at the same offset; the halo, the
+relay and the keys' gather send their gradients back (``MeshCtx``), and
+each checkpointed layer keeps what they received for its recompute
+(``MeshCtx.recorded``), which replays no hop over the batch axes; each
+rank takes the cross-entropy of its own block on the global sequence's
+chunk grid, and the step averages the ranks' losses and gradients.
 """
 from __future__ import annotations
 
@@ -137,7 +144,6 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.sharding import (
     SEQ_FAMILIES,
-    SEQ_TRAINING,
     MeshCtx,
     NamedSharding,
     spec_with_model_on,
@@ -401,14 +407,13 @@ class LM(nn.Module):
                 train: bool = False) -> MeshCtx | None:
         """``ctx`` where a step of ``global_batch`` rows shards the sequence
         over the batch axes (they are more than one, and the batch does not
-        fill them: ``MeshCtx.token_spec``), else None. Every layout over
-        "model" (``tp_ctx``) composes with it, the fallback layouts
-        included. Raises ``NotImplementedError`` for what does not run yet:
-        training, and the MoE, VLM and encoder-decoder families."""
+        fill them: ``MeshCtx.token_spec``), else None: to serve, and with
+        ``train`` to train. Every layout over "model" (``tp_ctx``) composes
+        with it, the fallback layouts included. Raises
+        ``NotImplementedError`` for what does not run yet: the MoE, VLM and
+        encoder-decoder families, serving or training."""
         if ctx is None or ctx.n_batch == 1 or not ctx.seq_sharded(global_batch):
             return None
-        if train:
-            raise NotImplementedError(SEQ_TRAINING)
         if self.cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(f"{self.cfg.name} ({self.cfg.family}): {SEQ_FAMILIES}")
         return ctx
@@ -799,13 +804,14 @@ class LM(nn.Module):
         S = positions.shape[-1] * (1 if sp is None else sp.n_batch)
         cos, sin = self._rope(positions)
         if q_pos is None:
-            q_pos = positions[0, 0] if self.cfg.rope_style == "mrope" else positions[0]
+            q_pos = positions[0, 0] if self.cfg.rope_style == "mrope" else \
+                _train_pos(positions, sp)
         train_pos = {"train_pos": q_pos} if train else {}
         aux = None
         layers = _layers(self._tp_layers(params["layers"], tp))
         for lp, window in zip(layers, self._windows(S)):
-            h, a = _checkpointed(self._dense_block, lp, h, train=train, cos=cos, sin=sin,
-                                 window=window, tp=tp, sp=sp, **train_pos)
+            h, a = _checkpointed(self._dense_block, lp, h, train=train, saves=sp, cos=cos,
+                                 sin=sin, window=window, tp=tp, sp=sp, **train_pos)
             if a is not None:
                 aux = a if aux is None else aux + a
         return h, aux
@@ -815,7 +821,7 @@ class LM(nn.Module):
         """The SSM stack: h + mamba2_mixer(rms_norm(h)) for each layer; with
         ``train``, each layer under ``torch.utils.checkpoint``."""
         for lp in _layers(self._tp_layers(params["layers"], tp)):
-            h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp, sp=sp)
+            h = _checkpointed(self._mamba_layer, lp, h, train=train, saves=sp, tp=tp, sp=sp)
         return h
 
     def _run_hybrid_stack(self, params: Params, h: torch.Tensor, *, positions: torch.Tensor,
@@ -837,14 +843,14 @@ class LM(nn.Module):
         E = self.cfg.shared_attn_every
         # "no window" is 0 for the flash kernel, None for gqa_attention (to
         # which 0 would mask every key)
-        attn = dict(cos=cos, sin=sin, window=None, train_pos=positions[0]) if train else \
-            dict(cos=cos, sin=sin, window=0)
+        attn = dict(cos=cos, sin=sin, window=None, train_pos=_train_pos(positions, sp)) \
+            if train else dict(cos=cos, sin=sin, window=0)
         shared = self._tp_layers(params["shared"], tp, "shared")
         for i, lp in enumerate(_layers(self._tp_layers(params["layers"], tp))):
-            h = _checkpointed(self._mamba_layer, lp, h, train=train, tp=tp, sp=sp)
+            h = _checkpointed(self._mamba_layer, lp, h, train=train, saves=sp, tp=tp, sp=sp)
             if (i + 1) % E == 0:
-                h, _ = _checkpointed(self._dense_block, shared, h, train=train, tp=tp, sp=sp,
-                                     **attn)
+                h, _ = _checkpointed(self._dense_block, shared, h, train=train, saves=sp, tp=tp,
+                                     sp=sp, **attn)
         return h
 
     def _run_encdec(self, params: Params, batch: dict, *, train: bool = False,
@@ -947,7 +953,8 @@ class LM(nn.Module):
         return tp.all_gather(logits, dim=-1) if self._vocab_parallel(tp) else logits
 
     # ------------------------------------------------------------- training
-    def loss_fn(self, params: Params, batch: dict, ctx: MeshCtx | None = None) -> torch.Tensor:
+    def loss_fn(self, params: Params, batch: dict, ctx: MeshCtx | None = None,
+                sp: MeshCtx | None = None) -> torch.Tensor:
         """The training loss (f32 0-d) of ``batch`` = {"tokens", "labels"}
         (B, S) int ({"embeds", "positions", "labels"} for the VLM,
         {"audio_embeds", "tokens", "labels"} for the encoder-decoder): the
@@ -966,16 +973,21 @@ class LM(nn.Module):
         block's mean, which the train step averages over the ranks. Where
         the step is tensor-parallel (``tp_ctx``) the parameters are this
         rank's blocks, and every rank of a model group gets the same loss.
+        With ``sp`` (``seq_ctx`` of the global batch: its sequence sharded
+        over the batch axes) the batch is this rank's block of the
+        sequence and the loss that block's mean, which the step averages
+        over the batch axes into the whole sequence's.
 
         The MoE forward is deterministic (stable sorts, no atomics), so the
         recompute in the backward routes exactly as the forward did."""
         tp = self.tp_ctx(ctx)
-        h, aux = self._forward(params, batch, train=True, tp=tp)
-        ce = self._cross_entropy(params, h, batch["labels"], ctx)
+        h, aux = self._forward(params, batch, train=True, tp=tp, sp=sp)
+        ce = self._cross_entropy(params, h, batch["labels"], ctx, sp=sp)
         return ce if aux is None else ce + 0.01 * aux
 
     def _cross_entropy(self, params: Params, h: torch.Tensor, labels: torch.Tensor,
-                       ctx: MeshCtx | None = None, chunk: int = CE_CHUNK) -> torch.Tensor:
+                       ctx: MeshCtx | None = None, chunk: int = CE_CHUNK,
+                       sp: MeshCtx | None = None) -> torch.Tensor:
         """CE over the vocab. Without a mesh, or for S <= chunk, from the
         whole (B, S, V) f32 logits (the reference's single-device form).
         With a mesh the loss streams over sequence chunks, each under
@@ -988,7 +1000,11 @@ class LM(nn.Module):
         d_model is split, the whole vocab (``_head``). Where neither is (a
         replicated head: ``_head_whole``), each rank takes the loss of its
         own block of the sequence on whole logits, and the sum over
-        "model" (``reduce_model``) is the whole sequence's."""
+        "model" (``reduce_model``) is the whole sequence's. With ``sp`` the
+        sequence is this sequence rank's block of a sequence of S *
+        n_batch, and the chunks are that sequence's (``_ce_pieces``): the
+        mean over the block, which the step averages over the batch
+        axes."""
         tp = self.tp_ctx(ctx)
         rows = self._head_whole(tp)
         if rows:
@@ -996,19 +1012,21 @@ class LM(nn.Module):
         elif tp is not None:
             h = tp.gather_seq(h)
         B, S, _ = h.shape
-        whole = S * tp.n_model if rows else S
+        whole = S * tp.n_model if rows else S  # this sequence rank's block: all of it without sp
+        total = whole * (sp.n_batch if sp is not None else 1)
 
         def summed(loss: torch.Tensor) -> torch.Tensor:
             return (tp.reduce_model(loss) if rows else loss) / (B * whole)
 
-        if ctx is None or whole <= chunk:
+        if ctx is None or total <= chunk:
             loss = self._chunk_loss(params, h, labels, tp)
             return summed(loss.sum()) if rows else loss.mean()
-        if whole % chunk:
-            raise ValueError(f"the chunked cross-entropy needs S ({whole}) divisible by {chunk}")
+        if total % chunk:
+            raise ValueError(f"the chunked cross-entropy needs S ({total}) divisible by {chunk}")
+        first = 0 if sp is None else sp.seq_rank * whole + (tp.model_rank * S if rows else 0)
         tot = h.new_zeros((), dtype=torch.float32)
-        for i in range(0, S, chunk):
-            hc, lc = h[:, i:i + chunk], labels[:, i:i + chunk]
+        for i, n in _ce_pieces(first, S, chunk):
+            hc, lc = h[:, i:i + n], labels[:, i:i + n]
             tot = tot + checkpoint(lambda x, y: self._chunk_loss(params, x, y, tp).sum(), hc, lc,
                                    use_reentrant=False)
         return summed(tot)
@@ -1302,6 +1320,15 @@ def _layers(stacked: dict[str, torch.Tensor]) -> list[dict[str, torch.Tensor]]:
     return [{name: ws[i] for name, ws in per_leaf.items()} for i in range(n)]
 
 
+def _ce_pieces(first: int, S: int, chunk: int) -> list[tuple[int, int]]:
+    """(start, length) of the pieces of rows first..first+S-1 that the
+    sequence's chunk grid (multiples of ``chunk``) cuts, starts counted
+    from ``first``: the chunks themselves where the rows are whole chunks,
+    a rank's part of each chunk its block cuts otherwise."""
+    cuts = [first, *range((first // chunk + 1) * chunk, first + S, chunk), first + S]
+    return [(a - first, b - a) for a, b in zip(cuts, cuts[1:])]
+
+
 def _no_rope(S: int, device: torch.device, train: bool) -> dict:
     """The encoder-decoder's attention arguments (no RoPE, no window) for a
     sequence of S (the whole one, which attention sees): the flash
@@ -1328,10 +1355,27 @@ def _sp(fn, x: torch.Tensor, tp: MeshCtx | None) -> torch.Tensor:
     return fn(x) if tp is None else tp.scatter_seq(fn(tp.gather_seq(x)))
 
 
-def _checkpointed(fn, *args, train: bool, **kw):
+def _checkpointed(fn, *args, train: bool, saves: MeshCtx | None = None, **kw):
     """``fn(*args, **kw)``; with ``train``, under ``torch.utils.checkpoint``
     (its activations recomputed in the backward): the counterpart of the
-    reference's ``_remat_policy``, ``nothing_saveable`` for every model."""
-    if train:
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
-    return fn(*args, **kw)
+    reference's ``_remat_policy``, ``nothing_saveable`` for every model.
+    With ``saves`` (a sequence-sharding context) the region keeps what its
+    hops over the batch axes received, and the recompute replays none of
+    them (``MeshCtx.recorded``)."""
+    if not train:
+        return fn(*args, **kw)
+    if saves is not None:
+        kw["context_fn"] = saves.recorded
+    return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
+def _train_pos(positions: torch.Tensor, sp: MeshCtx | None) -> torch.Tensor:
+    """The training attention's query and key positions (S,) of a (B, S)
+    ``positions``' first row; with ``sp`` (a sequence rank's block at its
+    global positions), the whole sequence's 0..S*n_batch-1: the keys are
+    gathered over the batch axes, and the queries are read at their
+    offset."""
+    if sp is None:
+        return positions[0]
+    return torch.arange(positions.shape[-1] * sp.n_batch, dtype=positions.dtype,
+                        device=positions.device)

@@ -42,18 +42,36 @@ ranks' blocks with the sequence collectives over the batch axes: the keys'
 gather (``gather_seq(axes=batch_axes)``), the halo of the previous rank's
 last rows (``halo``), the rank-to-rank relay of a carried state in
 sequence order (``relay_in``/``relay_out``), and the f32 max and sum over
-them (``all_reduce(op="max")``, ``seq_sum``). Sequence-sharded serving runs
-for the dense, SSM and hybrid families (``LM.seq_ctx``), in every layout
-over "model", the fallback layouts included: the sequence's gather over
-"model" within a sequence rank's block composes with the keys' gather
-over the batch axes, and a "model" rank's halo and relay run over its own
-group of the batch axes, so the composition adds no collective of its own.
-Training and the other families raise ``NotImplementedError`` naming their
-ROADMAP items (``SEQ_TRAINING``, ``SEQ_FAMILIES``).
+them (``all_reduce(op="max")``, ``seq_sum``). Sequence-sharded serving and
+training run for the dense, SSM and hybrid families (``LM.seq_ctx``), in
+every layout over "model", the fallback layouts included: the sequence's
+gather over "model" within a sequence rank's block composes with the keys'
+gather over the batch axes, and a "model" rank's halo and relay run over
+its own group of the batch axes, so the composition adds no collective of
+its own. The other families raise ``NotImplementedError`` naming their
+ROADMAP item (``SEQ_FAMILIES``).
+
+The halo, the relay and the keys' gather are differentiable, each on
+every rank (the first and last ranks' moving nothing), so that every
+rank's graph has the same shape and the backward's collectives come in
+the same order everywhere. Their backward sums every rank's contribution:
+the gradient of the rows a rank read goes back to the previous rank
+(``halo_back``); the gradient of the state a rank received goes back to
+the previous rank, in reverse sequence order (``relay_back``); the keys'
+gradients are reduce-scattered. A layer that runs under
+``torch.utils.checkpoint`` must not replay these in its recompute: rank
+r's recompute would wait for rank r - 1's relay while rank r - 1 waits in
+its backward for rank r's gradient. ``MeshCtx.recorded`` is the
+checkpoint's ``context_fn`` that keeps what each hop over the batch axes
+received in the forward and hands it to the recompute, which then moves
+and counts nothing over them (the gathers over "model", within a
+sequence rank's group, replay).
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import time
 from dataclasses import dataclass, field
 from typing import Any
 
@@ -64,8 +82,6 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
 # what sequence sharding (a batch that does not fill the batch axes) does not run yet
-SEQ_TRAINING = ("training with sequence sharding: the backward through the keys' gather, the halo "
-                "and the relay (ROADMAP A, \"Sequence-sharded training\")")
 SEQ_FAMILIES = ("sequence sharding for the MoE, VLM and encoder-decoder families (ROADMAP A, "
                 "\"Sequence sharding for the MoE, VLM and encoder-decoder families\")")
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
@@ -107,13 +123,17 @@ class NamedSharding:
 class MeshCtx:
     """The mesh, its process groups, and the collectives the steps make on
     it. ``counts`` (kind -> calls) counts every collective this context
-    made; a caller may reset it."""
+    made; ``waits`` (kind -> seconds) the time the relay's receives
+    (``relay``, and ``relay_back`` in the backward) blocked; a caller may
+    reset both."""
     mesh: DeviceMesh | AbstractMesh
     notes: list = field(default_factory=list)
     counts: dict = field(default_factory=dict)
+    waits: dict = field(default_factory=dict)
 
     def __post_init__(self):
         self._groups: dict[tuple[str, ...], Any] = {}
+        self._tapes: list[_Tape] = []  # the checkpointed regions running (``recorded``)
         if isinstance(self.mesh, AbstractMesh):
             return
         names = self.mesh.mesh_dim_names
@@ -269,10 +289,49 @@ class MeshCtx:
         return self.index(self.batch_axes)
 
     def _comm(self, kind: str, axes: tuple[str, ...], x: torch.Tensor, fn) -> torch.Tensor:
-        """``fn(x, group)`` over the group of ``axes``, counted by kind."""
+        """``fn(x, group)`` over the group of ``axes``, counted by kind; over
+        the batch axes inside a checkpointed region, kept for its recompute
+        (``recorded``)."""
         require_fake(x, self.mesh)
+        return self._received(tuple(axes), lambda: self._count(kind, fn(x.contiguous(),
+                                                                         self.group(axes))))
+
+    def _count(self, kind: str, out=None):
         self.counts[kind] = self.counts.get(kind, 0) + 1
-        return fn(x.contiguous(), self.group(axes))
+        return out
+
+    def _received(self, axes: tuple[str, ...], fn):
+        """``fn()``, what a hop over ``axes`` receives. Over the batch axes
+        inside a checkpointed region (``recorded``): kept in the forward,
+        and in the recompute the kept tensor, with no communication and no
+        count."""
+        tape = self._tapes[-1] if self._tapes and axes == self.batch_axes else None
+        if tape is not None and tape.replay:
+            return tape.take()
+        out = fn()
+        if tape is not None:
+            tape.keep(out)
+        return out
+
+    def recorded(self):
+        """``torch.utils.checkpoint``'s ``context_fn`` for a region that
+        crosses the sequence ranks: (the forward's context, which keeps
+        what each hop over the batch axes receives; the recompute's, which
+        hands the kept tensors back in the same order and sends nothing).
+        The recompute then replays no communication over the batch axes:
+        it holds the received tensors (the halo's rows, the relayed state,
+        the gathered keys and values) from the forward to the backward."""
+        tape = _Tape()
+        return self._taping(tape, False), self._taping(tape, True)
+
+    @contextlib.contextmanager
+    def _taping(self, tape: "_Tape", replay: bool):
+        tape.replay, tape.at = replay, 0
+        self._tapes.append(tape)
+        try:
+            yield
+        finally:
+            self._tapes.pop()
 
     def all_reduce(self, x: torch.Tensor, axes: tuple[str, ...] = ("model",),
                    op: str = "sum") -> torch.Tensor:
@@ -333,39 +392,51 @@ class MeshCtx:
         ``x`` (zeros on the first rank): what a causal window of k + 1 rows
         reads before this rank's block. Every rank's last rows are
         all-gathered (k rows a rank: a point-to-point exchange would save
-        nothing at this size)."""
-        tail = x.narrow(dim, x.shape[dim] - k, k)
-        every = self._gather("halo", tail, self.batch_axes, dim)
-        r = self.seq_rank
-        return every.narrow(dim, (r - 1) * k, k) if r else torch.zeros_like(tail)
+        nothing at this size). Backward (``halo_back``, an all-gather too):
+        the gradient of the rows a rank read is added to the previous
+        rank's last rows; the last rank's get none."""
+        return _Halo.apply(x.narrow(dim, x.shape[dim] - k, k), self, dim)
 
-    def relay_in(self, start: torch.Tensor) -> torch.Tensor:
+    def relay_in(self, start: torch.Tensor, after: torch.Tensor) -> torch.Tensor:
         """The tensor that the previous sequence rank passes on with
         ``relay_out`` (a state carried in sequence order), or ``start`` on
         the first rank; shaped and typed like ``start``. Each rank calls
         ``relay_in``, computes, then ``relay_out``: rank r waits for rank
-        r - 1 alone, so the hops run in sequence order."""
-        require_fake(start, self.mesh)
-        r = self.seq_rank
-        if r == 0:
-            return start
-        group = self.group(self.batch_axes)
-        buf = torch.empty(start.shape, dtype=start.dtype,
-                          device="cpu" if _on_host(start, group) else start.device)
-        dist.recv(buf, src=dist.get_global_rank(group, r - 1), group=group)
-        return buf.to(start.device)
+        r - 1 alone, so the hops run in sequence order. Backward
+        (``relay_back``): the received state's gradient is sent back to
+        rank r - 1, whose ``relay_out`` adds it to the gradient of the state
+        it passed on, in reverse sequence order. ``after`` is a tensor of
+        this rank's graph that the gradient must leave by (it gets none):
+        the backward of everything ``after`` depends on, the halo's
+        collective included, waits for the send, so that no rank enters a
+        collective while the next rank waits for its gradient."""
+        return _RelayIn.apply(start, after, self)
 
-    def relay_out(self, x: torch.Tensor) -> None:
-        """``x`` sent to the next sequence rank (its ``relay_in``); nothing on
-        the last rank. Counted once a relay on every rank."""
+    def relay_out(self, state: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        """``state`` sent to the next sequence rank (its ``relay_in``);
+        nothing on the last rank. Counted once a relay on every rank.
+        Returns ``y`` as it is (a view): the node whose backward receives
+        the gradient of ``state`` from the next rank (zeros on the last)."""
+        return _RelayOut.apply(y, state, self)
+
+    def _send(self, x: torch.Tensor, to: int) -> None:
+        """``x`` sent to the sequence rank ``to``."""
         require_fake(x, self.mesh)
-        self.counts["relay"] = self.counts.get("relay", 0) + 1
-        r = self.seq_rank
-        if r == self.n_batch - 1:
-            return
+        group, x = self.group(self.batch_axes), x.contiguous()  # a gradient may be strided
+        dist.send(x.cpu() if _on_host(x, group) else x, dst=dist.get_global_rank(group, to),
+                  group=group)
+
+    def _recv(self, like: torch.Tensor, src: int, kind: str) -> torch.Tensor:
+        """A tensor shaped and typed like ``like`` from the sequence rank
+        ``src``; the time it blocked added to ``waits[kind]``."""
+        require_fake(like, self.mesh)
         group = self.group(self.batch_axes)
-        dist.send(x.cpu() if _on_host(x, group) else x.contiguous(),
-                  dst=dist.get_global_rank(group, r + 1), group=group)
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if _on_host(like, group) else like.device)
+        t0 = time.perf_counter()
+        dist.recv(buf, src=dist.get_global_rank(group, src), group=group)
+        self.waits[kind] = self.waits.get(kind, 0.0) + time.perf_counter() - t0
+        return buf.to(like.device)
 
     def seq_sum(self, x: torch.Tensor) -> torch.Tensor:
         """The f32 sum over the batch axes of each rank's ``x``, added in
@@ -432,9 +503,81 @@ def _on_host(x: torch.Tensor, group) -> bool:
 
 
 def _f32_sum(op, x: torch.Tensor, *args, axes: tuple[str, ...] = ("model",)) -> torch.Tensor:
-    """``op`` (a sum over "model", or over ``axes``) of ``x`` taken in f32,
-    in ``x``'s dtype."""
-    return op(x.float(), axes, *args).to(x.dtype)
+    """``op`` (a sum over "model", or over ``axes``) of ``x`` taken in f32
+    (an f64 ``x`` in f64), in ``x``'s dtype."""
+    return op(x if x.dtype == torch.float64 else x.float(), axes, *args).to(x.dtype)
+
+
+class _Tape:
+    """What the hops over the batch axes of one checkpointed region
+    received, in order (``MeshCtx.recorded``)."""
+
+    def __init__(self):
+        self.kept: list[torch.Tensor] = []
+        self.replay, self.at = False, 0
+
+    def keep(self, x: torch.Tensor) -> None:
+        self.kept.append(x.detach())
+
+    def take(self) -> torch.Tensor:
+        self.at += 1
+        return self.kept[self.at - 1].detach()
+
+
+class _Halo(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, tail, ctx: MeshCtx, dim: int):
+        fctx.ctx, fctx.dim = ctx, dim
+        every = ctx._gather("halo", tail, ctx.batch_axes, dim)
+        r, k = ctx.seq_rank, tail.shape[dim]
+        return every.narrow(dim, (r - 1) * k, k) if r else torch.zeros_like(tail)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, dim = fctx.ctx, fctx.dim
+        every = ctx._gather("halo_back", g, ctx.batch_axes, dim)
+        r, k = ctx.seq_rank, g.shape[dim]
+        last = r == ctx.n_batch - 1
+        return (torch.zeros_like(g) if last else every.narrow(dim, (r + 1) * k, k)), None, None
+
+
+class _RelayIn(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, start, after, ctx: MeshCtx):
+        require_fake(start, ctx.mesh)
+        fctx.ctx = ctx
+        r = ctx.seq_rank
+        if r == 0:
+            return start.clone()
+        return ctx._received(ctx.batch_axes, lambda: ctx._recv(start, r - 1, "relay"))
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx = fctx.ctx
+        ctx._count("relay_back")
+        if ctx.seq_rank > 0:
+            ctx._send(g, ctx.seq_rank - 1)
+        return None, None, None
+
+
+class _RelayOut(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, y, state, ctx: MeshCtx):
+        require_fake(state, ctx.mesh)
+        fctx.ctx, fctx.like = ctx, (state.shape, state.dtype, state.device)
+        replay = ctx._tapes and ctx._tapes[-1].replay
+        if not replay:  # the recompute sends nothing, and counts nothing
+            ctx._count("relay")
+            if ctx.seq_rank < ctx.n_batch - 1:
+                ctx._send(state, ctx.seq_rank + 1)
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(fctx, g):
+        ctx, (shape, dtype, device) = fctx.ctx, fctx.like
+        like = torch.zeros(shape, dtype=dtype, device=device)
+        r = ctx.seq_rank
+        return g, (like if r == ctx.n_batch - 1 else ctx._recv(like, r + 1, "relay_back")), None
 
 
 class _GatherSeq(torch.autograd.Function):

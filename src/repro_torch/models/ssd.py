@@ -35,7 +35,10 @@ contributions and decays at once, receives the state entering its first
 chunk from the previous rank, runs its share of the same loop over the
 chunks and passes its last state on, one (B, G, Hg, N, P) f32 state a hop.
 Both run the same operations on the same values as the whole sequence's
-mixer, so the rank's rows equal its rows bit for bit.
+mixer, so the rank's rows equal its rows bit for bit. Both are
+differentiable (``models/sharding.py``): in training the gradient of the
+halo's rows goes back to the previous rank, and the entering state's
+gradient is relayed back in reverse sequence order, one state a hop.
 
 Parameter layout per layer (the caller stacks a leading L axis):
   wz, wx (D, d_inner) | wB, wC (D, G*N) | wdt (D, H) | dt_bias (H,)
@@ -204,17 +207,17 @@ def _inter_chunk(xc: torch.Tensor, dtc: torch.Tensor, Bc: torch.Tensor, Cc: torc
     chunk_decay = torch.exp(cum[:, :, -1])[..., None, None]          # (B, nC, G, Hg, 1, 1)
     state = torch.zeros((B, G_, Hg, N, P), dtype=torch.float32, device=xc.device)
     if sp is not None:
-        state = sp.relay_in(state)
+        # the received state's gradient leaves before s_new's (and the halo's) backward
+        state = sp.relay_in(state, after=s_new)
     entering = []
     for c in range(nC):
         entering.append(state)
         state = chunk_decay[:, c] * state + s_new[:, c]
-    if sp is not None:
-        sp.relay_out(state)
     states = torch.stack(entering, dim=1)                             # (B, nC, G, Hg, N, P)
     states = states.permute(0, 1, 2, 4, 3, 5).reshape(B, nC, G_, N, Hg * P)
     cs = (Cc.permute(0, 1, 3, 2, 4) @ states).reshape(B, nC, G_, Q, Hg, P)
-    return cs.permute(0, 1, 3, 2, 4, 5) * torch.exp(cum)[..., None]
+    y = cs.permute(0, 1, 3, 2, 4, 5) * torch.exp(cum)[..., None]
+    return y if sp is None else sp.relay_out(state, y)
 
 
 def mamba2_decode_step(p: dict, x: torch.Tensor, conv_state: torch.Tensor,

@@ -80,7 +80,8 @@ _COLLECTIVES = {
 }
 # ``MeshCtx.counts`` kind -> the c10d kind its collective dispatches as
 _CTX_KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather", "halo": "all-gather",
-              "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all"}
+              "halo_back": "all-gather", "reduce_scatter": "reduce-scatter",
+              "all_to_all": "all-to-all"}
 # c10d kind -> the reference's name of its wire bytes (point-to-point: "collective-permute")
 _WIRE = {"all-reduce": "all-reduce", "all-gather": "all-gather", "reduce-scatter": "reduce-scatter",
          "all-to-all": "all-to-all", "send": "collective-permute", "recv": "collective-permute"}
@@ -114,16 +115,19 @@ class StepCount:
 def ctx_calls(counts: dict, seq_rank: int = 0, n_seq: int = 1) -> dict:
     """The c10d calls by kind that ``MeshCtx.counts`` stands for on a rank
     at place ``seq_rank`` of ``n_seq`` sequence ranks: each counted
-    collective one call of its kind (the halo an all-gather); a relay one
-    receive on every rank but the first, one send on every rank but the
-    last."""
+    collective one call of its kind (the halo and its backward an
+    all-gather each); a relay one receive on every rank but the first, one
+    send on every rank but the last; its backward (``relay_back``, in
+    reverse order) one send on every rank but the first, one receive on
+    every rank but the last."""
     out: dict = {}
     for kind, n in counts.items():
-        if kind == "relay":
+        if kind in ("relay", "relay_back"):
+            first, last = ("recv", "send") if kind == "relay" else ("send", "recv")
             if seq_rank > 0:
-                out["recv"] = out.get("recv", 0) + n
+                out[first] = out.get(first, 0) + n
             if seq_rank < n_seq - 1:
-                out["send"] = out.get("send", 0) + n
+                out[last] = out.get(last, 0) + n
             continue
         c10d = _CTX_KINDS[kind]
         out[c10d] = out.get(c10d, 0) + n

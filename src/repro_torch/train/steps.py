@@ -22,11 +22,13 @@ sharded, or the leaf replicated: ``LM``); a gathered head_dim-sharded leaf
 gets its gradient summed back by the gather's backward, a replicated one
 by ``_sum_over_model``, each once. A batch that does not fill the batch
 axes (the reference's ``long_500k``, B = 1) shards the sequence over them
-to prefill and decode (``LM.seq_ctx``): each rank runs its block of the
-sequence, and every rank returns the logits of the whole batch. What the
-port does not run yet raises ``NotImplementedError`` naming its ROADMAP
-item: sequence-sharded training, and sequence sharding for the MoE, VLM and
-encoder-decoder families and with a fallback layout over "model".
+to prefill, decode and train (``LM.seq_ctx``), in every layout over
+"model": each rank runs its block of the sequence; every rank returns the
+logits of the whole batch, and the train step's loss and gradients are
+the ranks' blocks' averaged over the batch axes (the gradients once, by
+the optimizer's reduce-scatter). What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item: sequence sharding for the
+MoE, VLM and encoder-decoder families.
 """
 from __future__ import annotations
 
@@ -77,15 +79,16 @@ def batch_shardings(cfg: ArchConfig, shape: ShapeConfig, ctx: MeshCtx,
     return out
 
 
-def loss_and_grads(model: LM, params: Params, batch: dict,
-                   ctx: MeshCtx | None = None) -> tuple[torch.Tensor, Params]:
-    """``(loss, grads)`` of ``model.loss_fn`` at ``params``, grads shaped and
-    typed like ``params``. The gradients are taken on detached views of the
-    leaves, so ``params`` (e.g. the frozen parameters that
-    ``LM.load_params`` registers for serving) are left as they are."""
+def loss_and_grads(model: LM, params: Params, batch: dict, ctx: MeshCtx | None = None,
+                   sp: MeshCtx | None = None) -> tuple[torch.Tensor, Params]:
+    """``(loss, grads)`` of ``model.loss_fn`` at ``params`` (``sp``: the
+    step's sequence sharding, ``LM.seq_ctx``), grads shaped and typed like
+    ``params``. The gradients are taken on detached views of the leaves,
+    so ``params`` (e.g. the frozen parameters that ``LM.load_params``
+    registers for serving) are left as they are."""
     live = tree_map(lambda p: p.detach().requires_grad_(), params)
     with torch.enable_grad():
-        loss = model.loss_fn(live, batch, ctx)
+        loss = model.loss_fn(live, batch, ctx, sp=sp)
         names, leaves = zip(*named_leaves(live))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     unread = {n for n, g in zip(names, grads) if g is None}
@@ -112,7 +115,11 @@ def make_train_step(model: LM, ctx: MeshCtx | None = None, opt_cfg: AdamWConfig 
     gradients of its block of the batch, which ``adamw_update_sharded``
     averages over the batch axes; the returned parameters are laid out as
     ``param_specs``, the moments as ``adamw_specs``, and the loss is the
-    mean over the ranks."""
+    mean over the ranks. Where the batch does not fill the batch axes
+    (``LM.seq_ctx``) each rank takes the loss and gradients of its block
+    of the sequence, every rank's hops over the sequence adding the other
+    ranks' contributions in the backward; they are averaged over the batch
+    axes alike."""
     opt_cfg = opt_cfg or AdamWConfig()
     if ctx is None:
         def train_step(params: Params, opt_state: Tree, batch: dict):
@@ -127,21 +134,22 @@ def make_train_step(model: LM, ctx: MeshCtx | None = None, opt_cfg: AdamWConfig 
     zspecs = adamw_specs(pspecs, model.param_template(), ctx)["m"]
 
     def sharded_train_step(params: Tree, opt_state: Tree, batch: dict):
-        bspecs, dp_axes, _ = _batch_layout(model, ctx, batch, "train", tp)
+        bspecs, dp_axes, sp = _batch_layout(model, ctx, batch, "train", tp)
         params = tree_map(ctx.place, params, pspecs)
         local = tree_map(lambda p: p.to_local(), params)
         block = {k: ctx.local(v, bspecs[k]) for k, v in batch.items()}
         # the reference masks every row by the global batch's first temporal stream
         if "positions" in batch:
             block["mask_pos"] = batch["positions"][0, 0]
-        loss, grads = loss_and_grads(model, local, block, ctx)
+        loss, grads = loss_and_grads(model, local, block, ctx, sp)
         if tp is not None:
             grads = _sum_over_model(grads, pspecs, ctx)
         elif "model" in dp_axes and ctx.n_model > 1:  # the batch is sharded over "model" too
             grads = tree_map(lambda g: _mean(g, ctx, ("model",)), grads)
         params, opt_state = adamw_update_sharded(params, grads, opt_state, opt_cfg, ctx,
                                                  pspecs, zspecs)
-        return params, opt_state, _mean(loss, ctx, dp_axes)
+        # each sequence rank's loss is its block's mean: the mean over them is the sequence's
+        return params, opt_state, _mean(loss, ctx, ctx.batch_axes if sp is not None else dp_axes)
 
     return sharded_train_step
 

@@ -76,8 +76,8 @@ def model_for(arch: str, device: str = "cpu"):
     return model
 
 
-def shape_of(kind: str) -> ShapeConfig:
-    return ShapeConfig(kind, S, B, kind)
+def shape_of(kind: str, batch: int = B) -> ShapeConfig:
+    return ShapeConfig(kind, S, batch, kind)
 
 
 def real(shape: tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
@@ -93,11 +93,13 @@ def counts_of(c) -> dict:
     return {**{f: getattr(c, f) for f in FIELDS}, "bytes_by_op": c.bytes_by_op}
 
 
-def trace_mesh(archs, kinds=KINDS, fake: bool = True) -> dict:
-    """(arch, kind) -> this rank's counts of the step on a (1, 2) mesh over
-    the process group already started (fake: on fake tensors, the mesh
-    marked as the dry run's; else on real CPU tensors, the flash call as the
-    kernel's operator), with ``MeshCtx.counts`` as c10d calls."""
+def trace_mesh(archs, kinds=KINDS, fake: bool = True, mesh_of: tuple = MESH,
+               batch: int = B) -> dict:
+    """(arch, kind) -> this rank's counts of the step of ``batch`` rows on a
+    (1, 2) mesh (or ``mesh_of``: (shape, names)) over the process group
+    already started (fake: on fake tensors, the mesh marked as the dry
+    run's; else on real CPU tensors, the flash call as the kernel's
+    operator), with ``MeshCtx.counts`` as c10d calls."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.device_mesh import init_device_mesh
 
@@ -105,7 +107,7 @@ def trace_mesh(archs, kinds=KINDS, fake: bool = True) -> dict:
     from repro_torch.models.sharding import DRYRUN, MeshCtx
     from repro_torch.roofline.op_count import count_step
 
-    mesh = init_device_mesh("cpu", MESH[0], mesh_dim_names=MESH[1])
+    mesh = init_device_mesh("cpu", tuple(mesh_of[0]), mesh_dim_names=tuple(mesh_of[1]))
     if fake:
         setattr(mesh, DRYRUN, True)
     ctx = MeshCtx(mesh)
@@ -115,12 +117,12 @@ def trace_mesh(archs, kinds=KINDS, fake: bool = True) -> dict:
             mode = FakeTensorMode() if fake else flash_as_operator()
             with mode:
                 model = model_for(arch)
-                step, args = step_inputs(model, ctx, shape_of(kind), "cpu",
+                step, args = step_inputs(model, ctx, shape_of(kind, batch), "cpu",
                                          empty if fake else real)
                 ctx.counts.clear()
                 _, c = count_step(step, *args)
-            out[arch, kind] = {**counts_of(c), "ctx_calls": check_collectives(
-                c, ctx, model, B, kind)}
+            out[arch, kind] = {**counts_of(c), "mesh_counts": dict(ctx.counts),
+                               "ctx_calls": check_collectives(c, ctx, model, batch, kind)}
     return out
 
 
@@ -149,7 +151,8 @@ def main() -> int:
     for rank in args.get("ranks", range(world)):
         dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=world)
         try:
-            out.append(trace_mesh(args["archs"], args.get("kinds", KINDS)))
+            out.append(trace_mesh(args["archs"], args.get("kinds", KINDS),
+                                  mesh_of=args.get("mesh", MESH), batch=args.get("B", B)))
         finally:
             dist.destroy_process_group()
     torch.save(out, workdir / "fake.pt")

@@ -15,7 +15,8 @@ compiled with every bf16 rounding kept. ``reference_seq_run`` runs the
 reference's ``make_prefill_step`` and ``make_serve_step`` at B = 1, which
 shards the sequence over the batch axes (``token_spec``, ``cache_specs``),
 as ``launch/dryrun.py`` jits them, for several archs and meshes in one
-subprocess.
+subprocess; ``reference_seq_train_run`` its ``make_train_step`` at B = 1,
+which shards the sequence likewise, the same way.
 """
 from __future__ import annotations
 
@@ -180,6 +181,55 @@ _SEQ_SCRIPT = textwrap.dedent(
 )
 
 
+_SEQ_TRAIN_SCRIPT = textwrap.dedent(
+    """
+    import dataclasses, json, os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count={n}"
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import AxisType
+    from repro.configs import get_arch
+    from repro.configs.base import ShapeConfig
+    from repro.models.registry import build_model
+    from repro.models.sharding import MeshCtx
+    from repro.train.optimizer import AdamWConfig, adamw_init
+    from repro.train.steps import batch_shardings, make_train_step, training_state_specs
+
+    src, meta = np.load(sys.argv[1]), json.loads(open(sys.argv[3]).read())
+    exact = {{"xla_allow_excess_precision": False}}
+    name = lambda path: ".".join(k.key for k in path)
+    out = {{}}
+    for label, (shape, names, keys) in {meshes}.items():
+        n = int(np.prod(shape))
+        ctx = MeshCtx(jax.make_mesh(shape, names, axis_types=(AxisType.Auto,) * len(shape),
+                                    devices=jax.devices()[:n]))
+        for key in keys:
+            m = meta[key]
+            cfg = dataclasses.replace(get_arch(m["arch"]).reduced(), **m["overrides"])
+            model = build_model(cfg, max_pos=m["max_pos"])
+            model.pure_dp = False
+            flat, tree = jax.tree_util.tree_flatten_with_path(model.param_shapes())
+            params = jax.tree.unflatten(tree, [jnp.asarray(src[f"{{key}}/p:" + name(p)], sd.dtype)
+                                               for p, sd in flat])
+            batch = {{b: jnp.asarray(src[f"{{key}}/b:{{b}}"]) for b in ("tokens", "labels")}}
+            B, S = batch["tokens"].shape
+            pstore, ospecs = training_state_specs(model, ctx)
+            step = jax.jit(make_train_step(model, ctx, AdamWConfig(lr={lr})),
+                           in_shardings=(pstore, ospecs,
+                                         batch_shardings(cfg, ShapeConfig("t", S, B, "train"), ctx)),
+                           out_shardings=(pstore, ospecs, ctx.replicated()))
+            opt = adamw_init(params)
+            p1, o1, loss = step.lower(params, opt, batch).compile(exact)(params, opt, batch)
+            out[f"{{label}}/{{key}}/loss"] = np.asarray(loss)
+            for part, tree_ in (("p", p1), ("m", o1["m"]), ("v", o1["v"])):
+                for p, leaf in jax.tree_util.tree_flatten_with_path(tree_)[0]:
+                    out[f"{{label}}/{{key}}/{{part}}:" + name(p)] = np.asarray(leaf, np.float32)
+    np.savez(sys.argv[2], **out)
+    """
+)
+
+
 class ReferenceFailed(AssertionError):
     """The reference's run exited with an error; the message is the end of
     its standard error."""
@@ -254,6 +304,51 @@ def reference_seq_run(meshes: dict, archs: dict, workdir: Path, timeout: float =
     return {k: {a: {"prefill": got[f"{k}/{a}/prefill"],
                     "decode": [got[f"{k}/{a}/decode{i}"] for i in range(len(m["feeds"]))]}
                 for a, m in archs.items()} for k in meshes}
+
+
+def reference_seq_train_run(meshes: dict, archs: dict, workdir: Path, *, lr: float,
+                            timeout: float = 420) -> dict:
+    """The reference's sequence-sharded train step on Auto meshes
+    (``meshes``: label -> (shape, names, the keys of ``archs`` to run
+    there), on the first devices of as many fake ones as the largest
+    takes; B = 1 does not fill their batch axes, so ``batch_shardings``
+    shards the sequence), for entries of ``archs`` (key -> ``arch``,
+    ``overrides``, ``max_pos``, numpy ``params`` (dotted name -> array,
+    bf16 as f32) and the B = 1 ``batch`` (tokens, labels)), in one
+    subprocess: ``make_train_step`` jitted on ``training_state_specs`` and
+    ``batch_shardings``, models not pure data-parallel, compiled with every
+    bf16 rounding kept (the default compile skips some, and moves reduced
+    qwen2-0.5b's gradients ~9 %: ``_torch_train_pair``): label -> key ->
+    {"loss", "params", "m", "v"} (dotted name -> f32 array)."""
+    import json
+
+    workdir.mkdir(parents=True, exist_ok=True)
+    src, dst, meta = workdir / "in.npz", workdir / "out.npz", workdir / "meta.json"
+    arrays = {}
+    for key, m in archs.items():
+        arrays.update({f"{key}/p:{k}": np.asarray(v, np.float32) for k, v in m["params"].items()})
+        arrays.update({f"{key}/b:{k}": np.asarray(v) for k, v in m["batch"].items()})
+    np.savez(src, **arrays)
+    meta.write_text(json.dumps({k: {f: m[f] for f in ("arch", "overrides", "max_pos")}
+                                for k, m in archs.items()}))
+    script = _SEQ_TRAIN_SCRIPT.format(
+        n=max(int(np.prod(sh)) for sh, _, _ in meshes.values()), lr=lr,
+        meshes={k: (tuple(sh), tuple(nm), list(keys)) for k, (sh, nm, keys) in meshes.items()})
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", script, str(src), str(dst), str(meta)], env=env,
+                         cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if out.returncode != 0:
+        raise ReferenceFailed(out.stderr[-3000:])
+    got = np.load(dst)
+
+    def part(label: str, key: str, prefix: str) -> dict:
+        head = f"{label}/{key}/{prefix}:"
+        return {k[len(head):]: got[k] for k in got.files if k.startswith(head)}
+
+    return {label: {key: {"loss": float(got[f"{label}/{key}/loss"]),
+                          **{n: part(label, key, p) for n, p in
+                             (("params", "p"), ("m", "m"), ("v", "v"))}}
+                    for key in keys} for label, (_, _, keys) in meshes.items()}
 
 
 def as_f32(arrays: dict) -> dict:

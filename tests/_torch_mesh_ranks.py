@@ -7,10 +7,13 @@ _torch_mesh_ranks.py <case> <rank> <world> <dir>``), each with one thread,
 which meet through a ``file://`` rendezvous in that directory (no port to
 collide under pytest-xdist), and waits for them with a timeout. Each rank
 returns a dict from its case, saved to ``rank<r>.pt``; ``run_ranks``
-returns them in rank order.
+returns them in rank order. The ranks' process group times out with
+``run_ranks``' ``timeout``: a rank that waits in a collective for a rank
+that will never join fails then, as the parent does.
 """
 from __future__ import annotations
 
+import datetime
 import os
 import subprocess
 import sys
@@ -32,8 +35,8 @@ def run_ranks(case: str, world: int, workdir: Path, args: dict,
     (workdir / "rendezvous").unlink(missing_ok=True)  # a stale file store hangs the ranks
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     logs = [open(workdir / f"rank{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, __file__, case, str(r), str(world), str(workdir)],
-                              env=env, stdout=log, stderr=subprocess.STDOUT)
+    procs = [subprocess.Popen([sys.executable, __file__, case, str(r), str(world), str(workdir),
+                               str(timeout)], env=env, stdout=log, stderr=subprocess.STDOUT)
              for r, log in enumerate(logs)]
     deadline = time.monotonic() + timeout
     try:
@@ -145,54 +148,18 @@ def case_tp_families(args: dict) -> dict:
 def _tp_run(ctx, args: dict, dtype: str) -> dict:
     import dataclasses
 
-    from torch.distributed.tensor import DTensor
-
-    import repro_torch.train.steps as steps
     from repro_torch.configs import get_arch
     from repro_torch.models.registry import build_model
-    from repro_torch.train.elastic import reshard_state
-    from repro_torch.train.optimizer import AdamWConfig, adamw_init
-    from repro_torch.train.steps import (
-        make_prefill_step,
-        make_serve_step,
-        make_train_step,
-        training_state_specs,
-    )
-    from repro_torch.tree import tree_map
+    from repro_torch.train.steps import make_prefill_step, make_serve_step
 
     cfg = dataclasses.replace(get_arch(args["arch"]).reduced(), dtype=dtype,
                               **args.get("overrides", {}))
     model = build_model(cfg, max_pos=args["max_pos"], device="cpu")
     model.pure_dp = args.get("pure_dp", False)
-    pspecs = model.param_specs(ctx)
     counts, out = {}, {}
     if args["train"]:
-        pstore, ospecs = training_state_specs(model, ctx)
-        params = reshard_state(args["params"], pstore)
-        opt = reshard_state(adamw_init(args["params"]), ospecs)
-        # the gradients the step hands its optimizer, as it hands them
-        update, handed = steps.adamw_update_sharded, {}
-
-        def recording(params, grads, *rest):
-            handed["grads"] = grads
-            return update(params, grads, *rest)
-
-        ctx.counts.clear()
-        steps.adamw_update_sharded = recording
-        try:
-            p1, o1, loss = make_train_step(model, ctx, AdamWConfig(lr=args["lr"]))(
-                params, opt, args["batch"])
-        finally:
-            steps.adamw_update_sharded = update
-        counts["train"] = dict(ctx.counts)
-        out = {"loss": float(loss), "params": _whole(p1), "opt": _whole(o1),
-               "misplaced": {**_layout(p1, pspecs), **_layout(o1["m"], ospecs["m"])}}
-        grads = tree_map(lambda g: ctx.all_reduce(g.float(), ctx.batch_axes, "avg"),
-                         handed["grads"])
-        mesh = ctx.device_mesh()
-        out["grads"] = _whole(tree_map(lambda g, s: DTensor.from_local(g, mesh, s.placements,
-                                                                       run_check=False),
-                                       grads, pspecs))
+        out = _train_run(ctx, model, args["params"], args["batch"], args["lr"])
+        counts["train"] = out.pop("counts")["step"]
     ctx.counts.clear()
     out["logits"] = make_prefill_step(model, ctx)(args["params"], args["prefill"])
     counts["prefill"] = dict(ctx.counts)
@@ -201,6 +168,142 @@ def _tp_run(ctx, args: dict, dtype: str) -> dict:
     counts["decode"] = dict(ctx.counts)
     out["counts"] = counts
     return out
+
+
+def _train_run(ctx, model, params: dict, batch: dict, lr: float) -> dict:
+    """One sharded train step of ``model`` from ``params`` stored in the
+    ZeRO layout (``training_state_specs``): the loss, the new parameters
+    and moments (whole), the leaves laid out otherwise than their specs,
+    the gradients the step hands its optimizer (summed over "model" where
+    the spec does not shard the leaf, averaged over the batch axes,
+    gathered whole), and the collectives by kind: the step's, and those
+    of its loss and gradients alone (``loss_and_grads``, the model's);
+    ``MeshCtx.waits`` of the step."""
+    from torch.distributed.tensor import DTensor
+
+    import repro_torch.train.steps as steps
+    from repro_torch.train.elastic import reshard_state
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import make_train_step, training_state_specs
+    from repro_torch.tree import tree_map
+
+    pspecs = model.param_specs(ctx)
+    pstore, ospecs = training_state_specs(model, ctx)
+    placed = reshard_state(params, pstore)
+    opt = reshard_state(adamw_init(params), ospecs)
+    # the gradients the step hands its optimizer, as it hands them, and the
+    # collectives of the loss and gradients alone
+    update, grads_of, seen = steps.adamw_update_sharded, steps.loss_and_grads, {}
+
+    def recording(params, grads, *rest):
+        seen["grads"] = grads
+        return update(params, grads, *rest)
+
+    def counted(*a, **k):
+        before = dict(ctx.counts)
+        try:
+            return grads_of(*a, **k)
+        finally:
+            seen["model"] = {n: c - before.get(n, 0) for n, c in ctx.counts.items()
+                             if c != before.get(n, 0)}
+
+    ctx.counts.clear()
+    ctx.waits.clear()
+    steps.adamw_update_sharded, steps.loss_and_grads = recording, counted
+    try:
+        p1, o1, loss = make_train_step(model, ctx, AdamWConfig(lr=lr))(placed, opt, batch)
+    finally:
+        steps.adamw_update_sharded, steps.loss_and_grads = update, grads_of
+    out = {"loss": float(loss), "params": _whole(p1), "opt": _whole(o1),
+           "misplaced": {**_layout(p1, pspecs), **_layout(o1["m"], ospecs["m"])},
+           "counts": {"step": dict(ctx.counts), "model": seen["model"]},
+           "waits": dict(ctx.waits)}
+    grads = tree_map(lambda g: ctx.all_reduce(g.float(), ctx.batch_axes, "avg"), seen["grads"])
+    mesh = ctx.device_mesh()
+    out["grads"] = _whole(tree_map(lambda g, s: DTensor.from_local(g, mesh, s.placements,
+                                                                   run_check=False),
+                                   grads, pspecs))
+    return out
+
+
+def case_seq_train(args: dict) -> dict:
+    """Sequence-sharded training: for each entry of ``args["runs"]`` (name
+    -> its ``arch``, ``overrides`` and ``dtype`` replaced in the reduced
+    config, ``params`` and the B = 1 train ``batch``), on one mesh whose
+    batch axes B does not fill, a model that is not pure data-parallel:
+    ``_train_run``'s one step. Name -> its results; ``seq_rank`` too, and
+    where ``args["hops"]`` is given, ``_seq_hops``' results under
+    "hops"."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+
+    ctx = _ctx(args["shape"], args["names"])
+    out = {}
+    for name, run in args["runs"].items():
+        cfg = dataclasses.replace(get_arch(run["arch"]).reduced(), **run.get("overrides", {}))
+        model = build_model(cfg, max_pos=args["max_pos"], device="cpu")
+        model.pure_dp = False
+        out[name] = _train_run(ctx, model, run["params"], run["batch"], args["lr"])
+    out["seq_rank"] = ctx.seq_rank
+    if "hops" in args:
+        out["hops"] = _seq_hops(ctx, args["hops"])
+    return out
+
+
+def _seq_hops(ctx, args: dict) -> dict:
+    """Each hop over the sequence ranks alone, in the dtype of ``args``'
+    tensors: this rank's block (along dim 1) of ``args["x"]`` through
+    ``halo`` (``args["k"]`` rows), through ``gather_seq`` over the batch
+    axes, and ``args["a"]``'s block through the relay pair, each into the
+    scalar functions ``seq_hop_losses`` names; the gradient of each with
+    respect to the block, and the collectives by kind."""
+    r, n = ctx.seq_rank, ctx.n_batch
+    out = {"seq_rank": r, "grads": {}}
+    for hop in ("halo", "gather", "relay"):
+        src = args["a" if hop == "relay" else "x"]
+        L = src.shape[1] // n
+        block = src[:, r * L:(r + 1) * L].clone().requires_grad_()
+        ctx.counts.clear()
+        loss = seq_hop_losses(hop, block, args, r, ctx)
+        (g,) = torch.autograd.grad(loss, (block,))
+        out["grads"][hop] = g
+        out[f"counts_{hop}"] = dict(ctx.counts)
+    return out
+
+
+def seq_hop_losses(hop: str, block, args: dict, r: int, ctx=None):
+    """Rank r's share of the scalar function of ``hop``'s output (with
+    ``ctx`` on a rank of the mesh; ``ctx`` None on one device, where
+    ``block`` is the whole tensor and the sum runs over every rank's
+    share): ``halo``, sum of W_r * sin(the k rows before block r);
+    ``gather``, sum of W_r * sin(the whole sequence); ``relay``, the state
+    s entering block r (zeros for the first) is carried to the next as
+    s * d_r + sum over block r's rows, and y_r = tanh(s) * block r; sum of
+    W_r * y_r."""
+    k, n = args["k"], args["n"]
+    if ctx is None:
+        L = block.shape[1] // n
+        if hop == "relay":
+            s, tot = torch.zeros_like(block[:, 0]), 0
+            for q in range(n):
+                part = block[:, q * L:(q + 1) * L]
+                tot = tot + (args["W_relay"][q] * (torch.tanh(s)[:, None] * part)).sum()
+                s = s * args["d"][q] + part.sum(dim=1)
+            return tot
+        if hop == "halo":
+            return sum((args["W_halo"][q] * torch.sin(
+                block[:, q * L - k:q * L] if q else torch.zeros_like(block[:, :k]))).sum()
+                for q in range(n))
+        return sum((args["W_gather"][q] * torch.sin(block)).sum() for q in range(n))
+    if hop == "halo":
+        return (args["W_halo"][r] * torch.sin(ctx.halo(block, k))).sum()
+    if hop == "gather":
+        return (args["W_gather"][r] * torch.sin(ctx.gather_seq(block, axes=ctx.batch_axes))).sum()
+    s = ctx.relay_in(torch.zeros_like(block[:, 0]), after=block)
+    y = ctx.relay_out(s * args["d"][r] + block.sum(dim=1), torch.tanh(s)[:, None] * block)
+    return (args["W_relay"][r] * y).sum()
 
 
 def case_seq_families(args: dict) -> dict:
@@ -486,18 +589,20 @@ def case_dryrun_counts(args: dict) -> dict:
     """The dry run's counts of ``args["archs"]``' train step and prefill
     (``_torch_dryrun.trace_mesh``) on real CPU tensors over these gloo
     ranks: what the fake trace of the same steps must count."""
-    from _torch_dryrun import KINDS, trace_mesh
+    from _torch_dryrun import KINDS, MESH, B, trace_mesh
 
-    return trace_mesh(args["archs"], args.get("kinds", KINDS), fake=False)
+    return trace_mesh(args["archs"], args.get("kinds", KINDS), fake=False,
+                      mesh_of=args.get("mesh", MESH), batch=args.get("B", B))
 
 
 def main() -> int:
     import torch.distributed as dist
 
     case, rank, world, workdir = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4])
+    timeout = datetime.timedelta(seconds=float(sys.argv[5]))
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{workdir / 'rendezvous'}", rank=rank,
-                            world_size=world)
+                            world_size=world, timeout=timeout)
     try:
         out = globals()[f"case_{case}"](torch.load(workdir / "args.pt", weights_only=False))
         torch.save(out, workdir / f"rank{rank}.pt")

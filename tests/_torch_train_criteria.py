@@ -239,6 +239,62 @@ def norm_nudged(to: float):
 
 
 @contextlib.contextmanager
+def chunked_ce():
+    """While active, the one-device loss (``LM.loss_fn`` with no mesh)
+    takes its cross-entropy in the chunked form a mesh's step takes
+    (``LM._cross_entropy``: CE_CHUNK positions a chunk, each under
+    ``torch.utils.checkpoint``, their sums added in f32), where one device
+    takes it from the whole logits. The head's weight (gemma3's tied
+    embedding too) then gets one bf16 product a chunk, summed by autograd
+    in the weight's dtype, as on a mesh, where one device rounds a single
+    product over every position: the counterpart, on one device, of that
+    rounding of a mesh's step (``hold_step``'s probe of it)."""
+    from repro_torch.models import lm
+
+    real = lm.LM._cross_entropy
+
+    class _OneRank:  # a mesh of one rank, as ``_cross_entropy`` reads it
+        n_model = 1
+
+    def chunked(self, params, h, labels, ctx=None, **kw):
+        return real(self, params, h, labels, _OneRank() if ctx is None else ctx, **kw)
+
+    lm.LM._cross_entropy = chunked
+    try:
+        yield
+    finally:
+        lm.LM._cross_entropy = real
+
+
+@contextlib.contextmanager
+def embed_rows(n: int):
+    """While active, the one-device embedding lookup (``LM._embed`` with no
+    mesh) runs on the ``n`` contiguous blocks of the sequence that ``n``
+    sequence ranks hold, one after another: its backward then adds each
+    block's positions into the embedding's gradient on its own, and the
+    blocks' gradients are summed, as the ranks' are. Repeated tokens (the
+    Zipf data's: a fifth of the positions are one token) make that bf16
+    sum ill-conditioned, and a tied head's gradient, which nearly cancels
+    it, more so: the probe, on one device, of the sequence ranks'
+    order."""
+    from repro_torch.models import lm
+
+    real = lm.LM._embed
+
+    def by_blocks(self, params, tokens, tp=None, decode=False):
+        if tp is not None or decode or tokens.shape[1] % n:
+            return real(self, params, tokens, tp, decode)
+        return torch.cat([real(self, params, t, tp, decode) for t in tokens.chunk(n, dim=1)],
+                         dim=1)
+
+    lm.LM._embed = by_blocks
+    try:
+        yield
+    finally:
+        lm.LM._embed = real
+
+
+@contextlib.contextmanager
 def tp_rounding(n: int, seq: int = 1):
     """While active, every product that tensor parallelism splits into
     partial sums over "model" (the attention's out-projection over its
@@ -414,11 +470,12 @@ class _Sequence:
         self.tail = tail
         return before
 
-    def relay_in(self, start: torch.Tensor) -> torch.Tensor:
+    def relay_in(self, start: torch.Tensor, after: torch.Tensor) -> torch.Tensor:
         return start if self.state is None else self.state
 
-    def relay_out(self, x: torch.Tensor) -> None:
-        self.state = x
+    def relay_out(self, state: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        self.state = state
+        return y
 
 
 @contextlib.contextmanager

@@ -27,9 +27,9 @@ whisper-base, whose batch is sharded over "model" too (pure data-parallel).
   the state before the save.
 - The decode step with the cache sharded over the batch, and the host mesh
   (one rank), against the single-device forms.
-- What the port refuses (training with sequence sharding, sequence
-  sharding for the MoE family) raises ``NotImplementedError`` naming the
-  ROADMAP item; the fallback layouts build.
+- What the port refuses (sequence sharding for the MoE family, serving or
+  training) raises ``NotImplementedError`` naming the ROADMAP item; the
+  fallback layouts build.
 """
 from __future__ import annotations
 
@@ -321,18 +321,19 @@ def test_model_axis_refused_where_the_model_is_not_pure_dp(arch, n_model):
 
 def test_a_batch_that_does_not_fill_the_batch_axes_is_refused():
     """B = 2 on (pod=2, data=2): the reference shards the sequence there
-    (``token_spec``). The port's dense, SSM and hybrid prefill and decode
-    shard it too (``tests/test_torch_mesh_seq.py``; on this spec-only mesh
-    they stop at its missing process group); training, and the MoE
-    family's prefill and decode, raise ``NotImplementedError`` naming
-    their ROADMAP items before any collective."""
+    (``token_spec``). The port's dense, SSM and hybrid prefill, decode and
+    training shard it too (``tests/test_torch_mesh_seq.py``,
+    ``tests/test_torch_seq_train.py``; on this spec-only mesh they stop at
+    its missing process group); the MoE family's prefill, decode and
+    training raise ``NotImplementedError`` naming their ROADMAP item before
+    any collective."""
     ctx = MeshCtx(AbstractMesh((2, 2, 1), ("pod", "data", "model")))
     model = LM(get_arch("qwen2_0_5b").reduced(), device="cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32),
              "labels": torch.zeros((2, 8), dtype=torch.int32)}
     assert ctx.token_spec(2) == (None, ("pod", "data"))
-    with pytest.raises(NotImplementedError, match="sequence sharding.*Sequence-sharded training"):
+    with pytest.raises(RuntimeError, match="AbstractMesh"):
         make_train_step(model, ctx)(params, {}, batch)
     with pytest.raises(RuntimeError, match="AbstractMesh"):
         make_prefill_step(model, ctx)(params, {"tokens": batch["tokens"]})
@@ -346,6 +347,8 @@ def test_a_batch_that_does_not_fill_the_batch_axes_is_refused():
     with pytest.raises(NotImplementedError, match="sequence sharding for the MoE"):
         make_serve_step(moe, ctx)(moe_params, moe.init_cache(2, 8),
                                   {"token": batch["tokens"][:, 0], "cur_len": 0})
+    with pytest.raises(NotImplementedError, match="sequence sharding for the MoE"):
+        make_train_step(moe, ctx)(moe_params, {}, batch)
 
 
 def test_norm_nudge_moves_the_norms_by_one_rounding_at_most():

@@ -312,7 +312,7 @@ def _abstract(shape=(2, 1), names=("data", "model")) -> MeshCtx:
 FAMILIES_ITEM = "Sequence sharding for the MoE, VLM and encoder-decoder families"
 RAISES = {
     # id -> (arch, overrides, mesh shape, step kind, the message's ROADMAP item)
-    "training": ("qwen2_0_5b", {}, (2, 1), "train", "Sequence-sharded training"),
+    "training": ("olmoe_1b_7b", {}, (2, 1), "train", FAMILIES_ITEM),
     "moe": ("olmoe_1b_7b", {}, (2, 1), "prefill", FAMILIES_ITEM),
     "moe-decode": ("olmoe_1b_7b", {}, (2, 1), "decode", FAMILIES_ITEM),
     "vlm": ("qwen2_vl_7b", {}, (2, 1), "prefill", FAMILIES_ITEM),
@@ -324,8 +324,9 @@ RAISES = {
 def test_seq_steps_raise_for_what_does_not_run_yet(case):
     """A B = 1 step on a mesh of two batch ranks raises
     ``NotImplementedError`` naming its ROADMAP item, before any
-    collective: training, and the MoE, VLM and encoder-decoder families
-    (the fallback layouts over "model" run:
+    collective: the MoE, VLM and encoder-decoder families, serving or
+    training (the dense, SSM and hybrid families train:
+    ``test_torch_seq_train.py``; the fallback layouts over "model" run:
     ``test_torch_mesh_seq_fallback.py``)."""
     arch, overrides, shape, kind, item = RAISES[case]
     model = _model(arch, **overrides)

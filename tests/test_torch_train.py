@@ -203,8 +203,8 @@ def test_moe_loss_adds_the_layers_aux():
             auxes.append(aux)
             return y, aux
 
-        def ce(self, *a):
-            ces.append(real_ce(self, *a))
+        def ce(self, *a, **k):
+            ces.append(real_ce(self, *a, **k))
             return ces[-1]
 
         with pytest.MonkeyPatch.context() as mp:
@@ -299,8 +299,8 @@ def test_hybrid_training_attention_does_not_see_the_future(monkeypatch):
         vocab=model.cfg.vocab, seq_len=S, global_batch=B)).next_batch().items()}
     real_ce = lm.LM._cross_entropy
     monkeypatch.setattr(lm.LM, "_cross_entropy",
-                        lambda self, p, h, labels, ctx=None: real_ce(self, p, h[:, :-1],
-                                                                      labels[:, :-1], ctx))
+                        lambda self, p, h, labels, ctx=None, **k: real_ce(
+                            self, p, h[:, :-1], labels[:, :-1], ctx, **k))
     seen = []
     for last in (0, 1):
         tokens = batch["tokens"].clone()
