@@ -83,8 +83,8 @@ MoE's over the global batch: its capacity and dispatch order are global)
 and keep the rank's block.
 
 Sequence sharding (``sp``, a ``MeshCtx`` whose batch axes the batch does
-not fill: ``LM.seq_ctx``), for the dense, SSM and hybrid families' serving
-and training: h holds this rank's block of the sequence, the contiguous
+not fill: ``LM.seq_ctx``), for every family's serving and training: h
+holds this rank's block of the sequence, the contiguous
 block at its ``seq_rank`` (split again over "model" where Megatron-SP runs), at the
 global positions from its offset; every layer's window comes from the whole
 length. The attention computes q, k and v on the block, gathers the keys
@@ -113,7 +113,20 @@ relay and the keys' gather send their gradients back (``MeshCtx``), and
 each checkpointed layer keeps what they received for its recompute
 (``MeshCtx.recorded``), which replays no hop over the batch axes; each
 rank takes the cross-entropy of its own block on the global sequence's
-chunk grid, and the step averages the ranks' losses and gradients.
+chunk grid, and the step averages the ranks' losses and gradients. The
+MoE layer routes what the reference's routes together (``_moe_seq``): the
+whole sequence, gathered over the batch axes, with its global capacity and
+dispatch order, or with its experts split over "model" each "model" rank's
+contiguous block of the whole sequence through the expert-parallel branch;
+every rank keeps its own rows, and the auxiliary loss, the same on every
+sequence rank, enters the step's mean once. The VLM's embeddings and M-RoPE
+positions arrive as the rank's block (its cos and sin from the block's
+three streams); its training masks by the global batch's first temporal
+stream, the queries read at their offset. The encoder-decoder's encoder
+runs on the rank's block of the frames (its keys gathered), its output is
+gathered over the batch axes once for every cross-attention, and the
+decoder runs on the rank's block of the tokens; its decode step attends on
+the rank's blocks of both caches, ``xk``/``xv``'s frames included.
 """
 from __future__ import annotations
 
@@ -143,7 +156,6 @@ from repro_torch.models.layers import (
     swiglu_mlp,
 )
 from repro_torch.models.sharding import (
-    SEQ_FAMILIES,
     MeshCtx,
     NamedSharding,
     spec_with_model_on,
@@ -408,14 +420,10 @@ class LM(nn.Module):
         """``ctx`` where a step of ``global_batch`` rows shards the sequence
         over the batch axes (they are more than one, and the batch does not
         fill them: ``MeshCtx.token_spec``), else None: to serve, and with
-        ``train`` to train. Every layout over "model" (``tp_ctx``) composes
-        with it, the fallback layouts included. Raises
-        ``NotImplementedError`` for what does not run yet: the MoE, VLM and
-        encoder-decoder families, serving or training."""
+        ``train`` to train, for every family. Every layout over "model"
+        (``tp_ctx``) composes with it, the fallback layouts included."""
         if ctx is None or ctx.n_batch == 1 or not ctx.seq_sharded(global_batch):
             return None
-        if self.cfg.family not in ("dense", "ssm", "hybrid"):
-            raise NotImplementedError(f"{self.cfg.name} ({self.cfg.family}): {SEQ_FAMILIES}")
         return ctx
 
     @staticmethod
@@ -634,20 +642,25 @@ class LM(nn.Module):
         x = rms_norm(h, lp["ln1"], cfg.norm_eps)
         h = h + self._attn_sp(lp, x, tp, cos=cos, sin=sin, window=window, train_pos=train_pos,
                               sp=sp)
-        y, aux = self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), tp)
+        y, aux = self._mlp(lp, rms_norm(h, lp["ln2"], cfg.norm_eps), tp, sp=sp)
         return h + y, aux
 
     def _mlp(self, lp: dict, x: torch.Tensor, tp: MeshCtx | None = None,
-             decode: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
+             decode: bool = False,
+             sp: MeshCtx | None = None) -> tuple[torch.Tensor, torch.Tensor | None]:
         """The block's MLP and its auxiliary loss: SwiGLU (None), or for MoE
         ``moe_layer`` (aux = E * sum(me * ce), f32). With ``tp``: x is this
         rank's block of the sequence (gathered for SwiGLU's columns, the
         partial sums scattered back) or, with ``decode``, the whole token;
         the MoE layer runs its expert-parallel branch. Where d_ff (or the
         experts) do not divide "model", the replicated MLP runs on x as it
-        is (the MoE layer: ``_moe_whole``)."""
+        is (the MoE layer: ``_moe_whole``). With ``sp`` the MoE layer routes
+        the tokens the reference's routes (``_moe_seq``); SwiGLU runs on the
+        block as it is."""
         cfg = self.cfg
         if cfg.family == "moe":
+            if sp is not None and not decode:
+                return self._moe_seq(lp, x, tp, sp)
             if tp is not None and not self._splits(tp, cfg.moe_experts):
                 return self._moe_whole(lp, x, tp, decode)
             return moe_layer(x, lp["wr"], lp["w_gate"], lp["w_up"], lp["w_down"],
@@ -678,6 +691,38 @@ class LM(nn.Module):
         y = y.narrow(0, tp.index(tp.batch_axes) * B, B)
         return (y if decode else _rank_block(y, tp)), tp.shared_model(aux)
 
+    def _moe_seq(self, lp: dict, x: torch.Tensor, tp: MeshCtx | None,
+                 sp: MeshCtx) -> tuple[torch.Tensor, torch.Tensor]:
+        """The MoE layer of a sequence-sharded step, on the tokens the
+        reference's ``moe_layer`` routes together where the batch does not
+        fill the batch axes (its shard_map's batch dim then unsharded): x,
+        this rank's block, gathered over "model" (with ``tp``) and over the
+        batch axes into the whole sequence. Without ``tp``, or where the
+        experts do not divide "model" (the weights whole: ``_tp_layers``),
+        the whole-array layer over the whole sequence, its capacity and
+        dispatch order global; with them split, the expert-parallel branch
+        on "model" rank m's contiguous S / n_model block of the whole
+        sequence (the same on every sequence rank; the reference's exchange,
+        ROADMAP C), its output gathered over "model". Returns (this rank's
+        rows of y, the auxiliary loss: the same on every sequence rank, so
+        the step's mean over them counts it once; the gathers' backward
+        sums each rank's gradient of it, which that mean divides back)."""
+        cfg = self.cfg
+        xs = x if tp is None else tp.gather_seq(x)  # the sequence rank's block
+        xg = sp.gather_seq(xs, axes=sp.batch_axes)
+        moe = dict(top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
+        w = (lp["wr"], lp["w_gate"], lp["w_up"], lp["w_down"])
+        if tp is not None and self._splits(tp, cfg.moe_experts):
+            n = xg.shape[1] // tp.n_model
+            y, aux = moe_layer(xg.narrow(1, tp.model_rank * n, n), *w, ctx=tp, **moe)
+            y = tp.gather_seq(y)
+        else:
+            y, aux = moe_layer(xg, *w, **moe)
+            if tp is not None:
+                aux = tp.shared_model(aux)
+        first = sp.seq_rank * xs.shape[1] + (0 if tp is None else tp.model_rank * x.shape[1])
+        return y.narrow(1, first, x.shape[1]).contiguous(), aux
+
     def _mamba_layer(self, lp: dict, h: torch.Tensor, tp: MeshCtx | None = None,
                      sp: MeshCtx | None = None) -> torch.Tensor:
         """h + the Mamba2 mixer of its norm: on the rank's SSM heads
@@ -704,7 +749,7 @@ class LM(nn.Module):
         with ``sp`` (``seq_ctx``) ``batch`` is the sequence rank's block of
         the tokens, and h its block (of which ``tp`` holds a block)."""
         if self.cfg.family == "encdec":
-            return self._run_encdec(params, batch, train=train, tp=tp), None
+            return self._run_encdec(params, batch, train=train, tp=tp, sp=sp), None
         h, positions = self._inputs(params, batch, tp, sp)
         return self._run_stack(params, h, positions=positions, train=train, tp=tp,
                                q_pos=batch.get("mask_pos"), sp=sp)
@@ -750,7 +795,9 @@ class LM(nn.Module):
         input), or the embedded ``tokens`` at 0..S-1 (B, S), stacked three
         times for M-RoPE. With ``tp`` the input is this rank's block of the
         sequence (the positions stay whole). With ``sp`` the tokens are the
-        sequence rank's block, at the global positions from its offset."""
+        sequence rank's block, at the global positions from its offset; the
+        embeddings and their positions are the sequence rank's blocks
+        (``batch_shardings``)."""
         cfg = self.cfg
         if cfg.embeddings_input:
             h = batch["embeds"].to(dt(cfg))
@@ -854,7 +901,7 @@ class LM(nn.Module):
         return h
 
     def _run_encdec(self, params: Params, batch: dict, *, train: bool = False,
-                    tp: MeshCtx | None = None) -> torch.Tensor:
+                    tp: MeshCtx | None = None, sp: MeshCtx | None = None) -> torch.Tensor:
         """Whisper: the encoder over ``batch["audio_embeds"]`` (B, Sa, D) in
         the configuration's dtype (its positions baked into the stub), its
         final layer norm, then the decoder over ``embed[tokens] +
@@ -862,52 +909,66 @@ class LM(nn.Module):
         window), or with ``train`` by ``gqa_attention`` with each layer under
         ``torch.utils.checkpoint``. Returns the decoder's h (B, St, D). With
         ``tp``, h is this rank's block of the sequence, and the encoder's
-        output is gathered over "model" once for every cross-attention."""
-        enc_out = self._encode(params, batch["audio_embeds"], train=train, tp=tp)
+        output is gathered over "model" once for every cross-attention. With
+        ``sp`` the frames and the tokens are the sequence rank's blocks: the
+        encoder runs on its frames, its output is gathered over the batch
+        axes once for every cross-attention, and the decoder runs on its
+        tokens at their positions from the block's offset."""
+        enc_out = self._encode(params, batch["audio_embeds"], train=train, tp=tp, sp=sp)
         if tp is not None:
             enc_out = tp.gather_seq(enc_out)
+        if sp is not None:
+            enc_out = sp.gather_seq(enc_out, axes=sp.batch_axes)
         tokens = batch["tokens"]
         St = tokens.shape[1]
+        first = 0 if sp is None else sp.seq_rank * St
+        pos = slice(first, first + St)
         if tp is None:
-            h = (params["embed"][tokens] + params["dec_pos"][:St]).to(dt(self.cfg))
+            h = (params["embed"][tokens] + params["dec_pos"][pos]).to(dt(self.cfg))
         else:
-            h = self._embed(params, tokens, tp) + _rank_block(self._dec_pos(params, tp)[:St],
+            h = self._embed(params, tokens, tp) + _rank_block(self._dec_pos(params, tp)[pos],
                                                              tp, dim=0)
-        attn = _no_rope(St, h.device, train)
+        attn = _no_rope(St * (1 if sp is None else sp.n_batch), h.device, train)
         for lp in _layers(self._tp_layers(params["dec"], tp, "dec")):
-            h = _checkpointed(self._dec_layer, lp, h, enc_out, train=train, tp=tp, **attn)
+            h = _checkpointed(self._dec_layer, lp, h, enc_out, train=train, saves=sp, tp=tp,
+                              sp=sp, **attn)
         return h
 
     def _encode(self, params: Params, audio: torch.Tensor, *, train: bool = False,
-                tp: MeshCtx | None = None) -> torch.Tensor:
+                tp: MeshCtx | None = None, sp: MeshCtx | None = None) -> torch.Tensor:
         """The encoder's output (B, Sa, D): its layers over ``audio`` (B, Sa,
         D) in the configuration's dtype, then its final layer norm. With
-        ``tp``, this rank's block of the frames (B, Sa/n, D)."""
+        ``tp``, this rank's block of the frames (B, Sa/n, D). With ``sp``,
+        ``audio`` is the sequence rank's block of the frames, and so is the
+        output: the attention gathers the keys over the batch axes."""
         h = audio.to(dt(self.cfg))
-        attn = _no_rope(h.shape[1], h.device, train)
+        attn = _no_rope(h.shape[1] * (1 if sp is None else sp.n_batch), h.device, train)
         if tp is not None:
             h = _rank_block(h, tp)
         for lp in _layers(self._tp_layers(params["enc"], tp, "enc")):
-            h = _checkpointed(self._enc_layer, lp, h, train=train, tp=tp, **attn)
+            h = _checkpointed(self._enc_layer, lp, h, train=train, saves=sp, tp=tp, sp=sp,
+                              **attn)
         return layer_norm(h, params["enc_final_ln"], params["enc_final_b"], self.cfg.norm_eps)
 
     def _enc_layer(self, lp: dict, h: torch.Tensor, tp: MeshCtx | None = None,
-                   **attn) -> torch.Tensor:
+                   sp: MeshCtx | None = None, **attn) -> torch.Tensor:
         """An encoder layer: non-causal self-attention, then the GELU MLP,
         each after a layer norm (``attn``: ``_no_rope``)."""
         eps = self.cfg.norm_eps
         x = layer_norm(h, lp["ln1"], lp["b1"], eps)
-        h = h + self._attn_sp(lp, x, tp, causal=False, **attn)
+        h = h + self._attn_sp(lp, x, tp, causal=False, sp=sp, **attn)
         return h + self._gelu(lp, layer_norm(h, lp["ln2"], lp["b2"], eps), tp)
 
     def _dec_layer(self, lp: dict, h: torch.Tensor, enc_out: torch.Tensor,
-                   tp: MeshCtx | None = None, **attn) -> torch.Tensor:
+                   tp: MeshCtx | None = None, sp: MeshCtx | None = None,
+                   **attn) -> torch.Tensor:
         """A decoder layer: causal self-attention, cross-attention against
-        ``enc_out`` (non-causal; with ``tp`` the whole gathered sequence),
-        then the GELU MLP, each after a layer norm."""
+        ``enc_out`` (non-causal; with ``tp`` or ``sp`` the whole gathered
+        sequence: the cross-attention gathers nothing more), then the GELU
+        MLP, each after a layer norm."""
         eps = self.cfg.norm_eps
         x = layer_norm(h, lp["ln1"], lp["b1"], eps)
-        h = h + self._attn_sp(lp, x, tp, **attn)
+        h = h + self._attn_sp(lp, x, tp, sp=sp, **attn)
         x = layer_norm(h, lp["ln2"], lp["b2"], eps)
         h = h + self._attn_sp(_cross(lp), x, tp, causal=False, kv=enc_out, **attn)
         return h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps), tp)
@@ -1128,8 +1189,9 @@ class LM(nn.Module):
         sequence (``cache_specs``): the rank that holds position
         ``cur_len`` writes the new K/V, each rank attends on its block
         (``gqa_attention(seq_split=)``; in the head_dim fallback on its
-        head_dim block of it), and the conv and SSM caches, which the batch
-        axes do not shard, step alike on every rank."""
+        head_dim block of it; the encoder-decoder's cross-attention on its
+        block of ``xk``/``xv``'s frames), and the conv and SSM caches, which
+        the batch axes do not shard, step alike on every rank."""
         cfg = self.cfg
         tp = self.tp_ctx(ctx, serve=True)
         sp = ctx if seq_sharded else None
@@ -1150,7 +1212,7 @@ class LM(nn.Module):
         elif family == "hybrid":
             h = self._decode_hybrid(params, cache, h, cur, tp, sp)
         elif family == "encdec":
-            h = self._decode_encdec(params, cache, h, cur, tp)
+            h = self._decode_encdec(params, cache, h, cur, tp, sp)
         else:
             h = self._decode_dense(params, cache, h, cur, tp, sp)
         return self._logits(params, h, tp), cache
@@ -1279,23 +1341,28 @@ class LM(nn.Module):
         return h
 
     def _decode_encdec(self, params: Params, cache: dict[str, torch.Tensor],
-                       h: torch.Tensor, cur: int, tp: MeshCtx | None = None) -> torch.Tensor:
+                       h: torch.Tensor, cur: int, tp: MeshCtx | None = None,
+                       sp: MeshCtx | None = None) -> torch.Tensor:
         """The decoder's step: causal self-attention against the K/V cache,
         then cross-attention of the query (at position 0, non-causal)
         against the cache's ``xk``/``xv``, then the GELU MLP. With ``tp``
         on this rank's heads, whose cross K/V the cache holds (where the
         rank expands the KV heads, a block of head_dim, gathered to read),
         or in the fallback on its block of head_dim; each sublayer's
-        partial sums all-reduced over "model"."""
+        partial sums all-reduced over "model". With ``sp`` both attentions
+        run on this sequence rank's block of their cache (``cache_specs``
+        shards the frames of ``xk``/``xv`` too), their softmax over the
+        ranks' blocks (``gqa_attention(seq_split=)``)."""
         cfg, eps = self.cfg, self.cfg.norm_eps
         rope = self._decode_rope(h, cur)
         Sa = cache["xk"].shape[2]
+        first = 0 if sp is None else sp.seq_rank * Sa
         q_pos = torch.zeros((1,), dtype=torch.int32, device=h.device)
-        k_pos = torch.arange(Sa, dtype=torch.int32, device=h.device)
+        k_pos = torch.arange(first, first + Sa, dtype=torch.int32, device=h.device)
         for i, lp in enumerate(_layers(self._tp_layers(params["dec"], tp, "dec", decode=True))):
             x = layer_norm(h, lp["ln1"], lp["b1"], eps)
             h = h + self._decode_attn(lp, x, cache["k"][i], cache["v"][i], cur, window=None,
-                                      tp=tp, **rope)
+                                      tp=tp, sp=sp, **rope)
             q = _proj(layer_norm(h, lp["ln2"], lp["b2"], eps), lp["xwq"])
             xk, xv = cache["xk"][i], cache["xv"][i]
             if self._expands(tp):
@@ -1304,7 +1371,7 @@ class LM(nn.Module):
                     q.shape[2], tp)
             hd_split = tp if self._hd_fallback(tp) and xk.shape[-1] != cfg.hd else None
             o = gqa_attention(q, xk, xv, q_pos=q_pos, k_pos=k_pos, causal=False,
-                              hd_split=hd_split)
+                              hd_split=hd_split, seq_split=sp)
             h = h + self._summed(self._out_proj(_cross(lp), o), tp, hd_split)
             h = h + self._gelu(lp, layer_norm(h, lp["ln3"], lp["b3"], eps), tp, decode=True)
         return h

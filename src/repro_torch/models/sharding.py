@@ -43,13 +43,14 @@ gather (``gather_seq(axes=batch_axes)``), the halo of the previous rank's
 last rows (``halo``), the rank-to-rank relay of a carried state in
 sequence order (``relay_in``/``relay_out``), and the f32 max and sum over
 them (``all_reduce(op="max")``, ``seq_sum``). Sequence-sharded serving and
-training run for the dense, SSM and hybrid families (``LM.seq_ctx``), in
-every layout over "model", the fallback layouts included: the sequence's
-gather over "model" within a sequence rank's block composes with the keys'
-gather over the batch axes, and a "model" rank's halo and relay run over
-its own group of the batch axes, so the composition adds no collective of
-its own. The other families raise ``NotImplementedError`` naming their
-ROADMAP item (``SEQ_FAMILIES``).
+training run for every family (``LM.seq_ctx``), in every layout over
+"model", the fallback layouts included: the sequence's gather over "model"
+within a sequence rank's block composes with the keys' gather over the
+batch axes, and a "model" rank's halo and relay run over its own group of
+the batch axes, so the composition adds no collective of its own. The MoE
+layer gathers its tokens over the batch axes too (the reference routes
+the whole sequence together), and the encoder-decoder its encoder's output
+(every cross-attention reads all the frames): gathers of the kind above.
 
 The halo, the relay and the keys' gather are differentiable, each on
 every rank (the first and last ranks' moving nothing), so that every
@@ -81,9 +82,6 @@ from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Placement, Replicate, Shard, distribute_tensor
 
-# what sequence sharding (a batch that does not fill the batch axes) does not run yet
-SEQ_FAMILIES = ("sequence sharding for the MoE, VLM and encoder-decoder families (ROADMAP A, "
-                "\"Sequence sharding for the MoE, VLM and encoder-decoder families\")")
 _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 # the attribute ``launch.mesh.make_shared_card_mesh`` sets on the CUDA mesh it
 # builds over gloo (which takes every collective below for CUDA tensors in the

@@ -23,12 +23,12 @@ gets its gradient summed back by the gather's backward, a replicated one
 by ``_sum_over_model``, each once. A batch that does not fill the batch
 axes (the reference's ``long_500k``, B = 1) shards the sequence over them
 to prefill, decode and train (``LM.seq_ctx``), in every layout over
-"model": each rank runs its block of the sequence; every rank returns the
-logits of the whole batch, and the train step's loss and gradients are
-the ranks' blocks' averaged over the batch axes (the gradients once, by
-the optimizer's reduce-scatter). What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item: sequence sharding for the
-MoE, VLM and encoder-decoder families.
+"model", for every family: each rank runs its block of the sequence (of
+the tokens, of the VLM's embeddings and M-RoPE positions, of the
+encoder-decoder's audio frames, as ``batch_shardings`` cuts them); every
+rank returns the logits of the whole batch, and the train step's loss and
+gradients are the ranks' blocks' averaged over the batch axes (the
+gradients once, by the optimizer's reduce-scatter).
 """
 from __future__ import annotations
 
@@ -213,7 +213,8 @@ def make_serve_step(model: LM, ctx: MeshCtx | None = None):
     on them) and the cache's heads are sharded over it
     (``LM.decode_step``); the logits are gathered over the batch axes.
     Where the batch does not fill the batch axes (``LM.seq_ctx``) the token
-    is whole on every rank, the K/V cache's sequence is sharded over them
+    is whole on every rank, the K/V cache's sequence (and the
+    encoder-decoder's cross cache's frames) is sharded over them
     (``cache_specs``), and every rank returns the B rows whole."""
     @torch.no_grad()
     def serve_step(params: Params, cache: dict, batch: dict):
@@ -229,8 +230,12 @@ def make_serve_step(model: LM, ctx: MeshCtx | None = None):
         key = "embed" if "embed" in batch else "token"
         B, S = batch[key].shape[0], cache["k"].shape[2] if "k" in cache else 0
         sp = model.seq_ctx(ctx, B)
+        frames = cache["xk"].shape[2] if "xk" in cache else 0
         if sp is not None and S % ctx.n_batch:
             raise ValueError(f"a {S}-long cache does not split over {ctx.n_batch} batch ranks")
+        if sp is not None and frames % ctx.n_batch:
+            raise ValueError(f"a cross cache of {frames} frames does not split over "
+                             f"{ctx.n_batch} batch ranks")
         cspecs = model.cache_specs(B, S, ctx)
         blocks = {k: ctx.local(v, cspecs[k]) for k, v in cache.items()}
         rows = ctx.token_spec(B)[:1]  # the batch axes, or None: the token whole on every rank
@@ -287,25 +292,25 @@ def _batch_layout(model: LM, ctx: MeshCtx, batch: dict, kind: str, tp: MeshCtx |
     its batch dim is sharded over, and the step's sequence-sharding context
     (``LM.seq_ctx``: None where the batch fills the batch axes, () its
     axes then; ``tp``, the step's tensor-parallel context, splits each
-    sequence rank's block again over "model"); raises where what the step
-    needs does not run yet, and where a sequence (the tokens or embeddings,
-    the encoder's audio frames) does not split over the axes that shard
-    it."""
+    sequence rank's block again over "model"); raises where a sequence
+    (the tokens or embeddings, the encoder's audio frames) does not split
+    over the axes that shard it."""
     seq = batch["tokens" if "tokens" in batch else "embeds"]
     B, S = seq.shape[:2]
     bspecs = batch_shardings(model.cfg, ShapeConfig("step", S, B, kind), ctx, model)
     dp_axes = bspecs["tokens" if "tokens" in bspecs else "embeds"].spec[0]
     sp = model.seq_ctx(ctx, B, train=kind == "train")
+    lengths = {"a sequence": S}
+    if "audio_embeds" in batch:
+        lengths["audio frames"] = batch["audio_embeds"].shape[1]
     if sp is not None:
         n = ctx.n_batch * (ctx.n_model if tp is not None else 1)
-        if S % n:
-            raise ValueError(f"a sequence of {S} does not split over {ctx.n_batch} batch ranks"
-                             + (f" x model={ctx.n_model}" if tp is not None else ""))
+        for what, m in lengths.items():
+            if m % n:
+                raise ValueError(f"{what} of {m} does not split over {ctx.n_batch} batch ranks"
+                                 + (f" x model={ctx.n_model}" if tp is not None else ""))
         return {k: bspecs[k] for k in batch}, (), sp
     if "model" not in dp_axes and ctx.n_model > 1:
-        lengths = {"a sequence": S}
-        if "audio_embeds" in batch:
-            lengths["audio frames"] = batch["audio_embeds"].shape[1]
         for what, n in lengths.items():
             if n % ctx.n_model:
                 raise ValueError(f"{what} of {n} does not split over model={ctx.n_model}")

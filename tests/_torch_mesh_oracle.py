@@ -115,6 +115,7 @@ _SEQ_SCRIPT = textwrap.dedent(
     import jax.numpy as jnp
     import numpy as np
     from jax.sharding import AxisType
+    import repro.models.layers as jax_layers
     import repro.models.lm as jax_lm
     from repro.configs import get_arch
     from repro.configs.base import ShapeConfig
@@ -123,6 +124,12 @@ _SEQ_SCRIPT = textwrap.dedent(
     from repro.models.sharding import MeshCtx
     from repro.train.steps import batch_shardings, make_prefill_step, make_serve_step
 
+    # the expert-parallel moe_layer's pmean over every axis fails jax 0.9's
+    # varying-axes check on a mesh whose "model" is 1 (its tokens do not vary
+    # over "model"); unchecked, as the reference's own optimizer runs its
+    # shard_map, the pmean over a 1-long axis is the identity
+    _shard_map = jax_layers.shard_map_compat
+    jax_layers.shard_map_compat = lambda f, **kw: _shard_map(f, check_vma=False, **kw)
     src, meta = np.load(sys.argv[1]), json.loads(open(sys.argv[3]).read())
     exact = {{"xla_allow_excess_precision": False}}
     gqa = jax_lm.gqa_attention
@@ -135,15 +142,19 @@ _SEQ_SCRIPT = textwrap.dedent(
                                     devices=jax.devices()[:n]))
         cfg = dataclasses.replace(get_arch(m["arch"]).reduced(), **m["overrides"])
         model = build_model(cfg, max_pos=m["max_pos"])
-        model.pure_dp = False
+        if m["pure_dp"] is not None:
+            model.pure_dp = m["pure_dp"]
         flat, tree = jax.tree_util.tree_flatten_with_path(model.param_shapes())
         name = lambda path: ".".join(k.key for k in path)
         params = jax.tree.unflatten(tree, [jnp.asarray(src[f"{{arch}}/p:" + name(p)], sd.dtype)
                                            for p, sd in flat])
         pspecs = model.param_specs(ctx, serve=True)
-        tokens = jnp.asarray(src[f"{{arch}}/tokens"])
-        B, S = tokens.shape
-        bsh = batch_shardings(cfg, ShapeConfig("t", S, B, "prefill"), ctx)
+        head = f"{{arch}}/f:"
+        batch = {{k[len(head):]: jnp.asarray(src[k], jnp.bfloat16 if src[k].dtype == np.float32
+                                            else src[k].dtype)
+                  for k in src.files if k.startswith(head)}}
+        B, S = batch["tokens" if "tokens" in batch else "embeds"].shape[:2]
+        bsh = batch_shardings(cfg, ShapeConfig("t", S, B, "prefill"), model=model, ctx=ctx)
         sw = cfg.sliding_window
         def attention(q, k, v, *, q_pos, k_pos, causal=True, window=None, ctx=None, **_):
             G = q.shape[2] // k.shape[2]
@@ -155,9 +166,9 @@ _SEQ_SCRIPT = textwrap.dedent(
                                                       lambda: ref(0))
         # the prefill attends through the flash oracle (the port's prefill: the flash kernel)
         jax_lm.gqa_attention = attention
-        fn = jax.jit(make_prefill_step(model, ctx), in_shardings=(pspecs, {{"tokens": bsh["tokens"]}}),
+        fn = jax.jit(make_prefill_step(model, ctx),
+                     in_shardings=(pspecs, {{k: bsh[k] for k in batch}}),
                      out_shardings=ctx.replicated())
-        batch = {{"tokens": tokens}}
         out[f"{{label}}/{{arch}}/prefill"] = np.asarray(fn.lower(params, batch).compile(exact)(
             params, batch))
         jax_lm.gqa_attention = gqa
@@ -165,15 +176,16 @@ _SEQ_SCRIPT = textwrap.dedent(
                                                   jnp.bfloat16)
                   for k in src.files if k.startswith(f"{{arch}}/c:")}}
         L = cache["k"].shape[2] if "k" in cache else 0
-        dsh = batch_shardings(cfg, ShapeConfig("t", L, B, "decode"), ctx)
+        dsh = batch_shardings(cfg, ShapeConfig("t", L, B, "decode"), model=model, ctx=ctx)
         cspecs = model.cache_specs(B, L, ctx)
         step = jax.jit(make_serve_step(model, ctx), in_shardings=(pspecs, cspecs, dsh),
                        out_shardings=(ctx.replicated(), cspecs))
         feeds = src[f"{{arch}}/feeds"]
-        first = {{"token": jnp.asarray(feeds[0]), "cur_len": jnp.int32(m["start"])}}
+        key, cast = ("embed", jnp.bfloat16) if feeds.dtype == np.float32 else ("token", feeds.dtype)
+        first = {{key: jnp.asarray(feeds[0], cast), "cur_len": jnp.int32(m["start"])}}
         compiled = step.lower(params, cache, first).compile(exact)
         for i in range(feeds.shape[0]):
-            logits, cache = compiled(params, cache, {{"token": jnp.asarray(feeds[i]),
+            logits, cache = compiled(params, cache, {{key: jnp.asarray(feeds[i], cast),
                                                      "cur_len": jnp.int32(m["start"] + i)}})
             out[f"{{label}}/{{arch}}/decode{{i}}"] = np.asarray(logits)
     np.savez(sys.argv[2], **out)
@@ -195,7 +207,14 @@ _SEQ_TRAIN_SCRIPT = textwrap.dedent(
     from repro.models.sharding import MeshCtx
     from repro.train.optimizer import AdamWConfig, adamw_init
     from repro.train.steps import batch_shardings, make_train_step, training_state_specs
+    import repro.models.layers as jax_layers
 
+    # the expert-parallel moe_layer's pmean over every axis fails jax 0.9's
+    # varying-axes check on a mesh whose "model" is 1 (its tokens do not vary
+    # over "model"); unchecked, as the reference's own optimizer runs its
+    # shard_map, the pmean over a 1-long axis is the identity
+    _shard_map = jax_layers.shard_map_compat
+    jax_layers.shard_map_compat = lambda f, **kw: _shard_map(f, check_vma=False, **kw)
     src, meta = np.load(sys.argv[1]), json.loads(open(sys.argv[3]).read())
     exact = {{"xla_allow_excess_precision": False}}
     name = lambda path: ".".join(k.key for k in path)
@@ -208,16 +227,20 @@ _SEQ_TRAIN_SCRIPT = textwrap.dedent(
             m = meta[key]
             cfg = dataclasses.replace(get_arch(m["arch"]).reduced(), **m["overrides"])
             model = build_model(cfg, max_pos=m["max_pos"])
-            model.pure_dp = False
+            if m["pure_dp"] is not None:
+                model.pure_dp = m["pure_dp"]
             flat, tree = jax.tree_util.tree_flatten_with_path(model.param_shapes())
             params = jax.tree.unflatten(tree, [jnp.asarray(src[f"{{key}}/p:" + name(p)], sd.dtype)
                                                for p, sd in flat])
-            batch = {{b: jnp.asarray(src[f"{{key}}/b:{{b}}"]) for b in ("tokens", "labels")}}
-            B, S = batch["tokens"].shape
+            head = f"{{key}}/b:"
+            batch = {{k[len(head):]: jnp.asarray(src[k], jnp.bfloat16 if src[k].dtype == np.float32
+                                                else src[k].dtype)
+                      for k in src.files if k.startswith(head)}}
+            B, S = batch["labels"].shape
+            bsh = batch_shardings(cfg, ShapeConfig("t", S, B, "train"), model=model, ctx=ctx)
             pstore, ospecs = training_state_specs(model, ctx)
             step = jax.jit(make_train_step(model, ctx, AdamWConfig(lr={lr})),
-                           in_shardings=(pstore, ospecs,
-                                         batch_shardings(cfg, ShapeConfig("t", S, B, "train"), ctx)),
+                           in_shardings=(pstore, ospecs, {{k: bsh[k] for k in batch}}),
                            out_shardings=(pstore, ospecs, ctx.replicated()))
             opt = adamw_init(params)
             p1, o1, loss = step.lower(params, opt, batch).compile(exact)(params, opt, batch)
@@ -272,15 +295,20 @@ def reference_seq_run(meshes: dict, archs: dict, workdir: Path, timeout: float =
     label -> (shape, names), on the first devices of as many fake ones as
     the largest takes; B = 1 does not fill their batch axes), for each
     entry of ``archs`` (name -> ``arch``, ``overrides``, ``max_pos``, numpy
-    ``params`` (dotted name -> array, bf16 as f32), ``tokens`` (1, S),
-    ``cache`` (the decode's starting cache, bf16 as f32), ``feeds`` (steps,
-    1) and ``start``), in one subprocess: its ``make_prefill_step`` (the
-    attention swapped for its flash oracle) and ``make_serve_step`` at
-    ``start``, ``start + 1``, ..., jitted on the shardings ``launch/
-    dryrun.py`` gives them (``param_specs(ctx, serve=True)``,
-    ``batch_shardings``, ``cache_specs``), models not pure data-parallel,
-    compiled with every bf16 rounding kept: label -> name -> {"prefill",
-    "decode": [logits]}."""
+    ``params`` (dotted name -> array, bf16 as f32), ``tokens`` (1, S) or
+    the family's whole ``prefill`` batch (``tokens``; ``embeds`` and
+    ``positions``; ``audio_embeds`` and ``tokens``; floats as f32 of bf16
+    values), ``cache`` (the decode's starting cache, bf16 as f32, whisper's
+    ``xk``/``xv`` of any frame count), ``feeds`` (steps, 1) tokens or
+    (steps, 1, D) f32 embeddings, ``start`` and, where given, ``pure_dp``
+    (None: the model's own; False where not given)),
+    in one subprocess: its ``make_prefill_step`` (the attention swapped for
+    its flash oracle) and ``make_serve_step`` at ``start``, ``start + 1``,
+    ..., jitted on the shardings ``launch/dryrun.py`` gives them
+    (``param_specs(ctx, serve=True)``, ``batch_shardings``,
+    ``cache_specs``), models not pure data-parallel (or as ``pure_dp``
+    says), compiled with every bf16 rounding kept: label -> name ->
+    {"prefill", "decode": [logits]}."""
     import json
 
     workdir.mkdir(parents=True, exist_ok=True)
@@ -289,10 +317,12 @@ def reference_seq_run(meshes: dict, archs: dict, workdir: Path, timeout: float =
     for a, m in archs.items():
         arrays.update({f"{a}/p:{k}": np.asarray(v, np.float32) for k, v in m["params"].items()})
         arrays.update({f"{a}/c:{k}": np.asarray(v, np.float32) for k, v in m["cache"].items()})
-        arrays[f"{a}/tokens"], arrays[f"{a}/feeds"] = m["tokens"], m["feeds"]
+        arrays.update({f"{a}/f:{k}": v for k, v in m.get("prefill", {"tokens": m.get("tokens")}
+                                                       ).items()})
+        arrays[f"{a}/feeds"] = m["feeds"]
     np.savez(src, **arrays)
-    meta.write_text(json.dumps({a: {k: m[k] for k in ("arch", "overrides", "max_pos", "start")}
-                                for a, m in archs.items()}))
+    meta.write_text(json.dumps({a: {**{k: m[k] for k in ("arch", "overrides", "max_pos", "start")},
+                                    "pure_dp": m.get("pure_dp", False)} for a, m in archs.items()}))
     script = _SEQ_SCRIPT.format(n=max(int(np.prod(sh)) for sh, _ in meshes.values()),
                                 meshes={k: (tuple(sh), tuple(nm)) for k, (sh, nm) in meshes.items()})
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
@@ -314,9 +344,12 @@ def reference_seq_train_run(meshes: dict, archs: dict, workdir: Path, *, lr: flo
     takes; B = 1 does not fill their batch axes, so ``batch_shardings``
     shards the sequence), for entries of ``archs`` (key -> ``arch``,
     ``overrides``, ``max_pos``, numpy ``params`` (dotted name -> array,
-    bf16 as f32) and the B = 1 ``batch`` (tokens, labels)), in one
-    subprocess: ``make_train_step`` jitted on ``training_state_specs`` and
-    ``batch_shardings``, models not pure data-parallel, compiled with every
+    bf16 as f32), the B = 1 ``batch`` (tokens, or the family's inputs, and
+    labels; floats as f32 of bf16 values) and, where given, ``pure_dp``
+    (None: the model's own; False where not given)),
+    in one subprocess: ``make_train_step`` jitted on
+    ``training_state_specs`` and ``batch_shardings``, models not pure
+    data-parallel (or as ``pure_dp`` says), compiled with every
     bf16 rounding kept (the default compile skips some, and moves reduced
     qwen2-0.5b's gradients ~9 %: ``_torch_train_pair``): label -> key ->
     {"loss", "params", "m", "v"} (dotted name -> f32 array)."""
@@ -329,8 +362,8 @@ def reference_seq_train_run(meshes: dict, archs: dict, workdir: Path, *, lr: flo
         arrays.update({f"{key}/p:{k}": np.asarray(v, np.float32) for k, v in m["params"].items()})
         arrays.update({f"{key}/b:{k}": np.asarray(v) for k, v in m["batch"].items()})
     np.savez(src, **arrays)
-    meta.write_text(json.dumps({k: {f: m[f] for f in ("arch", "overrides", "max_pos")}
-                                for k, m in archs.items()}))
+    meta.write_text(json.dumps({k: {**{f: m[f] for f in ("arch", "overrides", "max_pos")},
+                                    "pure_dp": m.get("pure_dp", False)} for k, m in archs.items()}))
     script = _SEQ_TRAIN_SCRIPT.format(
         n=max(int(np.prod(sh)) for sh, _, _ in meshes.values()), lr=lr,
         meshes={k: (tuple(sh), tuple(nm), list(keys)) for k, (sh, nm, keys) in meshes.items()})

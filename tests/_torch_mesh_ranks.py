@@ -311,9 +311,14 @@ def case_seq_families(args: dict) -> dict:
     its ``arch``, ``overrides``, ``params``, the B = 1 ``prefill`` batch,
     the decode's starting global ``cache``, its ``feeds`` and first
     ``start`` position), on one mesh whose batch axes B does not fill, a
-    model that is not pure data-parallel: the sharded prefill and the decode
-    steps at ``start``, ``start + 1``, ..., each with the collectives it
-    made, by kind. Also, where asked, the mesh's block order (``ctx.local``
+    model that is not pure data-parallel (or as the entry's ``pure_dp``
+    says; None: the model's own): the sharded prefill and the decode steps at ``start``, ``start +
+    1``, ..., each with the collectives it made, by kind; for the MoE family
+    the assignments each MoE layer of the prefill dropped, of those it
+    routed (``RouteLog``). Where the entry has ``train`` (its
+    ``overrides``, ``params`` and B = 1 train ``batch``), also
+    ``_train_run``'s one step of that model. Also, where asked, the mesh's
+    block order (``ctx.local``
     of ``args["positions"]`` positions under the spec ``(None,
     batch_axes)``, beside ``seq_rank``), the mixer alone on the rank's
     block (``args["mixer"]``: ``_seq_mixer``) and the error of a prefill
@@ -327,25 +332,37 @@ def case_seq_families(args: dict) -> dict:
 
     ctx = _ctx(args["shape"], args["names"])
 
-    def model_of(family: dict):
-        cfg = dataclasses.replace(get_arch(family["arch"]).reduced(), **family["overrides"])
+    from _torch_moe_criteria import RouteLog
+
+    def model_of(family: dict, overrides: dict | None = None):
+        cfg = dataclasses.replace(get_arch(family["arch"]).reduced(),
+                                  **(family["overrides"] if overrides is None else overrides))
         model = build_model(cfg, max_pos=args["max_pos"], device="cpu")
-        model.pure_dp = False
+        pure_dp = family.get("pure_dp", False)  # None: the model's own
+        if pure_dp is not None:
+            model.pure_dp = pure_dp
         return model
 
     out = {}
     for name, family in args["families"].items():
         model = model_of(family)
         ctx.counts.clear()
-        logits = make_prefill_step(model, ctx)(family["params"], family["prefill"])
+        with RouteLog() as routes:
+            logits = make_prefill_step(model, ctx)(family["params"], family["prefill"])
         counts = {"prefill": dict(ctx.counts)}
+        drops = [(int(c["routed"].sum() - c["kept"].sum()), int(c["routed"].sum()))
+                 for c in routes.calls]
         ctx.counts.clear()
         steps = _decode(model, make_serve_step(model, ctx),
                         {**family, "steps": len(family["feeds"]),
                          "cache_len": family["cache"]["k"].shape[2]
                          if "k" in family["cache"] else 0}, ctx, first=family["start"])
         counts["decode"] = {k: v / len(steps) for k, v in ctx.counts.items()}
-        out[name] = {"logits": logits, "decode": steps, "counts": counts}
+        out[name] = {"logits": logits, "decode": steps, "counts": counts, "drops": drops}
+        if "train" in family:
+            train = family["train"]
+            out[name]["train"] = _train_run(ctx, model_of(family, train["overrides"]),
+                                            train["params"], train["batch"], args["lr"])
     out["seq_rank"] = ctx.seq_rank
     if "positions" in args:
         S = args["positions"]

@@ -485,13 +485,15 @@ def tp_rows(cfg, n_seq: int, n_model: int = 1):
     sequence-sharded mesh hold, each block a contiguous copy, one after
     another: ``n_seq`` blocks (a sequence rank's) for what a rank runs on
     its sequence rank's block (the K/V projections, Megatron-SP's
-    gathered products), ``n_seq * n_model`` (a rank's rows)
-    for what it runs on its own rows (the RMS norms of the hidden state,
+    gathered products, the GELU MLP), ``n_seq * n_model`` (a rank's rows)
+    for what it runs on its own rows (the RMS and layer norms of the hidden state,
     and where the fallback layouts run: the query projection, the flash
     kernel's queries at their offsets and the out-projection of a
     head_dim-sharded attention, a replicated MLP). The Mamba2 mixer runs
     whole on each sequence rank's block, its halo and relay handed on from
-    the previous block (``_Sequence``). In f32, cuBLAS may pick
+    the previous block (``_Sequence``). A cross-attention's keys and values
+    are projected from the encoder's whole output, as every rank projects
+    them. In f32, cuBLAS may pick
     another algorithm for a block's shape, whose sums differ in the last
     bit, which ``tp_rounding`` and ``tp_columns`` (the column blocks) do
     not model: entered inside them, it makes the unsharded prefill compute
@@ -516,15 +518,20 @@ def tp_rows(cfg, n_seq: int, n_model: int = 1):
         return fn(x, *rest) if parts is None else torch.cat([fn(b, *rest) for b in parts], dim)
 
     query = [None]  # the weight of the query projection being made
+    # whether its keys and values come from a whole sequence of their own (a
+    # cross-attention's: every rank projects the encoder's gathered output)
+    whole_kv = [False]
 
-    def qkv(self, lp, *a, **k):
-        query[0] = lp["wq"]
+    def qkv(self, lp, x, cos, sin, kv=None, *a, **k):
+        query[0], whole_kv[0] = lp["wq"], kv is not None and not hd_fb
         try:
-            return real["qkv"](self, lp, *a, **k)
+            return real["qkv"](self, lp, x, cos, sin, kv, *a, **k)
         finally:
-            query[0] = None
+            query[0], whole_kv[0] = None, False
 
     def proj(x, w):
+        if whole_kv[0] and w is not query[0]:
+            return real["proj"](x, w)
         return by_rows(real["proj"], x, fine if hd_fb and w is query[0] else coarse, w)
 
     def out_proj(self, lp, o):
@@ -535,6 +542,12 @@ def tp_rows(cfg, n_seq: int, n_model: int = 1):
 
     def norm(x, w, eps=1e-6):
         return by_rows(real["norm"], x, fine, w, eps)
+
+    def layer_norm(x, w, b, eps=1e-6):
+        return by_rows(real["layer_norm"], x, fine, w, b, eps)
+
+    def gelu(x, *w):
+        return by_rows(real["gelu"], x, fine if ffn_fb else coarse, *w)
 
     def flash(q, k, v, *, q_offset: int = 0, **kw):
         parts = blocks(q, fine if hd_fb else coarse, dim=2)
@@ -553,7 +566,8 @@ def tp_rows(cfg, n_seq: int, n_model: int = 1):
 
     targets = {"qkv": (lm.LM, "_qkv", qkv), "proj": (lm, "_proj", proj),
                "out_proj": (lm.LM, "_out_proj", out_proj), "mlp": (lm, "swiglu_mlp", mlp),
-               "norm": (lm, "rms_norm", norm), "flash": (lm, "flash_attention", flash),
+               "norm": (lm, "rms_norm", norm), "layer_norm": (lm, "layer_norm", layer_norm),
+               "gelu": (lm, "gelu_mlp", gelu), "flash": (lm, "flash_attention", flash),
                "mixer": (ssd, "mamba2_mixer", mixer)}
     real = {k: getattr(owner, name) for k, (owner, name, _) in targets.items()}
     for owner, name, fn in targets.values():

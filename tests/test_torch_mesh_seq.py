@@ -28,7 +28,8 @@ one spawned process a rank, every family of a mesh in one launch
 - the collectives a step, by kind; the block order of ``ctx.local`` on
   (pod, data); the relay's one state a hop and the halo's K - 1 rows, and
   the mixer on a rank's block exact against the whole mixer's rows; the
-  errors of what does not run or does not split.
+  errors of what does not split; every family's steps accepted on a
+  spec-only mesh.
 """
 from __future__ import annotations
 
@@ -309,33 +310,34 @@ def _abstract(shape=(2, 1), names=("data", "model")) -> MeshCtx:
     return MeshCtx(AbstractMesh(shape, names))
 
 
-FAMILIES_ITEM = "Sequence sharding for the MoE, VLM and encoder-decoder families"
 RAISES = {
-    # id -> (arch, overrides, mesh shape, step kind, the message's ROADMAP item)
-    "training": ("olmoe_1b_7b", {}, (2, 1), "train", FAMILIES_ITEM),
-    "moe": ("olmoe_1b_7b", {}, (2, 1), "prefill", FAMILIES_ITEM),
-    "moe-decode": ("olmoe_1b_7b", {}, (2, 1), "decode", FAMILIES_ITEM),
-    "vlm": ("qwen2_vl_7b", {}, (2, 1), "prefill", FAMILIES_ITEM),
-    "encdec": ("whisper_base", {}, (2, 1), "prefill", FAMILIES_ITEM),
+    # id -> (arch, overrides, mesh shape, step kind): what raised
+    # ``NotImplementedError`` until every family ran sequence-sharded
+    "training": ("olmoe_1b_7b", {}, (2, 1), "train"),
+    "moe": ("olmoe_1b_7b", {}, (2, 1), "prefill"),
+    "moe-decode": ("olmoe_1b_7b", {}, (2, 1), "decode"),
+    "vlm": ("qwen2_vl_7b", {}, (2, 1), "prefill"),
+    "encdec": ("whisper_base", {}, (2, 1), "prefill"),
 }
 
 
 @pytest.mark.parametrize("case", list(RAISES))
 def test_seq_steps_raise_for_what_does_not_run_yet(case):
-    """A B = 1 step on a mesh of two batch ranks raises
-    ``NotImplementedError`` naming its ROADMAP item, before any
-    collective: the MoE, VLM and encoder-decoder families, serving or
-    training (the dense, SSM and hybrid families train:
-    ``test_torch_seq_train.py``; the fallback layouts over "model" run:
-    ``test_torch_mesh_seq_fallback.py``)."""
-    arch, overrides, shape, kind, item = RAISES[case]
+    """A B = 1 step on a spec-only mesh of two batch ranks: ``seq_ctx`` is
+    the mesh for the MoE, VLM and encoder-decoder families, serving or
+    training, as for the others, and each step builds and stops only at the
+    mesh's missing process group (``RuntimeError``, "AbstractMesh"), as the
+    dense family's does: nothing is refused (they run on gloo ranks:
+    ``test_torch_mesh_seq_families.py``)."""
+    arch, overrides, shape, kind = RAISES[case]
     model = _model(arch, **overrides)
     ctx = _abstract(shape)
     cfg = model.cfg
+    assert model.seq_ctx(ctx, B, train=kind == "train") is ctx
     params = model.init_params(torch.Generator().manual_seed(0))
     batch = make_inputs(cfg, ShapeConfig("t", 256, B, "train" if kind == "train" else "prefill"),
                         seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(RuntimeError, match="AbstractMesh"):
         if kind == "train":
             make_train_step(model, ctx, AdamWConfig())(params, adamw_init(params), batch)
         elif kind == "prefill":

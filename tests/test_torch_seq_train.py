@@ -30,8 +30,8 @@ checkpointed layer keeps what they received for its recompute
 - The dry run traces the sequence-sharded train step of reduced mamba2 on
   a fake (data=2, model=1) mesh; its collectives by kind, FLOPs and peak
   equal those of the same step on two real gloo ranks.
-- What still raises: the MoE, VLM and encoder-decoder families' training at
-  B = 1 (``SEQ_FAMILIES``).
+- The MoE, VLM and encoder-decoder families' training at B = 1 is
+  accepted too (``test_torch_mesh_seq_families.py`` runs it).
 
 Every ``run_ranks`` call passes a timeout of 180 s, which the ranks' gloo
 group takes as its own: a rank that waits for a hop that never comes fails
@@ -211,16 +211,17 @@ def test_dry_run_traces_the_seq_train_step_as_two_gloo_ranks_run_it(tmp_path):
 # ------------------------------------------------------------ what raises
 @pytest.mark.parametrize("arch", ["olmoe_1b_7b", "qwen2_vl_7b", "whisper_base"])
 def test_seq_training_raises_for_the_other_families(arch):
-    """MoE, VLM and encoder-decoder training at B = 1 on two batch ranks
-    raises ``NotImplementedError`` naming its ROADMAP item, before any
-    collective; the dense, SSM and hybrid families' ``seq_ctx`` with
-    ``train`` is the mesh."""
+    """MoE, VLM and encoder-decoder training at B = 1 on two batch ranks, on
+    a spec-only mesh: ``seq_ctx`` with ``train`` is the mesh, as for the
+    dense, SSM and hybrid families, and the step stops only at the mesh's
+    missing process group (``RuntimeError``, "AbstractMesh"); nothing is
+    refused (the steps run on gloo ranks:
+    ``test_torch_mesh_seq_families.py``)."""
     ctx = MeshCtx(AbstractMesh((2, 1), ("data", "model")))
     model = _model(arch)
     params = model.init_params(torch.Generator().manual_seed(0))
     batch = make_inputs(model.cfg, ShapeConfig("t", S, 1, "train"), seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="Sequence sharding for the MoE, VLM and "
-                                                  "encoder-decoder families"):
+    with pytest.raises(RuntimeError, match="AbstractMesh"):
         make_train_step(model, ctx, AdamWConfig())(params, adamw_init(params), batch)
-    for other in ("qwen2_0_5b", "gemma3_1b", "mamba2_2_7b", "zamba2_7b"):
+    for other in ("qwen2_0_5b", "gemma3_1b", "mamba2_2_7b", "zamba2_7b", arch):
         assert _model(other).seq_ctx(ctx, 1, train=True) is ctx
